@@ -1,0 +1,268 @@
+"""The parse engine: padded tables, bucketed chunk grids, three phases.
+
+The reference's layers (``repro/core/engine.py``), in PyTorch:
+
+  tables    ``EngineTables`` — N (A+1, ℓp, ℓp) f32 with the PAD class the
+            identity, I/F (ℓp,) f32, on one device.  ``from_arrays`` takes
+            already-padded arrays, such as the reference's own tables, so
+            both packages can run identical tables.
+  core      ``make_parse_core`` — reach → join (+ the text-start column) →
+            build&merge, one call over a (c, k) or (B, c, k) chunk grid.
+  phases    ``PhasePrograms`` — the same phases as separate callables whose
+            boundaries (products, entries, packed columns) are tensors.
+  engine    ``ParserEngine`` — texts → classes → chunk grids bucketed to
+            power-of-two chunk lengths, grouped into power-of-two batches,
+            one core call per bucket, SLPF assembly on the host.
+
+Texts pad with the PAD class, a semantic no-op, so bucket padding never
+changes a result.  PyTorch runs eagerly: there is no trace to count, and
+``compile_count`` counts the distinct (B, c, k) shapes run, which is the
+number of programs the reference compiles for the same traffic.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .backend import ParserBackend, get_backend, pack_columns_u32
+from .matrices import ParserMatrices, build_matrices
+from .segments import SegmentTable
+from .slpf import SLPF
+
+
+# ---------------------------------------------------------------- tables
+
+
+@dataclass
+class EngineTables:
+    """Device-resident parser tables for one RE."""
+
+    N: torch.Tensor            # (A+1, ℓp, ℓp) f32 — PAD class (index A) = identity
+    I: torch.Tensor            # (ℓp,) f32
+    F: torch.Tensor            # (ℓp,) f32
+    byte_to_class: torch.Tensor  # (256,) int32
+    ell: int                   # true segment count
+    ell_pad: int               # padded to a multiple of the lane pad
+    pad_class: int
+
+    @classmethod
+    def from_arrays(
+        cls,
+        N: np.ndarray,
+        I: np.ndarray,
+        F: np.ndarray,
+        byte_to_class: np.ndarray,
+        ell: int,
+        pad_class: int,
+        device: Union[str, torch.device],
+    ) -> "EngineTables":
+        """Tables from padded numpy arrays (e.g. ``np.asarray`` of the
+        reference engine's tables), placed on ``device``."""
+        N = np.asarray(N, dtype=np.float32)
+        return cls(
+            N=torch.tensor(N, device=device),
+            I=torch.tensor(np.asarray(I, dtype=np.float32), device=device),
+            F=torch.tensor(np.asarray(F, dtype=np.float32), device=device),
+            byte_to_class=torch.tensor(
+                np.asarray(byte_to_class, dtype=np.int32), device=device
+            ),
+            ell=int(ell),
+            ell_pad=int(N.shape[-1]),
+            pad_class=int(pad_class),
+        )
+
+    @classmethod
+    def from_matrices(
+        cls, m: ParserMatrices, lane_pad: int = 32, device="cuda"
+    ) -> "EngineTables":
+        ell = m.n_segments
+        lp = max(lane_pad, ((ell + lane_pad - 1) // lane_pad) * lane_pad)
+        N = np.zeros((m.N.shape[0], lp, lp), dtype=np.float32)
+        N[:, :ell, :ell] = m.N.astype(np.float32)
+        N[-1] = np.eye(lp, dtype=np.float32)  # PAD = identity over the padded space
+        I = np.zeros(lp, dtype=np.float32)
+        I[:ell] = m.I
+        F = np.zeros(lp, dtype=np.float32)
+        F[:ell] = m.F
+        return cls.from_arrays(N, I, F, m.byte_to_class, ell, m.pad_class, device)
+
+
+# ------------------------------------------------------------- parse core
+
+
+def join_with_col0(backend: ParserBackend, P, I, F):
+    """Join over stacked products (…, c, ·), plus the packed text-start
+    column C₀ = I ∧ P₀ᵀ Ĵ₀.  Returns (Jf, Jb, packed C₀ (…, W))."""
+    Jf, Jb = backend.join(P, I, F)
+    col0 = backend.start_column(P, I, Jb[..., 0, :])
+    return Jf, Jb, pack_columns_u32(col0)
+
+
+def make_parse_core(backend: ParserBackend):
+    """``core(N, I, F, chunks) -> (packed C₀ (…, W), packed cols (…, c, k, W))``
+    over a (c, k) chunk grid or a (B, c, k) batch of them."""
+
+    def parse_core(N, I, F, chunks):
+        P = backend.reach(N, chunks)
+        Jf, Jb, col0p = join_with_col0(backend, P, I, F)
+        return col0p, backend.build_merge_packed(N, chunks, Jf, Jb)
+
+    return parse_core
+
+
+class PhasePrograms:
+    """The three phases as separate callables with tensor boundaries:
+
+      reach        (N, chunks (…, k))           → products (…, ·)
+      compose      (later, earlier)             → later ⊗ earlier
+      join         (P (…, c, ·), I, F)          → (Jf, Jb, packed C₀)
+      build_merge  (N, chunks, Jf, Jb)          → (…, k, W) packed columns
+
+    Products are backend-owned; entries are f32 and columns int32 words.
+    """
+
+    def __init__(self, backend: ParserBackend):
+        self.backend = backend
+        self.reach: Callable = backend.reach
+        self.compose: Callable = backend.compose
+        self.join: Callable = lambda P, I, F: join_with_col0(backend, P, I, F)
+        self.build_merge: Callable = backend.build_merge_packed
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; a CUDA device must exist — no CPU fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA device is available; "
+            'pass device="cpu" (with backend="torch") to run on the CPU'
+        )
+    return dev
+
+
+def unpack_columns(packed: np.ndarray, n: int) -> np.ndarray:
+    """(rows, W) uint32 little-endian-bit words → (rows, n) bool.
+
+    Equal to ``matrices.unpack_bits(packed, n)``, through byte-wise
+    ``np.unpackbits`` (the host side of a multi-megabyte parse)."""
+    as_bytes = np.ascontiguousarray(packed, dtype="<u4").view(np.uint8)
+    bits = np.unpackbits(as_bytes, axis=-1, bitorder="little")
+    return bits[:, :n].astype(bool)
+
+
+# ---------------------------------------------------------------- engine
+
+
+class ParserEngine:
+    """Single-device engine: backend-pluggable, shape-bucketed, batched."""
+
+    def __init__(
+        self,
+        matrices_or_table: Union[ParserMatrices, SegmentTable],
+        *,
+        backend: Union[str, ParserBackend] = "cuda",
+        min_chunk_len: int = 8,
+        device=None,
+    ):
+        if isinstance(matrices_or_table, SegmentTable):
+            matrices = build_matrices(matrices_or_table)
+        else:
+            matrices = matrices_or_table
+        self.matrices = matrices
+        self.table = matrices.table
+        self.backend = get_backend(backend)
+        self.device = resolve_device(device)
+        if self.backend.needs_cuda and self.device.type != "cuda":
+            raise ValueError(
+                f"backend {self.backend.name!r} runs only on the card, got "
+                f"device {str(self.device)!r} (use backend='torch' on the CPU)"
+            )
+        self.tables = EngineTables.from_matrices(
+            matrices, lane_pad=self.backend.min_lane_pad, device=self.device
+        )
+        self.min_chunk_len = max(1, min_chunk_len)
+        self.phases = PhasePrograms(self.backend)
+        self._core = make_parse_core(self.backend)
+        self._seen_batch_shapes: set = set()
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct (B, c, k) batch shapes run so far (one per bucket and
+        batch-slot count — the reference's compiled-program count)."""
+        return len(self._seen_batch_shapes)
+
+    def classes_of_text(self, text) -> np.ndarray:
+        if isinstance(text, (bytes, str)):
+            return self.matrices.classes_of_text(text)
+        return np.asarray(text, dtype=np.int32)
+
+    def bucket_shape(self, n: int, n_chunks: int) -> Tuple[int, int]:
+        """Static (c, k) chunk grid for a text of length ``n``: c = n_chunks,
+        k the next power of two ≥ max(min_chunk_len, ⌈n / c⌉)."""
+        c = max(1, n_chunks)
+        k = _next_pow2(max(self.min_chunk_len, -(-n // c)))
+        return c, k
+
+    def _pad_to(self, classes: np.ndarray, c: int, k: int) -> np.ndarray:
+        padded = np.full(c * k, self.tables.pad_class, dtype=np.int32)
+        padded[: len(classes)] = classes
+        return padded.reshape(c, k)
+
+    def chunks_tensor(self, chunks: np.ndarray) -> torch.Tensor:
+        """A host chunk grid as an int32 tensor on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(chunks, dtype=np.int32)).to(
+            self.device
+        )
+
+    def run(self, chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused core on a (c, k) or (B, c, k) grid already on the device:
+        returns (packed C₀ (…, W), packed columns (…, c, k, W)) int32."""
+        t = self.tables
+        return self._core(t.N, t.I, t.F, chunks)
+
+    # --------------------------------------------------------------- parse
+
+    def parse(self, text, n_chunks: int = 8) -> SLPF:
+        """Parse one text (a batch of one; empty texts take the same path)."""
+        return self.parse_batch([text], n_chunks=n_chunks)[0]
+
+    def parse_batch(self, texts: Sequence, n_chunks: int = 8) -> List[SLPF]:
+        """Parse many texts: grouped by (c, k) bucket, each group padded to
+        a power-of-two number of batch rows (extra rows all PAD), one core
+        call per group."""
+        classes_list = [self.classes_of_text(t) for t in texts]
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, cls in enumerate(classes_list):
+            groups.setdefault(self.bucket_shape(len(cls), n_chunks), []).append(i)
+
+        results: List[Optional[SLPF]] = [None] * len(texts)
+        for (c, k), idxs in sorted(groups.items()):
+            B = _next_pow2(len(idxs))
+            self._seen_batch_shapes.add((B, c, k))
+            batch = np.full((B, c, k), self.tables.pad_class, dtype=np.int32)
+            for row, i in enumerate(idxs):
+                batch[row] = self._pad_to(classes_list[i], c, k)
+            col0s, colss = self.run(self.chunks_tensor(batch))
+            col0s = col0s.cpu().numpy()
+            colss = colss.cpu().numpy()
+            for row, i in enumerate(idxs):
+                results[i] = self._assemble(col0s[row], colss[row], classes_list[i])
+        return results  # type: ignore[return-value]
+
+    def _assemble(self, col0, cols, classes) -> SLPF:
+        """Packed C₀ (W,) and columns (c, k, W) → the SLPF of ``classes``."""
+        n = len(classes)
+        W = cols.shape[-1]
+        packed = np.concatenate(
+            [np.asarray(col0)[None], np.asarray(cols).reshape(-1, W)[:n]], axis=0
+        ).view(np.uint32)
+        columns = unpack_columns(packed, self.tables.ell)
+        return SLPF(table=self.table, columns=columns, classes=classes)

@@ -1,0 +1,139 @@
+"""Wrappers of the parser's CUDA kernels, and their build.
+
+Three kernels, each a CUDA C++ file under ``repro_torch/csrc/`` with a plain C
+interface and a launcher module here:
+
+  ``reach_chunk_product``  K1, ``csrc/reach.cu``        (``reach.py``)
+  ``build_merge_packed``   K2, ``csrc/build_merge.cu``  (``build.py``)
+  ``semiring_matmul``      K3, ``csrc/semiring.cu``     (``semiring.py``)
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library at first use — one ``nvcc`` per source, all started together — under
+``repro_torch/kernels/_build/``, named by a hash of the source and flags so
+an edited source is rebuilt.  The libraries are loaded with ``ctypes``.
+
+Every wrapper has the signature of its plain version in ``kernels/ref.py``.
+Given CPU tensors it runs that plain version; given CUDA tensors it checks
+them, launches the kernel on the current stream, raises if the launch
+fails, and adds one to its ``launches`` count.  A CUDA tensor never falls
+back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from . import build as _build
+from . import reach as _reach
+from . import semiring as _semiring
+from .checks import check_cuda
+from .ref import build_merge_packed_ref, reach_chunk_product_ref, semiring_matmul_ref
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+_LAUNCHERS = (_reach, _build, _semiring)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or CUDA_HOME
+    if not home:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME to build the kernels")
+    nvcc = Path(home) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def _target(source: str) -> Path:
+    text = (CSRC / f"{source}.cu").read_bytes()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{source}-{digest}.so"
+
+
+def build() -> Dict[str, ctypes.CDLL]:
+    """Compile (where needed) and load every kernel library; idempotent.
+
+    Raises with the compiler's output if any build fails.
+    """
+    with _lock:
+        if len(_libs) == len(_LAUNCHERS):
+            return _libs
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = [m.SOURCE for m in _LAUNCHERS if not _target(m.SOURCE).exists()]
+        if todo:
+            nvcc = _nvcc()
+            procs = []
+            for source in todo:
+                target = _target(source)
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                procs.append((source, proc, tmp, target))
+            failures = []
+            for source, proc, tmp, target in procs:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failures.append(f"{source}.cu:\n{log.decode(errors='replace')}")
+                else:
+                    os.replace(tmp, target)
+            if failures:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        for m in _LAUNCHERS:
+            lib = ctypes.CDLL(str(_target(m.SOURCE)))
+            for fn_name, (restype, argtypes) in m.SIGNATURES.items():
+                fn = getattr(lib, fn_name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _libs[m.SOURCE] = lib
+        return _libs
+
+
+class KernelWrapper:
+    """A kernel's public entry: the plain version on the CPU, the kernel on
+    the card.  ``launches`` counts the kernel launches it made."""
+
+    def __init__(self, name: str, plain, launcher):
+        self.name = name
+        self.plain = plain
+        self._launcher = launcher
+        self.launches = 0
+
+    def __call__(self, *tensors: torch.Tensor) -> torch.Tensor:
+        if all(t.device.type == "cpu" for t in tensors):
+            return self.plain(*tensors)
+        check_cuda(self.name, *tensors)
+        lib = build()[self._launcher.SOURCE]
+        with torch.cuda.device(tensors[0].device):
+            out = self._launcher.launch(lib, *tensors)
+        self.launches += 1
+        return out
+
+
+reach_chunk_product = KernelWrapper("reach_chunk_product", reach_chunk_product_ref, _reach)
+build_merge_packed = KernelWrapper("build_merge_packed", build_merge_packed_ref, _build)
+semiring_matmul = KernelWrapper("semiring_matmul", semiring_matmul_ref, _semiring)
+
+KERNELS = (reach_chunk_product, build_merge_packed, semiring_matmul)
+
+
+def reset_launches() -> None:
+    """Set every kernel's ``launches`` count to 0."""
+    for kernel in KERNELS:
+        kernel.launches = 0

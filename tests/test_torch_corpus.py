@@ -1,0 +1,82 @@
+"""Shared corpus of the repro ↔ repro_torch parity tests (tests/test_torch_*.py).
+
+The conformance corpus of ``tests/test_conformance.py``: three fixed patterns
+and REgen-random patterns from seeds 11, 23 and 47.  Each key yields the
+reference's artifacts and the port's matrices built from the same AST, plus
+a deterministic text set (empty, valid, corrupted, non-matching).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.core import regex as ref_rx  # noqa: E402
+from repro.core.numbering import number_regex as ref_number_regex  # noqa: E402
+from repro.core.reference import ParallelArtifacts  # noqa: E402
+from repro.core.segments import compute_segments as ref_compute_segments  # noqa: E402
+from repro.data.regen import random_regex, sample_string  # noqa: E402
+from repro_torch.core import regex as port_rx  # noqa: E402
+from repro_torch.core.matrices import build_matrices as port_build_matrices  # noqa: E402
+from repro_torch.core.numbering import number_regex as port_number_regex  # noqa: E402
+from repro_torch.core.segments import compute_segments as port_compute_segments  # noqa: E402
+
+FIXED_PATTERNS = ["(ab|a)*", "(a|b|ab)+", "x(yz|y)*z?"]
+RANDOM_SEEDS = [11, 23, 47]
+CORPUS = FIXED_PATTERNS + [f"seed:{s}" for s in RANDOM_SEEDS]
+N_CHUNKS = 4
+
+_cache: dict = {}
+
+
+def to_port_ast(node):
+    """The same regex AST, rebuilt from repro_torch's node classes."""
+    if isinstance(node, tuple):
+        return tuple(to_port_ast(x) for x in node)
+    if not isinstance(node, ref_rx.Node):
+        return node
+    cls = getattr(port_rx, type(node).__name__)
+    return cls(**{f.name: to_port_ast(getattr(node, f.name)) for f in dataclasses.fields(node)})
+
+
+def artifacts(key):
+    """(reference ParallelArtifacts, port ParserMatrices, reference AST or None)."""
+    if key not in _cache:
+        if key.startswith("seed:"):
+            rng = np.random.Generator(np.random.Philox(int(key[5:])))
+            ast = random_regex(7, rng)
+            art = ParallelArtifacts.generate(ref_compute_segments(ref_number_regex(ast)))
+            port = port_build_matrices(port_compute_segments(port_number_regex(to_port_ast(ast))))
+        else:
+            ast = None
+            art = ParallelArtifacts.generate(key)
+            port = port_build_matrices(port_compute_segments(key))
+        _cache[key] = (art, port, ast)
+    return _cache[key]
+
+
+def texts(key, max_len=24):
+    """Deterministic texts for one key: empty, short valid prefixes, a long
+    valid text, a corrupted one, and one outside every alphabet."""
+    _, _, ast = artifacts(key)
+    rng = np.random.Generator(np.random.Philox(zlib.crc32(key.encode())))
+    node = ast if ast is not None else ref_rx.parse_regex(key)
+    long = b""
+    while len(long) < max_len:
+        long += sample_string(node, rng, max_rep=3)
+    out = [b"", long[:1], b"~", long[:4], long[:6], long,
+           long[: len(long) // 2] + b"~" + long[len(long) // 2:]]
+    return list(dict.fromkeys(out))
+
+
+@pytest.mark.parametrize("key", CORPUS)
+def test_corpus_texts_are_deterministic_and_cover_edges(key):
+    got = texts(key)
+    assert got == texts(key)
+    assert got[0] == b"" and any(b"~" in t for t in got)
+    assert len(got) == len(set(got))

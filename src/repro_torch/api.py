@@ -6,10 +6,13 @@ reference's fields, validation and dict round trip; backend names map as
 ``jnp`` ↔ ``torch``, ``pallas`` ↔ ``cuda`` (``packed``, ``sparse`` and
 ``auto`` keep their names), and the port's default is ``cuda``.
 
-Settings whose subsystem is not ported yet are accepted by ``ParserConfig``
-(so configs round-trip between the packages) and refused by ``Parser`` with
-``NotImplementedError`` naming the ROADMAP item.  ``analyze="warn"`` is
-accepted but does not analyze the pattern yet.
+``kernel=True`` selects the kernel path of ``packed`` (K4) and ``sparse``
+(K5); ``cuda`` is always kernels, as ``pallas`` is in the reference.  A
+kernel path runs only on the card.  Settings whose subsystem is not ported
+yet are accepted by ``ParserConfig`` (so configs round-trip between the
+packages) and refused by ``Parser`` with ``NotImplementedError`` naming the
+ROADMAP item.  ``analyze="warn"`` is accepted but does not analyze the
+pattern yet.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ import dataclasses
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+from .core.backend import PackedBackend, ParserBackend, SparseBackend, get_backend
 from .core.engine import ParserEngine
-from .core.matrices import ParserMatrices, build_matrices
+from .core.matrices import ParserMatrices, build_matrices, feasible_start_widths
 from .core.numbering import CLOSE, OP_GROUP, OPEN
 from .core.segments import SegmentTable, compute_segments
 from .core.slpf import SLPF
@@ -30,8 +34,6 @@ _HOST_MESH_AXES = ("pod", "data")
 _CONFIG_BACKENDS = ("auto", "cuda", "packed", "sparse", "torch")
 # settings refused by Parser until their subsystem is ported (ROADMAP.md)
 _UNPORTED_BACKENDS = {
-    "packed": "Queue 1 item 5 (packed backend)",
-    "sparse": "Queue 1 item 6 (sparse backend)",
     "auto": "Queue 1 item 10 (static analysis)",
 }
 
@@ -206,12 +208,20 @@ class ParserConfig:
     def replace(self, **kw) -> "ParserConfig":
         return dataclasses.replace(self, **kw)
 
+    def build_backend(self) -> ParserBackend:
+        """Instantiate the configured phase backend, kernel toggle applied
+        (``cuda`` is always kernels).  ``auto`` is not a backend: it waits
+        for the static analyzer, and ``get_backend`` refuses it."""
+        if self.backend == "sparse":
+            return SparseBackend(kernel=self.kernel, depth=self.feasible_depth)
+        if self.backend == "packed" and self.kernel:
+            return PackedBackend(kernel=True)
+        return get_backend(self.backend)
+
     def _unported(self) -> Optional[str]:
         """Why ``Parser`` cannot serve this config yet (None if it can)."""
         if self.backend in _UNPORTED_BACKENDS:
             return f"backend={self.backend!r}: ROADMAP {_UNPORTED_BACKENDS[self.backend]}"
-        if self.kernel:
-            return "kernel=True: ROADMAP Queue 1 items 5-6 (packed and sparse kernels)"
         if self.mesh is not None:
             return "mesh: ROADMAP Queue 1 item 11 (mesh distribution)"
         if self.slo is not None:
@@ -235,6 +245,10 @@ class ParseResult:
     bucket: Optional[Tuple[int, int]] = None
     latency_s: Optional[float] = None
     n_chunks: Optional[int] = None
+    # sparse backend only: the observed speculation width of this parse —
+    # feasible start states per real chunk (mean/max) against the carried
+    # product rows S and the paper's ℓp
+    speculation: Optional[Dict[str, Any]] = None
 
     @property
     def ok(self) -> bool:
@@ -316,7 +330,7 @@ class Parser:
         self.matrices = matrices
         self.engine = ParserEngine(
             matrices,
-            backend=config.backend,
+            backend=config.build_backend(),
             min_chunk_len=config.min_chunk_len,
             device=device,
         )
@@ -356,13 +370,36 @@ class Parser:
             {s.num for s in self.table.numbered.symbols if s.kind == OPEN and s.op == OP_GROUP}
         )
 
+    def _speculation(self, slpf: SLPF, bucket: Tuple[int, int]) -> Optional[Dict[str, Any]]:
+        """Observed speculation width of one parse (sparse backend only):
+        the feasible-start-set size of each chunk of this text's bucket,
+        recomputed on the host; all-PAD padding chunks are left out."""
+        if self.backend_name != "sparse":
+            return None
+        eng = self.engine
+        chunks = eng._pad_to(slpf.classes, *bucket)
+        widths = feasible_start_widths(
+            eng.tables.N.cpu().numpy(), chunks, depth=self.config.feasible_depth
+        )
+        real = widths[widths >= 0]
+        return {
+            "width_mean": float(real.mean()) if real.size else 0.0,
+            "width_max": int(real.max()) if real.size else 0,
+            "n_chunks_real": int(real.size),
+            "product_rows": int(eng.backend._width),
+            "ell_pad": int(eng.tables.ell_pad),
+            "depth": self.config.feasible_depth,
+        }
+
     def _wrap(self, slpf: SLPF, latency_s: float) -> ParseResult:
+        bucket = self.engine.bucket_shape(len(slpf.classes), self.config.n_chunks)
         return ParseResult(
             forest=slpf,
             backend=self.backend_name,
-            bucket=self.engine.bucket_shape(len(slpf.classes), self.config.n_chunks),
+            bucket=bucket,
             latency_s=latency_s,
             n_chunks=self.config.n_chunks,
+            speculation=self._speculation(slpf, bucket),
         )
 
     def parse(self, text) -> ParseResult:

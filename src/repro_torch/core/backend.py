@@ -16,27 +16,59 @@ Leading axes (batch rows, chunks) are carried through every phase, so one
 call covers all B·c chunks of a batch.
 
 Backends (names map to the reference's: ``torch`` ↔ ``jnp``, ``cuda`` ↔
-``pallas``):
-  * ``TorchBackend`` — plain tensor code, the twin of ``JnpBackend``; runs
+``pallas``, ``packed`` and ``sparse`` keep theirs):
+  * ``TorchBackend``  — plain tensor code, the twin of ``JnpBackend``; runs
     on the CPU or the card.
-  * ``CudaBackend``  — the twin of ``PallasBackend``: reach through kernel
+  * ``CudaBackend``   — the twin of ``PallasBackend``: reach through kernel
     K1, build&merge through K2 with packed output, compose and the join's
     combine and act through K3 (``kernels/ops.py``).
+  * ``PackedBackend`` — products as (ℓp, W) int32 packed target-set rows and
+    every phase as OR-AND word ops (``core/matrices.py``); ``kernel=True``
+    sends reach, and only reach, through kernel K4.
+  * ``SparseBackend`` — products as (S, 1+W) gathered feasible-start rows,
+    the speculation-width reduction; ``kernel=True`` sends the row fold of
+    reach through kernel K5.
+
+A backend built with ``kernel=True`` runs only on the card
+(``needs_cuda``); its phases called on CPU tensors run the kernels' plain
+versions, as every wrapper does.  Backends whose products depend on the
+automaton take it in ``bind_tables(tables)``, which the engine calls once
+the tables are built; the default is a no-op.  The sparse width S is the
+reference's: the worst single-class feasible width rounded up to a power of
+two (at least ``min_width``), and S = ℓp when that reaches ℓp (the
+dense-fallback rule).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Type, Union
+from typing import Callable, Dict, Optional, Tuple, Type, Union
 
 import torch
 
 from ..kernels import ops
 from ..kernels.ref import (
     build_merge_chunk_ref,
+    packed_reach_chunk_product_ref,
     reach_chunk_product_ref,
     semiring_matmul_ref,
+    sparse_reach_rows_ref,
 )
-from .matrices import pack_bits_torch
+from .matrices import (
+    SPARSE_EMPTY,
+    pack_bits_torch,
+    pack_transition_table_torch,
+    packed_identity,
+    packed_matvec,
+    packed_matvec_T,
+    packed_matvec_T_words,
+    packed_matvec_words,
+    packed_semiring_matmul,
+    sparse_compose,
+    sparse_identity,
+    sparse_init_rows,
+    sparse_matvec,
+    sparse_matvec_T,
+)
 from .scan import exclusive_entries
 
 Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -68,10 +100,13 @@ def matvec_T(matmul: Matmul, m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _batched(matmul, v.unsqueeze(-2), m)[..., 0, :]
 
 
-def join_entries(
-    matmul: Matmul, P: torch.Tensor, I: torch.Tensor, F: torch.Tensor
+def scan_join(
+    compose: Callable, act: Callable, act_T: Callable,
+    P: torch.Tensor, I: torch.Tensor, F: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Join phase (Eq. 7) over a product stack P (…, c, ℓp, ℓp).
+    """Join phase (Eq. 7) over a product stack P (…, c, ·, ·) in any product
+    representation, given its ``compose(later, earlier)``, its mat-vec
+    ``act`` and transposed mat-vec ``act_T``.
 
     Forward entry of chunk i:  J_i = (P_{i-1} ⊗ … ⊗ P_0) I.
     Backward entry of chunk i: Ĵ_i = (P_{c-1} ⊗ … ⊗ P_{i+1})ᵀ F, the scan
@@ -79,19 +114,27 @@ def join_entries(
     transpose.  Returns (Jf, Jb), each f32 (…, c, ℓp).
     """
     Pc = P.movedim(-3, 0).contiguous()                 # chunk axis first
-    Jf = exclusive_entries(
-        combine=lambda later, earlier: _batched(matmul, later, earlier),
-        act=lambda m, v: matvec(matmul, m, v),
-        summaries=Pc,
-        init=I,
-    )
+    Jf = exclusive_entries(combine=compose, act=act, summaries=Pc, init=I)
     Jb_rev = exclusive_entries(
-        combine=lambda later, earlier: _batched(matmul, earlier, later),
-        act=lambda m, v: matvec_T(matmul, m, v),
+        combine=lambda later, earlier: compose(earlier, later),
+        act=act_T,
         summaries=Pc.flip(0),
         init=F,
     )
     return Jf.movedim(0, -2), Jb_rev.flip(0).movedim(0, -2)
+
+
+def join_entries(
+    matmul: Matmul, P: torch.Tensor, I: torch.Tensor, F: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scan_join` over f32 (…, c, ℓp, ℓp) products and a semiring
+    ``matmul``."""
+    return scan_join(
+        lambda later, earlier: _batched(matmul, later, earlier),
+        lambda m, v: matvec(matmul, m, v),
+        lambda m, v: matvec_T(matmul, m, v),
+        P, I, F,
+    )
 
 
 class ParserBackend:
@@ -106,6 +149,11 @@ class ParserBackend:
     name: str = "abstract"
     min_lane_pad: int = 32     # segment-dim alignment this backend requires
     needs_cuda: bool = False   # True: runs only on tensors on the card
+
+    def bind_tables(self, tables) -> None:
+        """One-time hook: the ``EngineTables`` this backend will run, given
+        by the engine before any phase.  A no-op unless the product
+        representation depends on the automaton."""
 
     def matmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -139,13 +187,13 @@ class ParserBackend:
         raise NotImplementedError
 
 
-def _flat(fn, N, chunks, *entries):
-    """Run a (C, k)-chunk phase body on chunks with any leading axes."""
+def _flat(fn, N, chunks, *per_chunk):
+    """Run a (C, k)-chunk phase body on chunks with any leading axes; each
+    ``per_chunk`` tensor carries the same leading axes and one trailing
+    axis (entries (…, ℓp), feasible rows (…, S, W) flatten alike)."""
     lead = chunks.shape[:-1]
-    k = chunks.shape[-1]
-    lp = N.shape[-1]
-    flat = [chunks.reshape(-1, k).contiguous()]
-    flat += [e.reshape(-1, lp).contiguous() for e in entries]
+    flat = [chunks.reshape((-1,) + chunks.shape[-1:]).contiguous()]
+    flat += [x.reshape((-1,) + x.shape[len(lead):]).contiguous() for x in per_chunk]
     out = fn(N, *flat)
     return out.reshape(lead + out.shape[1:])
 
@@ -187,6 +235,164 @@ class CudaBackend(ParserBackend):
         return _flat(ops.build_merge_packed, N, chunks, Jf, Jb)
 
 
+def packed_build_merge(
+    Np: torch.Tensor, ids: torch.Tensor, entry_f: torch.Tensor, entry_b: torch.Tensor
+) -> torch.Tensor:
+    """Fig. 14 builder&merger of C chunks on packed words: (C, k, W) int32
+    clean columns.  Np (A+1, ℓp, W) packed rows, ids (C, k), entries (C, ℓp)
+    f32.  The twin of the reference's ``PackedBackend.build_merge_packed``:
+    forward frontier words fwd[t] = N[x_t] fwd[t-1], backward β_t =
+    N[x_t]ᵀ β_{t+1} from β_k = packed Ĵ, column t = fwd[t] & β_{t+1}."""
+    C, k = ids.shape
+    M = torch.empty((C, k, Np.shape[-1]), dtype=torch.int32, device=Np.device)
+    vp = pack_bits_torch(entry_f)
+    for t in range(k):
+        vp = packed_matvec_words(Np[ids[:, t]], vp)
+        M[:, t] = vp
+    beta = pack_bits_torch(entry_b)
+    for t in range(k - 1, -1, -1):
+        M[:, t] &= beta
+        beta = packed_matvec_T_words(Np[ids[:, t]], beta)
+    return M
+
+
+class PackedBackend(ParserBackend):
+    """Bit-packed phase bodies — the twin of the reference's ``packed``.
+
+    Chunk products are (ℓp, W = ℓp/32) int32 packed target-set rows (the
+    ``pack_transition_table`` orientation).  Reach, compose, the join's
+    combine and act, the start column and build&merge run as AND / OR /
+    shift word ops; the f32 tables are packed inside each phase, so every
+    entry point keeps the engine's table layout.  ``kernel=True`` routes
+    reach through kernel K4 (one launch over all B·c chunks); the other
+    phases have no kernel in the reference and stay plain tensor code.
+    """
+
+    name = "packed"
+    min_lane_pad = 32   # exact word packing needs ℓp % 32 == 0
+
+    def __init__(self, kernel: bool = False):
+        self.kernel = bool(kernel)
+        self.needs_cuda = self.kernel
+
+    def reach(self, N, chunks):
+        fold = ops.packed_reach_chunk_product if self.kernel else packed_reach_chunk_product_ref
+        return _flat(fold, pack_transition_table_torch(N), chunks)
+
+    def compose(self, later, earlier):
+        return packed_semiring_matmul(later, earlier)
+
+    def identity_product(self, ell_pad, device=None):
+        return packed_identity(ell_pad, device)
+
+    def join(self, P, I, F):
+        return scan_join(packed_semiring_matmul, packed_matvec, packed_matvec_T, P, I, F)
+
+    def start_column(self, P, I, Jb0):
+        return I * packed_matvec_T(P[..., 0, :, :], Jb0)
+
+    def build_merge_packed(self, N, chunks, Jf, Jb):
+        return _flat(packed_build_merge, pack_transition_table_torch(N), chunks, Jf, Jb)
+
+
+def next_pow2(n: int) -> int:
+    """The least power of two ≥ n (1 for n ≤ 1)."""
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+class SparseBackend(PackedBackend):
+    """Feasible-start sparse products — the twin of the reference's
+    ``sparse``, the speculation-width reduction.
+
+    Reach computes each chunk's feasible start states (a depth-``depth``
+    backward mat-vec over its leading classes), gathers at most S of them,
+    seeds their packed identity rows and folds only those rows through the
+    chunk — S rows instead of ℓp.  Products are (S, 1+W) int32: [source
+    index | packed target words], ``SPARSE_EMPTY`` marking an unused slot;
+    an all-PAD chunk gives the flagged identity.  S is bound once per
+    automaton by ``bind_tables`` (or ``bind_shape``).  Entries, the start
+    column and build&merge keep the contract's seams; build&merge is the
+    packed one.  ``kernel=True`` sends the row fold through kernel K5.
+    """
+
+    name = "sparse"
+    min_lane_pad = 32
+
+    def __init__(self, kernel: bool = False, depth: int = 1, min_width: int = 8):
+        super().__init__(kernel=kernel)
+        if depth < 1:
+            raise ValueError(f"feasible-prefix depth must be ≥ 1, got {depth}")
+        self.depth = int(depth)
+        self.min_width = int(min_width)
+        self._width: Optional[int] = None      # S: product rows
+        self._ell_pad: Optional[int] = None
+
+    def bind_tables(self, tables) -> None:
+        # per real class (PAD excluded): states with an outgoing transition
+        # on it, the bound of every depth-d feasible set led by that class
+        widths = (tables.N[:-1] > 0).any(dim=1).sum(dim=1)
+        self.bind_shape(tables.N.shape[-1], int(widths.max()) if widths.numel() else 1)
+
+    def bind_shape(self, ell_pad: int, raw_width: int) -> None:
+        """Bind S from ℓp and a raw feasible-width bound: the next power of
+        two ≥ max(min_width, raw_width), or ℓp once that reaches ℓp."""
+        lp = int(ell_pad)
+        S = next_pow2(max(self.min_width, int(raw_width), 1))
+        self._width = lp if S >= lp else S
+        self._ell_pad = lp
+
+    def _require_bound(self, lp: int) -> int:
+        if self._width is None:
+            raise RuntimeError(
+                "sparse backend is unbound — ParserEngine.__init__ calls "
+                "bind_tables(tables) before any phase; standalone use must too"
+            )
+        if lp != self._ell_pad:
+            raise ValueError(
+                f"sparse backend bound to ℓp={self._ell_pad}, got ℓp={lp}; "
+                "one SparseBackend instance serves one automaton"
+            )
+        return self._width
+
+    def feasible_rows(self, N: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+        """(…, k) chunks → (…, S) int32 feasible start states, ascending,
+        ``SPARSE_EMPTY`` in unused slots."""
+        lp = N.shape[-1]
+        S = self._require_bound(lp)
+        u = torch.ones(chunks.shape[:-1] + (lp, 1), dtype=N.dtype, device=N.device)
+        for j in range(min(self.depth, chunks.shape[-1]) - 1, -1, -1):
+            u = semiring_matmul_ref(N[chunks[..., j]].transpose(-1, -2), u)
+        states = torch.arange(lp, dtype=torch.int32, device=N.device)
+        idx = torch.where(u[..., 0] > 0.5, states, SPARSE_EMPTY)
+        return torch.sort(idx, dim=-1).values[..., :S]
+
+    def reach(self, N, chunks):
+        lp = N.shape[-1]
+        S = self._require_bound(lp)
+        idx = self.feasible_rows(N, chunks)                      # (…, S)
+        R0 = sparse_init_rows(idx, lp)                           # (…, S, W)
+        fold = ops.sparse_reach_rows if self.kernel else sparse_reach_rows_ref
+        R = _flat(fold, pack_transition_table_torch(N), chunks, R0)
+        body = torch.cat([idx.unsqueeze(-1), R], dim=-1)
+        # an all-PAD padding chunk ⇔ its first class is PAD (PAD only pads
+        # the tail) ⇒ its product is exactly the identity: the flagged form
+        ident = sparse_identity(S, lp // 32, N.device)
+        pad = (chunks[..., 0] == N.shape[0] - 1)[..., None, None]
+        return torch.where(pad, ident, body)
+
+    def compose(self, later, earlier):
+        return sparse_compose(later, earlier)
+
+    def identity_product(self, ell_pad, device=None):
+        return sparse_identity(self._require_bound(ell_pad), ell_pad // 32, device)
+
+    def join(self, P, I, F):
+        return scan_join(sparse_compose, sparse_matvec, sparse_matvec_T, P, I, F)
+
+    def start_column(self, P, I, Jb0):
+        return I * sparse_matvec_T(P[..., 0, :, :], Jb0)
+
+
 _BACKENDS: Dict[str, Type[ParserBackend]] = {}
 
 
@@ -197,6 +403,8 @@ def register_backend(cls: Type[ParserBackend]) -> Type[ParserBackend]:
 
 register_backend(TorchBackend)
 register_backend(CudaBackend)
+register_backend(PackedBackend)
+register_backend(SparseBackend)
 
 
 def list_backends() -> list:

@@ -28,7 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .backend import ParserBackend, get_backend, pack_columns_u32
+from .backend import ParserBackend, get_backend, next_pow2, pack_columns_u32
 from .matrices import ParserMatrices, build_matrices
 from .segments import SegmentTable
 from .slpf import SLPF
@@ -133,10 +133,6 @@ class PhasePrograms:
         self.build_merge: Callable = backend.build_merge_packed
 
 
-def _next_pow2(x: int) -> int:
-    return 1 << max(0, x - 1).bit_length()
-
-
 def resolve_device(device) -> torch.device:
     """``None`` means the card; a CUDA device must exist — no CPU fallback."""
     dev = torch.device("cuda" if device is None else device)
@@ -188,6 +184,9 @@ class ParserEngine:
         self.tables = EngineTables.from_matrices(
             matrices, lane_pad=self.backend.min_lane_pad, device=self.device
         )
+        # table-dependent backends (the sparse width S) bind their product
+        # shapes here, before any phase runs
+        self.backend.bind_tables(self.tables)
         self.min_chunk_len = max(1, min_chunk_len)
         self.phases = PhasePrograms(self.backend)
         self._core = make_parse_core(self.backend)
@@ -208,7 +207,7 @@ class ParserEngine:
         """Static (c, k) chunk grid for a text of length ``n``: c = n_chunks,
         k the next power of two ≥ max(min_chunk_len, ⌈n / c⌉)."""
         c = max(1, n_chunks)
-        k = _next_pow2(max(self.min_chunk_len, -(-n // c)))
+        k = next_pow2(max(self.min_chunk_len, -(-n // c)))
         return c, k
 
     def _pad_to(self, classes: np.ndarray, c: int, k: int) -> np.ndarray:
@@ -245,7 +244,7 @@ class ParserEngine:
 
         results: List[Optional[SLPF]] = [None] * len(texts)
         for (c, k), idxs in sorted(groups.items()):
-            B = _next_pow2(len(idxs))
+            B = next_pow2(len(idxs))
             self._seen_batch_shapes.add((B, c, k))
             batch = np.full((B, c, k), self.tables.pad_class, dtype=np.int32)
             for row, i in enumerate(idxs):

@@ -1,5 +1,6 @@
 """Argument checks shared by the kernel launchers (``reach``, ``build``,
-``semiring``): what a kernel does not take raises before any launch."""
+``semiring``, ``packed_reach``, ``sparse_reach``): what a kernel does not
+take raises before any launch."""
 
 from __future__ import annotations
 
@@ -52,3 +53,18 @@ def check_table(name: str, N: torch.Tensor) -> int:
         f"{name}: N must be (A+1, ℓp, ℓp) with ℓp % 32 == 0, got {tuple(N.shape)}",
     )
     return N.shape[-1]
+
+
+def check_fold(name: str, lib, Np: torch.Tensor, n_rows: int):
+    """Np (A+1, ℓp, W) int32 packed rows with ℓp = 32·W, folding ``n_rows``
+    ≤ ℓp rows within one block's shared memory (ℓp ≤ 960); returns (ℓp, W)."""
+    require(Np.dtype == torch.int32, f"{name}: Np must be int32 words, got {Np.dtype}")
+    require(
+        Np.dim() == 3 and Np.shape[1] == 32 * Np.shape[2] and Np.shape[2] >= 1,
+        f"{name}: Np must be (A+1, ℓp, ℓp/32), got {tuple(Np.shape)}",
+    )
+    lp, W = Np.shape[1], Np.shape[2]
+    require(n_rows <= lp, f"{name}: {n_rows} rows exceed ℓp={lp}")
+    smem = lib.repro_packed_fold_smem_bytes(lp, n_rows)
+    require(smem <= MAX_SMEM_BYTES, f"{name}: ℓp={lp} needs {smem} B of shared memory")
+    return lp, W

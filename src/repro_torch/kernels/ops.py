@@ -1,11 +1,13 @@
 """Wrappers of the parser's CUDA kernels, and their build.
 
-Three kernels, each a CUDA C++ file under ``repro_torch/csrc/`` with a plain C
-interface and a launcher module here:
+Five kernels in four CUDA C++ files under ``repro_torch/csrc/``, each with a
+plain C interface and a launcher module here:
 
-  ``reach_chunk_product``  K1, ``csrc/reach.cu``        (``reach.py``)
-  ``build_merge_packed``   K2, ``csrc/build_merge.cu``  (``build.py``)
-  ``semiring_matmul``      K3, ``csrc/semiring.cu``     (``semiring.py``)
+  ``reach_chunk_product``         K1, ``csrc/reach.cu``         (``reach.py``)
+  ``build_merge_packed``          K2, ``csrc/build_merge.cu``   (``build.py``)
+  ``semiring_matmul``             K3, ``csrc/semiring.cu``      (``semiring.py``)
+  ``packed_reach_chunk_product``  K4, ``csrc/packed_reach.cu``  (``packed_reach.py``)
+  ``sparse_reach_rows``           K5, ``csrc/packed_reach.cu``  (``sparse_reach.py``)
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library at first use — one ``nvcc`` per source, all started together — under
@@ -32,10 +34,18 @@ from typing import Dict
 import torch
 
 from . import build as _build
+from . import packed_reach as _packed_reach
 from . import reach as _reach
 from . import semiring as _semiring
+from . import sparse_reach as _sparse_reach
 from .checks import check_cuda
-from .ref import build_merge_packed_ref, reach_chunk_product_ref, semiring_matmul_ref
+from .ref import (
+    build_merge_packed_ref,
+    packed_reach_chunk_product_ref,
+    reach_chunk_product_ref,
+    semiring_matmul_ref,
+    sparse_reach_rows_ref,
+)
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -43,7 +53,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-_LAUNCHERS = (_reach, _build, _semiring)
+_LAUNCHERS = (_reach, _build, _semiring, _packed_reach, _sparse_reach)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -67,16 +77,25 @@ def _target(source: str) -> Path:
     return BUILD_DIR / f"{source}-{digest}.so"
 
 
+def _signatures() -> Dict[str, dict]:
+    """Every source's C functions, merged over the launchers that share it."""
+    sigs: Dict[str, dict] = {}
+    for m in _LAUNCHERS:
+        sigs.setdefault(m.SOURCE, {}).update(m.SIGNATURES)
+    return sigs
+
+
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (where needed) and load every kernel library; idempotent.
 
     Raises with the compiler's output if any build fails.
     """
+    sources = _signatures()
     with _lock:
-        if len(_libs) == len(_LAUNCHERS):
+        if len(_libs) == len(sources):
             return _libs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        todo = [m.SOURCE for m in _LAUNCHERS if not _target(m.SOURCE).exists()]
+        todo = [source for source in sources if not _target(source).exists()]
         if todo:
             nvcc = _nvcc()
             procs = []
@@ -95,13 +114,13 @@ def build() -> Dict[str, ctypes.CDLL]:
                     os.replace(tmp, target)
             if failures:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-        for m in _LAUNCHERS:
-            lib = ctypes.CDLL(str(_target(m.SOURCE)))
-            for fn_name, (restype, argtypes) in m.SIGNATURES.items():
+        for source, signatures in sources.items():
+            lib = ctypes.CDLL(str(_target(source)))
+            for fn_name, (restype, argtypes) in signatures.items():
                 fn = getattr(lib, fn_name)
                 fn.restype = restype
                 fn.argtypes = argtypes
-            _libs[m.SOURCE] = lib
+            _libs[source] = lib
         return _libs
 
 
@@ -129,8 +148,18 @@ class KernelWrapper:
 reach_chunk_product = KernelWrapper("reach_chunk_product", reach_chunk_product_ref, _reach)
 build_merge_packed = KernelWrapper("build_merge_packed", build_merge_packed_ref, _build)
 semiring_matmul = KernelWrapper("semiring_matmul", semiring_matmul_ref, _semiring)
+packed_reach_chunk_product = KernelWrapper(
+    "packed_reach_chunk_product", packed_reach_chunk_product_ref, _packed_reach
+)
+sparse_reach_rows = KernelWrapper("sparse_reach_rows", sparse_reach_rows_ref, _sparse_reach)
 
-KERNELS = (reach_chunk_product, build_merge_packed, semiring_matmul)
+KERNELS = (
+    reach_chunk_product,
+    build_merge_packed,
+    semiring_matmul,
+    packed_reach_chunk_product,
+    sparse_reach_rows,
+)
 
 
 def reset_launches() -> None:

@@ -4,15 +4,16 @@ Each function has its kernel's signature (``kernels/ops.py``) and a leading
 batch-of-chunks axis: one call covers every chunk of every batch row.  They
 are the ``torch`` backend's phase bodies, the CPU path of every kernel
 wrapper, and what the CUDA kernels are held against on the card.  All
-arithmetic is OR-AND over {0,1} f32 (matmul, then min(·, 1)), which is exact,
-so a kernel and its plain version agree bit for bit.
+arithmetic is OR-AND over {0,1}: f32 matmul then min(·, 1) for the dense
+kernels, int32 words holding the uint32 bit pattern for the packed ones.  It
+is exact, so a kernel and its plain version agree bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.matrices import pack_bits_torch
+from ..core.matrices import pack_bits_torch, packed_identity, packed_semiring_matmul
 
 
 def semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -63,3 +64,27 @@ def build_merge_packed_ref(
     """Packed form of :func:`build_merge_chunk_ref`: (C, k, ℓp/32) int32 words
     with the uint32 bit pattern of ``pack_bits`` along ℓp."""
     return pack_bits_torch(build_merge_chunk_ref(N, ids, entry_f, entry_b))
+
+
+def packed_reach_chunk_product_ref(Np: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Packed chunk products of C chunks at once, on int32 words.
+
+    Np (A+1, ℓp, W) packed transition rows (row ``k`` of ``Np[a]`` is the
+    target set of source ``k``); ids (C, k) → (C, ℓp, W), the packed
+    identity folded through P'[j] = OR_k bit_k(P[j]) · Np[x_t][k].
+    """
+    C, k = ids.shape
+    lp = Np.shape[-2]
+    P = packed_identity(lp, Np.device).expand(C, lp, Np.shape[-1])
+    return sparse_reach_rows_ref(Np, ids, P)
+
+
+def sparse_reach_rows_ref(Np: torch.Tensor, ids: torch.Tensor, R0: torch.Tensor) -> torch.Tensor:
+    """The same fold over S gathered rows per chunk, seeded from R0.
+
+    Np (A+1, ℓp, W), ids (C, k), R0 (C, S, W) int32 → (C, S, W).
+    """
+    R = R0.contiguous()
+    for t in range(ids.shape[1]):
+        R = packed_semiring_matmul(Np[ids[:, t]], R)
+    return R

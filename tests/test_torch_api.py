@@ -2,9 +2,11 @@
 
 ``Parser.parse`` / ``parse_batch`` results (``ok``, ``matches``,
 ``children``, ``trees``) equal ``repro.Parser``'s and the brute-force LST
-oracle's; ``ParserConfig`` dicts round-trip between the packages under the
-backend-name map; unported settings raise ``NotImplementedError``; the
-package never imports JAX or ``repro``.
+oracle's; every served backend setting (``packed``, ``sparse``, their
+``kernel=True`` paths and ``cuda`` with ``kernel=True``) parses as
+``repro.Parser`` does; ``ParserConfig`` dicts round-trip between the
+packages under the backend-name map; unported settings raise
+``NotImplementedError``; the package never imports JAX or ``repro``.
 """
 
 import json
@@ -23,6 +25,7 @@ from test_torch_corpus import CORPUS, N_CHUNKS, artifacts, texts  # noqa: E402
 import repro  # noqa: E402
 from repro.core.numbering import number_regex  # noqa: E402
 from repro_torch import ParseResult, Parser, ParserConfig, ParserEngine  # noqa: E402
+from repro_torch.core.engine import make_parse_core  # noqa: E402
 
 # backend names of the two packages (ROADMAP.md, "Layout")
 TO_PORT = {"jnp": "torch", "pallas": "cuda", "packed": "packed", "sparse": "sparse",
@@ -156,9 +159,58 @@ def test_config_validation_matches_reference(bad):
         ParserConfig.from_dict({"regex": "a", "colour": 1})
 
 
+SERVED = [
+    {"backend": "packed"}, {"backend": "sparse"}, {"backend": "sparse", "feasible_depth": 2},
+    {"backend": "packed", "kernel": True}, {"backend": "sparse", "kernel": True},
+    {"backend": "cuda", "kernel": True},
+]
+
+
+def _parse_on_cpu_tensors(parser_cfg, matrices, text):
+    """A kernel setting's parse with every phase on CPU tensors, where each
+    kernel wrapper runs its plain version: the configured backend over the
+    engine's tables, bucketing and assembly."""
+    eng = ParserEngine(matrices, backend="torch", min_chunk_len=parser_cfg.min_chunk_len,
+                       device="cpu")
+    backend = parser_cfg.build_backend()
+    backend.bind_tables(eng.tables)
+    classes = eng.classes_of_text(text)
+    chunks = eng.chunks_tensor(eng._pad_to(classes, *eng.bucket_shape(len(classes),
+                                                                    parser_cfg.n_chunks)))
+    t = eng.tables
+    col0, cols = make_parse_core(backend)(t.N, t.I, t.F, chunks)
+    return eng._assemble(col0.numpy(), cols.numpy(), classes)
+
+
+@pytest.mark.parametrize("key", CORPUS)
+@pytest.mark.parametrize("setting", SERVED)
+def test_served_settings_equal_reference_parser(setting, key):
+    """Each served setting parses as ``repro.Parser`` with the same setting:
+    on the CPU where the backend allows it, else on the card when there is
+    one, else with its phases on CPU tensors."""
+    art, port_m, _ = artifacts(key)
+    cfg = ParserConfig(regex=f"<{key}>", n_chunks=N_CHUNKS, **setting)
+    ref_cfg = repro.ParserConfig.from_dict(_mapped(cfg.to_dict(), TO_REF))
+    ref = repro.Parser.from_matrices(art.matrices, ref_cfg)
+    if cfg.build_backend().needs_cuda:
+        with pytest.raises(ValueError, match="runs only on the card"):
+            Parser.from_matrices(port_m, cfg, device="cpu")
+    if not cfg.build_backend().needs_cuda or torch.cuda.is_available():
+        dev = "cpu" if not cfg.build_backend().needs_cuda else "cuda"
+        port = Parser.from_matrices(port_m, cfg, device=dev)
+        assert port.backend_name == TO_PORT[ref.backend_name]
+        for text in texts(key):
+            got, want = port.parse(text), ref.parse(text)
+            _assert_same_result(got, want, ref.groups, text)
+            assert got.speculation == want.speculation, text
+    else:
+        for text in texts(key):
+            got = _parse_on_cpu_tensors(cfg, port_m, text)
+            assert np.array_equal(got.pack(), ref.parse(text).forest.pack()), text
+
+
 @pytest.mark.parametrize("setting", [
-    {"backend": "packed"}, {"backend": "sparse"}, {"backend": "auto"},
-    {"backend": "cuda", "kernel": True}, {"mesh": "host"},
+    {"backend": "auto"}, {"mesh": "host"},
     {"slo": {"p99_s": 0.1}}, {"obs": {"enabled": True}}, {"analyze": "strict"},
 ])
 def test_unported_settings_raise_not_implemented(setting):

@@ -3,7 +3,8 @@
 The conformance corpus of ``tests/test_conformance.py``: three fixed patterns
 and REgen-random patterns from seeds 11, 23 and 47.  Each key yields the
 reference's artifacts and the port's matrices built from the same AST, plus
-a deterministic text set (empty, valid, corrupted, non-matching).
+a deterministic text set (empty, valid, corrupted, non-matching).  Helpers
+carry a reference engine's tables into the port and compare packed words.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import zlib
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.core import regex as ref_rx  # noqa: E402
 from repro.core.numbering import number_regex as ref_number_regex  # noqa: E402
@@ -22,6 +23,7 @@ from repro.core.reference import ParallelArtifacts  # noqa: E402
 from repro.core.segments import compute_segments as ref_compute_segments  # noqa: E402
 from repro.data.regen import random_regex, sample_string  # noqa: E402
 from repro_torch.core import regex as port_rx  # noqa: E402
+from repro_torch.core.engine import EngineTables  # noqa: E402
 from repro_torch.core.matrices import build_matrices as port_build_matrices  # noqa: E402
 from repro_torch.core.numbering import number_regex as port_number_regex  # noqa: E402
 from repro_torch.core.segments import compute_segments as port_compute_segments  # noqa: E402
@@ -72,6 +74,25 @@ def texts(key, max_len=24):
     out = [b"", long[:1], b"~", long[:4], long[:6], long,
            long[: len(long) // 2] + b"~" + long[len(long) // 2:]]
     return list(dict.fromkeys(out))
+
+
+def carried_tables(ref_engine):
+    """The reference engine's padded tables as the port's, on the CPU."""
+    t = ref_engine.tables
+    return EngineTables.from_arrays(
+        np.asarray(t.N), np.asarray(t.I), np.asarray(t.F), np.asarray(t.byte_to_class),
+        t.ell, t.pad_class, device="cpu",
+    )
+
+
+def u32(x):
+    """Packed words of either package as a uint32 numpy array."""
+    return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x).view(np.uint32)
+
+
+def i32(x):
+    """uint32 words (a numpy or JAX array) as the port's int32 tensor."""
+    return torch.from_numpy(np.array(x, dtype=np.uint32).view(np.int32))
 
 
 @pytest.mark.parametrize("key", CORPUS)

@@ -1,5 +1,6 @@
 """repro_torch's CUDA kernels on the card: each kernel against its plain
-PyTorch version, and the ``cuda`` backend against the ``torch`` backend.
+PyTorch version, and the ``cuda``, ``packed`` and ``sparse`` kernel backends
+against the ``torch`` backend.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports no JAX, so it runs on a host that has only PyTorch:
@@ -15,7 +16,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import Parser, ParserConfig, ParserEngine  # noqa: E402
-from repro_torch.core.matrices import build_matrices  # noqa: E402
+from repro_torch.core.backend import SparseBackend  # noqa: E402
+from repro_torch.core.matrices import (  # noqa: E402
+    SPARSE_EMPTY,
+    build_matrices,
+    pack_transition_table_torch,
+    sparse_init_rows,
+)
 from repro_torch.core.segments import compute_segments  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import build_merge_packed_ref  # noqa: E402
@@ -135,3 +142,124 @@ def test_cuda_backend_equals_torch_backend(dev, pattern):
         assert got.ok == want.ok
         assert np.array_equal(got.forest.pack(), want.forest.pack())
     assert p_cuda.backend_name == "cuda"
+
+
+def _packed_table(rng, n_classes, lp, density, dev):
+    """Random asymmetric tables, PAD the identity, packed as the packed
+    backend packs them (rows = target sets of each source)."""
+    N = torch.tensor(_random_table(rng, n_classes, lp, density), device=dev)
+    return pack_transition_table_torch(N)
+
+
+def _feasible_r0(rng, C, S, lp, dev):
+    """R0 (C, S, W): S - 1 random distinct start states per chunk, ascending,
+    and one unused slot."""
+    idx = np.full((C, S), SPARSE_EMPTY, dtype=np.int32)
+    for c in range(C):
+        idx[c, : S - 1] = np.sort(rng.choice(lp, size=S - 1, replace=False))
+    return sparse_init_rows(torch.tensor(idx, device=dev), lp).contiguous()
+
+
+@pytest.mark.parametrize("lp", [64, 288, 320])
+@pytest.mark.parametrize("density", [0.01, 0.1, 0.5])
+@pytest.mark.parametrize("k", [0, 1, 9, 40])
+def test_packed_reach_kernel_equals_plain_random_tables(dev, lp, density, k):
+    rng = np.random.default_rng(lp + k)
+    Np = _packed_table(rng, 5, lp, density, dev)
+    ids = torch.tensor(rng.integers(0, 6, size=(7, k)), dtype=torch.int32, device=dev)
+    got = ops.packed_reach_chunk_product(Np, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.packed_reach_chunk_product.plain(Np, ids))
+
+
+@pytest.mark.parametrize("lp,S", [(64, 8), (288, 256), (320, 16), (320, 320)])
+@pytest.mark.parametrize("density", [0.01, 0.1, 0.5])
+@pytest.mark.parametrize("k", [0, 1, 9, 40])
+def test_sparse_reach_kernel_equals_plain_random_tables(dev, lp, S, density, k):
+    rng = np.random.default_rng(lp + S + k)
+    Np = _packed_table(rng, 5, lp, density, dev)
+    ids = torch.tensor(rng.integers(0, 6, size=(7, k)), dtype=torch.int32, device=dev)
+    R0 = _feasible_r0(rng, 7, S, lp, dev)
+    got = ops.sparse_reach_rows(Np, ids, R0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.sparse_reach_rows.plain(Np, ids, R0))
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("k", [1, 8, 21])
+def test_packed_kernels_equal_plain_on_pattern_tables(dev, pattern, k):
+    t = _pattern_table(pattern, dev)
+    Np = pack_transition_table_torch(t.N)
+    rng = np.random.default_rng(k)
+    C = 6
+    ids = torch.tensor(rng.integers(0, t.N.shape[0], size=(C, k)), dtype=torch.int32, device=dev)
+    sparse = SparseBackend()
+    sparse.bind_tables(t)
+    R0 = sparse_init_rows(sparse.feasible_rows(t.N, ids), t.ell_pad).contiguous()
+    P = ops.packed_reach_chunk_product(Np, ids)
+    R = ops.sparse_reach_rows(Np, ids, R0)
+    torch.cuda.synchronize()
+    assert torch.equal(P, ops.packed_reach_chunk_product.plain(Np, ids))
+    assert torch.equal(R, ops.sparse_reach_rows.plain(Np, ids, R0))
+
+
+def test_packed_wrappers_count_launches_on_the_card_only(dev):
+    rng = np.random.default_rng(1)
+    Np = _packed_table(rng, 3, 64, 0.1, torch.device("cpu"))
+    ids = torch.tensor(rng.integers(0, 4, size=(2, 5)), dtype=torch.int32)
+    R0 = _feasible_r0(rng, 2, 8, 64, torch.device("cpu"))
+    ops.reset_launches()
+    ops.packed_reach_chunk_product(Np, ids)
+    ops.sparse_reach_rows(Np, ids, R0)
+    assert ops.packed_reach_chunk_product.launches == 0 and ops.sparse_reach_rows.launches == 0
+    ops.packed_reach_chunk_product(Np.to(dev), ids.to(dev))
+    ops.sparse_reach_rows(Np.to(dev), ids.to(dev), R0.to(dev))
+    assert ops.packed_reach_chunk_product.launches == 1 and ops.sparse_reach_rows.launches == 1
+
+
+def test_packed_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ids = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    too_wide = torch.zeros((2, 992, 31), dtype=torch.int32, device=dev)   # ℓp > 960
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.packed_reach_chunk_product(too_wide, ids)
+    Np = torch.zeros((2, 64, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ops.packed_reach_chunk_product(Np.float(), ids)                    # not words
+    with pytest.raises(ValueError):
+        ops.packed_reach_chunk_product(torch.zeros((2, 64, 3), dtype=torch.int32, device=dev), ids)
+    with pytest.raises(ValueError):
+        ops.packed_reach_chunk_product(Np, torch.full((1, 4), 2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="exceed"):
+        ops.sparse_reach_rows(Np, ids, torch.zeros((1, 65, 2), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        ops.sparse_reach_rows(Np, ids, torch.zeros((1, 8, 3), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        ops.sparse_reach_rows(Np, ids, torch.zeros((2, 8, 2), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("setting", [
+    {"backend": "packed", "kernel": True}, {"backend": "sparse", "kernel": True},
+    {"backend": "sparse", "kernel": True, "feasible_depth": 2},
+])
+def test_packed_and_sparse_kernel_backends_equal_torch_backend(dev, pattern, setting):
+    cfg = ParserConfig(regex=pattern, n_chunks=4, **setting)
+    p_kern = Parser(cfg, device=dev)
+    p_torch = Parser(ParserConfig(regex=pattern, n_chunks=4, backend="torch"), device=dev)
+    rng = np.random.default_rng(len(pattern))
+    texts = [b"", b"a", b"ab" * 9, b"xyzyyz", b"ba" * 40 + b"~"]
+    texts += [bytes(rng.choice(list(b"abxyz"), size=int(n))) for n in (3, 17, 100)]
+    ops.reset_launches()
+    for got, want in zip(p_kern.parse_batch(texts), p_torch.parse_batch(texts)):
+        assert got.ok == want.ok
+        assert np.array_equal(got.forest.pack(), want.forest.pack())
+    kernel = ops.sparse_reach_rows if setting["backend"] == "sparse" else ops.packed_reach_chunk_product
+    assert kernel.launches >= 1 and ops.reach_chunk_product.launches == 0
+    assert p_kern.backend_name == setting["backend"]
+
+
+def test_cuda_kernel_setting_is_the_cuda_backend(dev):
+    p = Parser(ParserConfig(regex="(a|b|ab)+", n_chunks=4, kernel=True), device=dev)
+    want = Parser(ParserConfig(regex="(a|b|ab)+", n_chunks=4, backend="torch"), device=dev)
+    assert p.backend_name == "cuda"
+    assert np.array_equal(p.parse(b"abab").forest.pack(), want.parse(b"abab").forest.pack())

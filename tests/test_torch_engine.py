@@ -14,12 +14,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
-from test_torch_corpus import CORPUS, N_CHUNKS, artifacts, texts  # noqa: E402
+from test_torch_corpus import CORPUS, N_CHUNKS, artifacts, carried_tables, texts, u32  # noqa: E402
 
 from repro.core.engine import ParserEngine as RefEngine  # noqa: E402
 from repro_torch.core.backend import TorchBackend, get_backend, list_backends  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
-    EngineTables,
     ParserEngine,
     PhasePrograms,
     make_parse_core,
@@ -34,22 +33,10 @@ def _ref_engine(key):
     return _engines[key]
 
 
-def _carried_tables(ref):
-    t = ref.tables
-    return EngineTables.from_arrays(
-        np.asarray(t.N), np.asarray(t.I), np.asarray(t.F), np.asarray(t.byte_to_class),
-        t.ell, t.pad_class, device="cpu",
-    )
-
-
-def _u32(x):
-    return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x).view(np.uint32)
-
-
 @pytest.mark.parametrize("key", CORPUS)
 def test_phase_boundaries_equal_reference_per_bucket(key):
     ref = _ref_engine(key)
-    t = _carried_tables(ref)
+    t = carried_tables(ref)
     phases = PhasePrograms(TorchBackend())
     for text in texts(key) + [texts(key)[-2] * 2]:
         classes = ref.classes_of_text(text)
@@ -67,8 +54,8 @@ def test_phase_boundaries_equal_reference_per_bucket(key):
         assert np.array_equal(gP.numpy(), np.asarray(P)), (key, text)
         assert np.array_equal(gJf.numpy(), np.asarray(Jf)), (key, text)
         assert np.array_equal(gJb.numpy(), np.asarray(Jb)), (key, text)
-        assert np.array_equal(_u32(gcol0), np.asarray(col0)), (key, text)
-        assert np.array_equal(_u32(gcols), np.asarray(cols)), (key, text)
+        assert np.array_equal(u32(gcol0), np.asarray(col0)), (key, text)
+        assert np.array_equal(u32(gcols), np.asarray(cols)), (key, text)
         assert gcols.shape == (c, k, t.ell_pad // 32)
 
 
@@ -76,7 +63,7 @@ def test_phase_boundaries_equal_reference_per_bucket(key):
 def test_engine_tables_equal_reference(key):
     ref = _ref_engine(key)
     port = ParserEngine(artifacts(key)[1], backend="torch", device="cpu")
-    carried = _carried_tables(ref)
+    carried = carried_tables(ref)
     for name in ("N", "I", "F", "byte_to_class"):
         want = np.asarray(getattr(ref.tables, name))
         assert np.array_equal(getattr(port.tables, name).numpy(), want), name
@@ -103,7 +90,7 @@ def test_engine_parse_equals_reference_engine(key):
 
 def test_batched_core_equals_per_row_core():
     ref = _ref_engine("(a|b|ab)+")
-    t = _carried_tables(ref)
+    t = carried_tables(ref)
     core = make_parse_core(TorchBackend())
     rng = np.random.default_rng(3)
     batch = torch.tensor(rng.integers(0, t.N.shape[0], size=(3, 4, 8)).astype(np.int32))
@@ -127,7 +114,7 @@ def test_bucket_shape_and_compile_count_match_reference():
 
 
 def test_backend_registry():
-    assert list_backends() == ["cuda", "torch"]
+    assert list_backends() == ["cuda", "packed", "sparse", "torch"]
     be = TorchBackend()
     assert get_backend(be) is be and get_backend("cuda").name == "cuda"
     with pytest.raises(ValueError, match="unknown parse backend"):

@@ -20,13 +20,20 @@ from repro.core.matrices import pack_bits  # noqa: E402
 from repro.core.reference import ParallelArtifacts  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch.core import backend as port_backend  # noqa: E402
+from repro_torch.core.matrices import (  # noqa: E402
+    SPARSE_EMPTY,
+    pack_transition_table_torch,
+    sparse_init_rows,
+)
 from repro_torch.core.scan import associative_prefix, exclusive_entries  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     build_merge_chunk_ref,
     build_merge_packed_ref,
+    packed_reach_chunk_product_ref,
     reach_chunk_product_ref,
     semiring_matmul_ref,
+    sparse_reach_rows_ref,
 )
 
 PATTERNS = ["(ab|a)*", "(a|b|ab)+", "x(yz|y)*z?"]
@@ -99,9 +106,15 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     )
     a = torch.tensor(_bool(rng, (3, 32, 32), 0.2))
     assert torch.equal(ops.semiring_matmul(a, a), semiring_matmul_ref(a, a))
-    assert [k.launches for k in ops.KERNELS] == [0, 0, 0]
+    Np = pack_transition_table_torch(Nt)
+    R0 = sparse_init_rows(torch.tensor([[0, 5, SPARSE_EMPTY]] * 2, dtype=torch.int32), N.shape[-1])
+    assert torch.equal(ops.packed_reach_chunk_product(Np, ids),
+                       packed_reach_chunk_product_ref(Np, ids))
+    assert torch.equal(ops.sparse_reach_rows(Np, ids, R0), sparse_reach_rows_ref(Np, ids, R0))
+    assert [k.launches for k in ops.KERNELS] == [0] * 5
     assert {k.plain for k in ops.KERNELS} == {
-        reach_chunk_product_ref, build_merge_packed_ref, semiring_matmul_ref
+        reach_chunk_product_ref, build_merge_packed_ref, semiring_matmul_ref,
+        packed_reach_chunk_product_ref, sparse_reach_rows_ref,
     }
 
 

@@ -30,14 +30,43 @@ or ``repro``).  Phases, each printing one JSON line:
              ``cuda``, ``packed`` and ``sparse`` kernel paths on both texts,
              each one's packed columns held against the ``torch`` backend's
 
+and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
+2560, vocab 32000) with random weights from ``--seed``:
+
+  kernel          K6 (flash attention) and K7 (SSD chunk) against their plain
+                  versions at the prefill's shapes, bf16 and f32 (K6 atol 3e-5
+                  f32 / 3e-2 bf16, K7 rtol = atol = 2e-4), with kernel, plain
+                  and (K6) ``scaled_dot_product_attention`` times
+  lm_prefill      ``prefill`` of 2 x 2048 tokens in bf16, counted: seconds,
+                  tokens/s, peak memory, K6 and K7 launches (9 and 108 for
+                  the two-pass SSD), finite logits
+  lm_profile      one more prefill under ``torch.profiler``: device time by
+                  kernel family (K6, K7, cuBLAS GEMMs, the rest) and the
+                  largest kernels
+  lm_consistency  the same model in f32 on a 1 x 512 prompt: ``prefill``
+                  logits (K6, K7) against teacher-forced ``decode_step``
+                  logits (no kernel) at the last position, for the weights
+                  as initialized (reported with their sensitivity to a 1e-6
+                  nudge: the reference's initializer gives attention logits
+                  of scale ~80 at full width, an ill-conditioned function)
+                  and with unit-scale attention logits (max |Δ| within
+                  CONSISTENCY_BOUND)
+  lm_serve        ``ServeEngine.generate`` (greedy and sampled) and the
+                  ``ContinuousBatcher`` under a ``TokenDFA`` for (ab|a)*c over
+                  ``byte_vocab(32000)``: every output a live path of the DFA,
+                  every finished one a full match; decode tokens/s
+
 then the kernel table, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script exits
 non-zero; there is no CPU fallback.  Without a CUDA device it exits 2.
+TF32 is off for matmuls and cuDNN, so the f32 plain versions and the f32
+model run in full f32.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,9 +90,24 @@ BATCH_MS = 20.0
 SLOW_CALL_MS = 1000.0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): {0,1} products are exact on the
-# int8 tensor cores, the cheapest exact type, so bounds use their rate
+# int8 tensor cores, the cheapest exact type, so the parser's bounds use their
+# rate; the LM kernels' bounds use the rate of their operands' type (bf16
+# tensor cores, or f32 outside the tensor cores: TF32 would not be exact)
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+
+LM_ARCH = "zamba2-2.7b"
+LM_BATCH, LM_LEN = 2, 2048          # a multiple of the SSD chunk (256)
+CONSISTENCY_LEN = 512               # two SSD chunks: the join carries a state
+# prefill (K6, K7) against teacher-forced decode (no kernel) in f32, max |Δ|
+# of the last position's logits (scale ~1: rms-normed features through a
+# 1/sqrt(d_model) head), with unit-scale attention logits: the reference's
+# own bound (tests/test_models.py); f32 rounding through the 54 layers moves
+# these logits by ~1e-4, a wrong state, join or mask by O(1)
+CONSISTENCY_BOUND = 2e-3
+LM_PATTERN = "(ab|a)*c"
 
 
 def emit(phase: str, **fields) -> None:
@@ -146,8 +190,8 @@ def time_ms(fn) -> float:
     return statistics.median(batch(n) for _ in range(TIMING_BATCHES))
 
 
-def bound_ms(ops: float, n_bytes: float):
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+def bound_ms(ops: float, n_bytes: float, ops_per_s: float = INT8_OPS_PER_S):
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -308,6 +352,352 @@ def counted(fn):
     return out, seconds, {k.name: k.launches for k in ops.KERNELS}
 
 
+# ------------------------------------------------------------------ LM path
+
+
+def lm_kernel_cases(cfg, dev, seed: int):
+    """K6 and K7 against their plain versions at the shapes zamba2's prefill
+    gives them (LM_BATCH x LM_LEN tokens), in bf16 and f32; returns
+    {dtype name: [K6 record, K7 record]} (launch counts filled later).
+
+    K6 operations: QK^T and PV over the causal triangle, 2·L(L+1)·hd per
+    (batch, head).  K7 operations: C·Bᵀ and (L∘CB)·xdt over the triangle,
+    q(q+1)·(n + hp), plus C·S_prevᵀ and S_c, 4·q·n·hp, per program.  Bytes:
+    each input read once, each output written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.mamba import ssm_dims
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    b, L = LM_BATCH, LM_LEN
+    h, hd = cfg.shared_attn_heads or cfg.n_heads, cfg.resolved_head_dim
+    nh = ssm_dims(cfg.d_model, cfg.ssm)["n_heads"]
+    q, hp, n = cfg.ssm.chunk, cfg.ssm.head_dim, cfg.ssm.d_state
+    P = b * (L // q) * nh
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        e = torch.finfo(dtype).bits // 8
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        recs = []
+
+        qkv = [randn(b, L, h, hd).to(dtype) for _ in range(3)]
+        got = ops.flash_attention(*qkv, causal=True, window=None)
+        torch.cuda.synchronize()
+        want = ops.flash_attention.plain(*qkv, causal=True, window=None)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 3e-5 if dtype == torch.float32 else 3e-2
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {tag}: max |err| {err} > {tol}")
+        del got, want
+        qt, kt, vt = (t.transpose(1, 2) for t in qkv)            # SDPA's (b, h, L, hd)
+        b_ms, b_by = bound_ms(2.0 * L * (L + 1) * hd * b * h, 4.0 * b * L * h * hd * e, rate)
+        recs.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:96",
+            "launches": None, "max_abs_err": err,
+            "ms": time_ms(lambda: ops.flash_attention(*qkv, causal=True, window=None)),
+            "plain_ms": time_ms(lambda: ops.flash_attention.plain(*qkv, causal=True, window=None)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+            "shapes": {"dtype": tag, "b": b, "L": L, "h": h, "hd": hd, "tolerance_atol": tol},
+        })
+        del qkv, qt, kt, vt
+        torch.cuda.empty_cache()
+
+        xdt = randn(P, q, hp, scale=0.3).to(dtype)
+        cs = torch.cumsum(-(torch.rand((P, q, 1), generator=gen, device=dev) * 0.39 + 0.01), dim=1)
+        B, C = randn(P, q, n, scale=0.3).to(dtype), randn(P, q, n, scale=0.3).to(dtype)
+        S_prev = randn(P, hp, n, scale=0.3)
+        args = (xdt, cs, B, C, S_prev)
+        y, S_c = ops.ssd_chunk(*args)
+        torch.cuda.synchronize()
+        y_ref, S_ref = ops.ssd_chunk.plain(*args)
+        err = max((y - y_ref).abs().max().item(), (S_c - S_ref).abs().max().item())
+        close = torch.allclose(y, y_ref, rtol=2e-4, atol=2e-4) and torch.allclose(
+            S_c, S_ref, rtol=2e-4, atol=2e-4)
+        if not close:
+            raise AssertionError(f"ssd_chunk {tag}: not within rtol = atol = 2e-4 (max |err| {err})")
+        del y, S_c, y_ref, S_ref
+        n_ops = P * (q * (q + 1) * (n + hp) + 4.0 * q * n * hp)
+        n_bytes = P * (q * hp * e + 4 * q + 2 * q * n * e + 4 * hp * n + 4 * q * hp + 4 * n * hp)
+        b_ms, b_by = bound_ms(n_ops, n_bytes, rate)
+        recs.append({
+            "name": "ssd_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk.py:64",
+            "launches": None, "max_abs_err": err,
+            "ms": time_ms(lambda: ops.ssd_chunk(*args)),
+            "plain_ms": time_ms(lambda: ops.ssd_chunk.plain(*args)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shapes": {"dtype": tag, "P": P, "q": q, "hp": hp, "n": n,
+                       "tolerance_rtol_atol": 2e-4},
+        })
+        del args, xdt, cs, B, C, S_prev
+        torch.cuda.empty_cache()
+        for rec in recs:
+            emit("kernel", **rec)
+        out[tag] = recs
+    return out
+
+
+def lm_prefill_phase(cfg, params, dev, seed: int):
+    """``prefill`` of LM_BATCH x LM_LEN tokens, counted; returns the counts."""
+    import torch
+
+    from repro_torch.models.model import prefill
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_LEN), generator=gen, device=dev)
+    with torch.no_grad():
+        prefill(params, tokens, cfg)                       # warm-up (cuBLAS, allocator)
+        torch.cuda.reset_peak_memory_stats()
+        (logits, _), secs, counts = counted(lambda: prefill(params, tokens, cfg))
+        device_ms = time_ms(lambda: prefill(params, tokens, cfg))
+    n_shared = len(cfg.layer_kinds) // cfg.shared_attn_every
+    want = {"flash_attention": n_shared, "ssd_chunk": 2 * cfg.layer_kinds.count("ssm")}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"lm_prefill launches {counts}, expected {want}")
+    if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"lm_prefill logits: shape {tuple(logits.shape)} or not finite")
+    emit("lm_prefill", model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, n_params=cfg.n_params, dtype=cfg.dtype, batch=LM_BATCH,
+         seq=LM_LEN, seconds=secs, tokens_per_s=LM_BATCH * LM_LEN / secs,
+         device_ms=device_ms,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=counts, logits_finite=True)
+    lm_profile(cfg, params, tokens)
+    return counts
+
+
+def lm_profile(cfg, params, tokens) -> None:
+    """Device time of one prefill by kernel family, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import prefill
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(params, tokens, cfg)
+        torch.cuda.synchronize()
+    families = {"flash_attention": 0.0, "ssd_chunk": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+        if not us or ev.device_type.name != "CUDA":
+            continue
+        name = ev.key.lower()
+        fam = ("flash_attention" if "flash_" in name and "kernel" in name
+               else "ssd_chunk" if "ssd_chunk" in name
+               else "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
+               else "other")
+        families[fam] += us / 1e3
+        top.append((us / 1e3, ev.key[:80], ev.count))
+    top.sort(reverse=True)
+    emit("lm_profile", device_ms_by_family=families, top=top[:12])
+
+
+def _unit_scale_attention(params, cfg):
+    """The same weights with the shared block's wq and wk scaled by
+    sqrt(heads / d_model): 1/sqrt(d_model), the fan-in of their contraction,
+    where the reference's ``scaled`` initializer divides by sqrt(heads)
+    (the penultimate axis of a (d_model, heads, head_dim) array).  Attention
+    logits then have unit scale instead of ~80."""
+    f = ((cfg.shared_attn_heads or cfg.n_heads) / cfg.d_model) ** 0.5
+    shared = dict(params["shared_attn"], wq=params["shared_attn"]["wq"] * f,
+                  wk=params["shared_attn"]["wk"] * f)
+    return dict(params, shared_attn=shared)
+
+
+def lm_consistency_phase(cfg, params32, dev, seed: int) -> None:
+    """f32 prefill logits (K6, K7) against teacher-forced decode (no kernel)
+    at the last position, for the weights as initialized and for the same
+    weights with unit-scale attention logits; the second is gated.
+
+    With the reference's initializer, zamba2's attention logits at full width
+    have a scale of ~80, which makes the 54-layer function ill-conditioned:
+    ``sensitivity`` (the logits' change when the embeddings move by a
+    relative 1e-6, about f32 rounding) shows how far any two f32 evaluation
+    orders may drift apart, kernels or none."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, make_cache, prefill
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, CONSISTENCY_LEN), generator=gen, device=dev)
+    noise = 1.0 + 1e-6 * torch.randn(params32["embed"].shape, generator=gen, device=dev)
+    runs = {}
+    for label, params in (("reference_init", params32),
+                          ("unit_scale_attention", _unit_scale_attention(params32, cfg))):
+        with torch.no_grad():
+            ops.reset_launches()
+            full, _ = prefill(params, tokens, cfg)
+            launches = {k.name: k.launches for k in ops.KERNELS if k.launches}
+            nudged, _ = prefill(dict(params, embed=params["embed"] * noise), tokens, cfg)
+            caches = make_cache(cfg, 1, CONSISTENCY_LEN, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(CONSISTENCY_LEN):
+                step, caches = decode_step(params, caches, tokens[:, t : t + 1], cfg)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        runs[label] = {"max_abs_delta": (full - step).abs().max().item(),
+                       "sensitivity": (full - nudged).abs().max().item(),
+                       "logits_max_abs": full.abs().max().item(),
+                       "prefill_launches": launches, "decode_s": decode_s,
+                       "decode_tokens_per_s": CONSISTENCY_LEN / decode_s}
+        del full, nudged, step, caches
+    gated = runs["unit_scale_attention"]["max_abs_delta"]
+    if not gated <= CONSISTENCY_BOUND:
+        raise AssertionError(f"lm_consistency: max |Δ| {gated} > {CONSISTENCY_BOUND}")
+    emit("lm_consistency", model=cfg.name, dtype="float32", prompt=CONSISTENCY_LEN,
+         bound=CONSISTENCY_BOUND, gated="unit_scale_attention", **runs)
+
+
+def _dfa_path(tdfa, tokens) -> bool:
+    state = tdfa.initial
+    for tok in tokens:
+        state = int(tdfa.delta[state, int(tok)])
+        if state < 0:
+            return False
+    return True
+
+
+def lm_serve_phase(cfg, params, dev, seed: int) -> None:
+    """``ServeEngine.generate`` and the ``ContinuousBatcher`` under a token
+    DFA: live DFA paths always, full matches when finished."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matrices import build_matrices
+    from repro_torch.core.segments import compute_segments
+    from repro_torch.serve.engine import ServeEngine, TokenDFA, byte_vocab
+    from repro_torch.serve.scheduler import ContinuousBatcher, Request
+
+    t0 = time.perf_counter()
+    tdfa = TokenDFA.from_matrices(build_matrices(compute_segments(LM_PATTERN)),
+                                  byte_vocab(cfg.vocab_size))
+    dfa_s = time.perf_counter() - t0
+    eos, max_new = 0, 24
+
+    def check(out_tokens, cut: bool, label: str) -> bool:
+        toks = [int(t) for t in out_tokens]
+        if not _dfa_path(tdfa, toks):
+            raise AssertionError(f"lm_serve {label}: {toks} leaves the DFA")
+        text = "".join(chr(t) for t in toks)
+        if not cut and not re.fullmatch(LM_PATTERN, text):
+            raise AssertionError(f"lm_serve {label}: finished output {text!r} does not match")
+        return not cut
+
+    runs = {}
+    engine = ServeEngine(cfg, params, max_seq=64, batch=4, eos_id=eos, device=dev)
+    calls = [0]
+    one_step = engine._step
+
+    def counted_step(caches, tokens):
+        calls[0] += 1
+        return one_step(caches, tokens)
+
+    engine._step = counted_step
+    prompts = np.array([[ord(c) for c in p] for p in ("abac", "xyz1", "a  a", "c\n\n\n")],
+                       np.int32)
+    for label, temperature in (("greedy", 0.0), ("sampled", 1.0)):
+        calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, max_new, temperature=temperature, seed=seed,
+                              constraint=tdfa)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        finished = 0
+        for row, acc in zip(res.tokens.tolist(), res.accepted):
+            cut = eos not in row
+            finished += check(row if cut else row[: row.index(eos)], cut, label)
+            if not cut and not acc:
+                raise AssertionError(f"lm_serve {label}: finished row not accepted")
+        runs[label] = {"rows": len(prompts), "decode_steps": calls[0],
+                       "new_tokens": int(res.tokens.size), "finished": finished,
+                       "seconds": secs, "decode_tokens_per_s": len(prompts) * calls[0] / secs,
+                       "outputs": ["".join(chr(t) for t in r if t != eos) for r in res.tokens.tolist()]}
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(97, 100, size=L).astype(np.int32), max_new=16,
+                    temperature=0.0 if i % 2 else 1.0, constraint=tdfa)
+            for i, L in enumerate([2, 5, 3, 9, 4, 7])]
+    batcher = ContinuousBatcher(cfg, params, batch=4, max_seq=256, eos_id=eos, seed=seed,
+                                device=dev)
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = batcher.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != list(range(len(reqs))):
+        raise AssertionError(f"lm_serve batcher: finished {[r.rid for r in done]}")
+    finished = sum(check(r.output, r.output.size >= r.max_new, "batcher") for r in done)
+    steps = batcher._caches["pos"]
+    runs["batcher"] = {"requests": len(reqs), "slots": 4, "decode_steps": steps,
+                       "finished": finished, "seconds": secs,
+                       "decode_tokens_per_s": 4 * steps / secs,
+                       "outputs": ["".join(chr(t) for t in r.output) for r in done]}
+    if runs["sampled"]["finished"] + finished < 1:
+        raise AssertionError("lm_serve: no constrained output finished")
+    emit("lm_serve", model=cfg.name, pattern=LM_PATTERN, dfa_states=int(tdfa.delta.shape[0]),
+         token_dfa_s=dfa_s, all_outputs_in_language=True, **runs)
+
+
+def lm_phases(dev, seed: int):
+    """The LM serving path; returns the bf16 kernel records with the
+    launches of the counted prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(LM_ARCH)
+    kernel_records = lm_kernel_cases(cfg, dev, seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    emit("lm_init", model=cfg.name, dtype=cfg.param_dtype, seconds=time.perf_counter() - t0,
+         bytes=sum(t.numel() * t.element_size() for t in _leaves(params)))
+    bf16 = kernel_records["bfloat16"]
+    counts = lm_prefill_phase(cfg, params, dev, seed)
+    for rec in bf16:
+        rec["launches"] = counts[rec["name"]]
+    lm_serve_phase(cfg, params, dev, seed)
+    params32 = _map_leaves(params, lambda t: t.float())
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                attn_p_dtype="float32")
+    lm_consistency_phase(cfg32, params32, dev, seed)
+    del params32
+    torch.cuda.empty_cache()
+    return bf16
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -322,22 +712,37 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside the script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
-
-    from repro_torch import Parser, ParserConfig
     from repro_torch.kernels import ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
+    # plain versions and the f32 model in full f32: TF32 off for matmuls and cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-         nvidia_smi=smi)
+         nvidia_smi=smi, matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     t0 = time.perf_counter()
     libs = ops.build()
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(libs))
+
+    records = parser_phases(args, dev) + lm_phases(dev, args.seed)
+    print(json.dumps({"kernels": records}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def parser_phases(args, dev):
+    """Every parser path and K1–K5; returns their kernel records (TRAFFIC)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import Parser, ParserConfig
 
     traffic = traffic_log(TRAFFIC_BYTES, args.seed)
     e125 = e125_text(E125_BYTES, args.seed + 1)
@@ -457,12 +862,9 @@ def main() -> int:
             phase_times(parser, want, text, label)
 
     emit("kernels_e125", kernels=e125_records)
-    print(json.dumps({"kernels": records}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    del word_parsers, p_traffic, p_e125, p_traffic_t, p_e125_t
+    torch.cuda.empty_cache()
+    return records
 
 
 if __name__ == "__main__":

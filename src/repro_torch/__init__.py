@@ -1,8 +1,13 @@
 """repro_torch — the parallel regular-expression parser in PyTorch and CUDA.
 
-The port of ``repro`` (JAX) to an NVIDIA H100.  The dense parse path runs
-through three hand-written CUDA kernels (``kernels/``); the ``torch``
-backend runs the same phases as plain tensor code on either device.
+The port of ``repro`` (JAX) to an NVIDIA H100, with seven hand-written CUDA
+kernels (``kernels/``).  The parse paths run through K1–K5: the dense
+``cuda`` backend through K1 reach, K2 build&merge and K3 Boolean matmul, the
+``packed`` and ``sparse`` backends with ``kernel=True`` through K4 / K5; the
+``torch`` backend runs the same phases as plain tensor code on either device.
+The LM serving path (``models``, ``configs``, ``serve``) runs prefill through
+K6 flash attention and K7 SSD chunk; decode and the RE-constrained
+``ServeEngine`` / ``ContinuousBatcher`` run plain tensor code.
 
     import repro_torch
 
@@ -13,6 +18,11 @@ backend runs the same phases as plain tensor code on either device.
     cpu = repro_torch.Parser(
         repro_torch.ParserConfig(regex="(a|b|ab)+", backend="torch"), device="cpu"
     )
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, prefill
+    cfg = get_config("zamba2-2.7b")
+    logits, _ = prefill(init_params(cfg, seed=0), tokens, cfg)   # K6, K7
 """
 
 from .api import ParseResult, Parser, ParserConfig

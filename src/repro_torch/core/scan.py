@@ -6,33 +6,47 @@ every summary with the one ``d`` places earlier, so a stack of c summaries
 takes ⌈log₂ c⌉ batched combines.  Any scan order gives the same bits, because
 the OR-AND semiring on {0,1} is exact.
 
-``combine(later, earlier)`` and ``act(summaries, state)`` work on whole
-stacks: each is one batched call over the leading axes, where the reference
-vmaps a single-element function.
+A summary is one tensor (the parser's products) or a tuple of tensors that
+share the chunk axis (the SSD layer's (decay, state) pairs,
+``models/mamba.py``).  ``combine(later, earlier)`` and ``act(summaries,
+state)`` work on whole stacks: each is one batched call over the leading
+axes, where the reference vmaps a single-element function.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple, TypeVar, Union
 
 import torch
 
-Combine = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (later, earlier)
-Act = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]      # (summaries, state)
+Summary = TypeVar("Summary", torch.Tensor, Tuple[torch.Tensor, ...])
+Combine = Callable[[Summary, Summary], Summary]       # (later, earlier)
+Act = Callable[[Summary, torch.Tensor], torch.Tensor]  # (summaries, state)
 
 
-def associative_prefix(combine: Combine, xs: torch.Tensor) -> torch.Tensor:
+def _map(fn, xs: Union[torch.Tensor, tuple]):
+    return tuple(fn(x) for x in xs) if isinstance(xs, tuple) else fn(xs)
+
+
+def _cat(a, b):
+    if isinstance(a, tuple):
+        return tuple(torch.cat([x, y], dim=0) for x, y in zip(a, b))
+    return torch.cat([a, b], dim=0)
+
+
+def associative_prefix(combine: Combine, xs: Summary) -> Summary:
     """Inclusive prefix combine along axis 0: out[i] = xs[i] ⊗ … ⊗ xs[0]."""
-    c = xs.shape[0]
+    c = (xs[0] if isinstance(xs, tuple) else xs).shape[0]
     d = 1
     while d < c:
-        xs = torch.cat([xs[:d], combine(xs[d:], xs[:-d])], dim=0)
+        xs = _cat(_map(lambda x: x[:d], xs),
+                  combine(_map(lambda x: x[d:], xs), _map(lambda x: x[:-d], xs)))
         d *= 2
     return xs
 
 
 def exclusive_entries(
-    combine: Combine, act: Act, summaries: torch.Tensor, init: torch.Tensor
+    combine: Combine, act: Act, summaries: Summary, init: torch.Tensor
 ) -> torch.Tensor:
     """Entry state per chunk from stacked summaries (axis 0).
 

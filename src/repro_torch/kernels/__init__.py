@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels of the parse path, their launchers, wrappers
-(``ops.py``) and plain PyTorch versions (``ref.py``)."""
+"""Hand-written CUDA kernels of the parse path and the LM serving path, their
+launchers, wrappers (``ops.py``) and plain PyTorch versions (``ref.py``)."""

@@ -1,6 +1,6 @@
 """Argument checks shared by the kernel launchers (``reach``, ``build``,
-``semiring``, ``packed_reach``, ``sparse_reach``): what a kernel does not
-take raises before any launch."""
+``semiring``, ``packed_reach``, ``sparse_reach``, ``flash_attention``,
+``ssd_chunk``): what a kernel does not take raises before any launch."""
 
 from __future__ import annotations
 

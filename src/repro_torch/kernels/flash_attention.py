@@ -1,0 +1,71 @@
+"""K6 launcher: causal / sliding-window attention through ``csrc/flash_attention.cu``.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.  The
+kernel reads the public layout (b, L, h, hd) in place, with K and V already
+repeated to the query heads, so one launch covers every (batch, head) pair
+and no transpose is copied.  bf16 runs on the tensor cores (head_dim a
+multiple of 8 up to 128), f32 in full f32 (head_dim up to 128).  The plain
+version is ``kernels/ref.py::flash_attention_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .checks import check_status, require, stream
+
+SOURCE = "flash_attention"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "repro_flash_supports": (_I, [_I, _I]),
+}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def launch(
+    lib: ctypes.CDLL,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """q (b, Lq, h, hd), k and v (b, Lk, h, hd), one dtype → (b, Lq, h, hd)."""
+    name = "flash_attention"
+    require(
+        q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
+        f"{name}: q, k, v must all be float32 or all bfloat16, got "
+        f"{q.dtype}, {k.dtype}, {v.dtype}",
+    )
+    require(
+        q.dim() == 4 and k.dim() == 4 and k.shape == v.shape and k.shape[0] == q.shape[0]
+        and k.shape[2:] == q.shape[2:],
+        f"{name}: need q (b, Lq, h, hd) and k, v (b, Lk, h, hd), got "
+        f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}",
+    )
+    b, Lq, h, hd = q.shape
+    Lk = k.shape[1]
+    dtype = DTYPES[q.dtype]
+    require(
+        lib.repro_flash_supports(dtype, hd) == 1,
+        f"{name}: head_dim {hd} is not supported for {q.dtype}",
+    )
+    require(b * h <= 65535, f"{name}: b*h = {b * h} exceeds the grid (65535)")
+    require(window is None or window > 0, f"{name}: window must be positive, got {window}")
+    require(Lk > 0 or Lq == 0, f"{name}: no keys")
+    require(
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+        f"{name}: tensors must be 16-byte aligned",
+    )
+    out = torch.empty_like(q)
+    status = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dtype, b, Lq, Lk, h, hd,
+        int(causal), 0 if window is None else int(window), stream(q),
+    )
+    check_status(status, name)
+    return out

@@ -1,20 +1,24 @@
-"""Wrappers of the parser's CUDA kernels, and their build.
+"""Wrappers of the port's CUDA kernels, and their build.
 
-Five kernels in four CUDA C++ files under ``repro_torch/csrc/``, each with a
-plain C interface and a launcher module here:
+Seven kernels in six CUDA C++ files under ``repro_torch/csrc/``, each with a
+plain C interface and a launcher module here.  K1–K5 are the parser's, K6 and
+K7 the LM serving path's:
 
-  ``reach_chunk_product``         K1, ``csrc/reach.cu``         (``reach.py``)
-  ``build_merge_packed``          K2, ``csrc/build_merge.cu``   (``build.py``)
-  ``semiring_matmul``             K3, ``csrc/semiring.cu``      (``semiring.py``)
-  ``packed_reach_chunk_product``  K4, ``csrc/packed_reach.cu``  (``packed_reach.py``)
-  ``sparse_reach_rows``           K5, ``csrc/packed_reach.cu``  (``sparse_reach.py``)
+  ``reach_chunk_product``         K1, ``csrc/reach.cu``            (``reach.py``)
+  ``build_merge_packed``          K2, ``csrc/build_merge.cu``      (``build.py``)
+  ``semiring_matmul``             K3, ``csrc/semiring.cu``         (``semiring.py``)
+  ``packed_reach_chunk_product``  K4, ``csrc/packed_reach.cu``     (``packed_reach.py``)
+  ``sparse_reach_rows``           K5, ``csrc/packed_reach.cu``     (``sparse_reach.py``)
+  ``flash_attention``             K6, ``csrc/flash_attention.cu``  (``flash_attention.py``)
+  ``ssd_chunk``                   K7, ``csrc/ssd_chunk.cu``        (``ssd_chunk.py``)
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library at first use — one ``nvcc`` per source, all started together — under
 ``repro_torch/kernels/_build/``, named by a hash of the source and flags so
 an edited source is rebuilt.  The libraries are loaded with ``ctypes``.
 
-Every wrapper has the signature of its plain version in ``kernels/ref.py``.
+Every wrapper has the signature of its plain version in ``kernels/ref.py``:
+tensors, then static keyword arguments (K6's ``causal`` and ``window``).
 Given CPU tensors it runs that plain version; given CUDA tensors it checks
 them, launches the kernel on the current stream, raises if the launch
 fails, and adds one to its ``launches`` count.  A CUDA tensor never falls
@@ -34,17 +38,21 @@ from typing import Dict
 import torch
 
 from . import build as _build
+from . import flash_attention as _flash
 from . import packed_reach as _packed_reach
 from . import reach as _reach
 from . import semiring as _semiring
 from . import sparse_reach as _sparse_reach
+from . import ssd_chunk as _ssd
 from .checks import check_cuda
 from .ref import (
     build_merge_packed_ref,
+    flash_attention_ref,
     packed_reach_chunk_product_ref,
     reach_chunk_product_ref,
     semiring_matmul_ref,
     sparse_reach_rows_ref,
+    ssd_chunk_ref,
 )
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -53,7 +61,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-_LAUNCHERS = (_reach, _build, _semiring, _packed_reach, _sparse_reach)
+_LAUNCHERS = (_reach, _build, _semiring, _packed_reach, _sparse_reach, _flash, _ssd)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -134,13 +142,13 @@ class KernelWrapper:
         self._launcher = launcher
         self.launches = 0
 
-    def __call__(self, *tensors: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *tensors: torch.Tensor, **static):
         if all(t.device.type == "cpu" for t in tensors):
-            return self.plain(*tensors)
+            return self.plain(*tensors, **static)
         check_cuda(self.name, *tensors)
         lib = build()[self._launcher.SOURCE]
         with torch.cuda.device(tensors[0].device):
-            out = self._launcher.launch(lib, *tensors)
+            out = self._launcher.launch(lib, *tensors, **static)
         self.launches += 1
         return out
 
@@ -152,6 +160,8 @@ packed_reach_chunk_product = KernelWrapper(
     "packed_reach_chunk_product", packed_reach_chunk_product_ref, _packed_reach
 )
 sparse_reach_rows = KernelWrapper("sparse_reach_rows", sparse_reach_rows_ref, _sparse_reach)
+flash_attention = KernelWrapper("flash_attention", flash_attention_ref, _flash)
+ssd_chunk = KernelWrapper("ssd_chunk", ssd_chunk_ref, _ssd)
 
 KERNELS = (
     reach_chunk_product,
@@ -159,6 +169,8 @@ KERNELS = (
     semiring_matmul,
     packed_reach_chunk_product,
     sparse_reach_rows,
+    flash_attention,
+    ssd_chunk,
 )
 
 

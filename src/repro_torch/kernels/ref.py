@@ -1,15 +1,20 @@
-"""Plain PyTorch versions of the parser kernels.
+"""Plain PyTorch versions of the kernels.
 
-Each function has its kernel's signature (``kernels/ops.py``) and a leading
-batch-of-chunks axis: one call covers every chunk of every batch row.  They
-are the ``torch`` backend's phase bodies, the CPU path of every kernel
-wrapper, and what the CUDA kernels are held against on the card.  All
-arithmetic is OR-AND over {0,1}: f32 matmul then min(·, 1) for the dense
-kernels, int32 words holding the uint32 bit pattern for the packed ones.  It
-is exact, so a kernel and its plain version agree bit for bit.
+Each function has its kernel's signature (``kernels/ops.py``).  The parser's
+have a leading batch-of-chunks axis: one call covers every chunk of every
+batch row.  They are the ``torch`` backend's phase bodies, the CPU path of
+every kernel wrapper, and what the CUDA kernels are held against on the card.
+The parser's arithmetic is OR-AND over {0,1}: f32 matmul then min(·, 1) for
+the dense kernels, int32 words holding the uint32 bit pattern for the packed
+ones.  It is exact, so a kernel and its plain version agree bit for bit.  The
+two LM kernels (``flash_attention_ref``, ``ssd_chunk_ref``) are float, and are
+held to the reference's tolerances.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -88,3 +93,52 @@ def sparse_reach_rows_ref(Np: torch.Tensor, ids: torch.Tensor, R0: torch.Tensor)
     for t in range(ids.shape[1]):
         R = packed_semiring_matmul(Np[ids[:, t]], R)
     return R
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    *, causal: bool = True, window: Optional[int] = None,
+) -> torch.Tensor:
+    """Masked softmax attention: q (b, L, h, hd), k and v (b, Lk, h, hd) with
+    the KV heads already repeated to the query heads.  Scores and softmax in
+    f32; p is cast to v's dtype before the PV product (f32 accumulation); the
+    output is in q's dtype."""
+    L, hd = q.shape[1], q.shape[-1]
+    Lk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    qpos = torch.arange(L, device=q.device)[:, None]
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    mask = torch.ones((L, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def ssd_chunk_ref(
+    xdt: torch.Tensor, cs: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+    S_prev: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD intra-chunk output and state contribution per flattened program.
+
+    xdt (P, q, hp), cs (P, q, 1) f32 cumulative decay logs, B and C (P, q, n),
+    S_prev (P, hp, n) f32 → y = (L∘CBᵀ)·xdt + exp(cs)∘(C·S_prevᵀ) (P, q, hp)
+    and S_c = (w∘B)ᵀ·xdt (P, n, hp), all in f32; L_ij = exp(cs_i − cs_j) for
+    i ≥ j, w_j = exp(cs_last − cs_j).
+    """
+    q = xdt.shape[1]
+    csq = cs[..., 0]
+    iota = torch.arange(q, device=xdt.device)
+    Lmask = torch.where(
+        iota[:, None] >= iota[None, :], torch.exp(csq[:, :, None] - csq[:, None, :]), 0.0
+    )
+    Cf, Bf, xf = C.float(), B.float(), xdt.float()
+    CB = torch.einsum("pin,pjn->pij", Cf, Bf)
+    y_intra = torch.einsum("pij,pjh->pih", Lmask * CB, xf)
+    y_inter = torch.exp(csq)[..., None] * torch.einsum("pin,phn->pih", Cf, S_prev.float())
+    w = torch.exp(csq[:, -1:] - csq)
+    S_c = torch.einsum("pqn,pqh->pnh", w[..., None] * Bf, xf)
+    return y_intra + y_inter, S_c

@@ -241,7 +241,12 @@ def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(src)!r})\n"
-        "import repro_torch\n"
+        "import repro_torch, torch\n"
+        "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
+        "from repro_torch.configs import get_smoke\n"
+        "from repro_torch.models import model as m\n"
+        "cfg = get_smoke('zamba2-2.7b')\n"
+        "m.prefill(m.init_params(cfg, device='cpu'), torch.zeros((1, 8), dtype=torch.long), cfg)\n"
         "p = repro_torch.Parser(repro_torch.ParserConfig(regex='(a|b|ab)+', "
         "backend='torch', n_chunks=4), device='cpu')\n"
         "assert p.parse('abab').ok\n"

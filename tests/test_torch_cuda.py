@@ -1,13 +1,16 @@
 """repro_torch's CUDA kernels on the card: each kernel against its plain
-PyTorch version, and the ``cuda``, ``packed`` and ``sparse`` kernel backends
-against the ``torch`` backend.
+PyTorch version, the ``cuda``, ``packed`` and ``sparse`` kernel backends
+against the ``torch`` backend, and the LM prefill through K6 and K7 against
+the same model on its plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports no JAX, so it runs on a host that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance is zero throughout: OR-AND arithmetic on {0,1} is exact.
+The parser's tolerance is zero: OR-AND arithmetic on {0,1} is exact.  The LM
+kernels are float and use the reference's bounds (``tests/test_kernels.py``):
+K6 atol 3e-5 in f32 and 3e-2 in bf16, K7 rtol = atol = 2e-4.
 """
 
 import numpy as np
@@ -263,3 +266,154 @@ def test_cuda_kernel_setting_is_the_cuda_backend(dev):
     want = Parser(ParserConfig(regex="(a|b|ab)+", n_chunks=4, backend="torch"), device=dev)
     assert p.backend_name == "cuda"
     assert np.array_equal(p.parse(b"abab").forest.pack(), want.parse(b"abab").forest.pack())
+
+
+# ------------------------------------------------------------ LM kernels
+
+
+def _qkv(rng, b, L, Lk, h, hd, dtype, dev):
+    return [torch.tensor(rng.standard_normal((b, n, h, hd)).astype(np.float32), device=dev)
+            .to(dtype) for n in (L, Lk, Lk)]
+
+
+@pytest.mark.parametrize("b,L,h,hd", [
+    (2, 256, 4, 80), (1, 37, 3, 80), (2, 130, 2, 64), (1, 1, 2, 32), (1, 257, 2, 128),
+    (3, 100, 5, 16), (1, 64, 1, 96), (2, 90, 2, 120), (1, 33, 4, 8),
+])
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_equals_plain(dev, b, L, h, hd, window, dtype):
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(L * 7 + hd)
+    q, k, v = _qkv(rng, b, L, L, h, hd, dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    want = ops.flash_attention.plain(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_non_causal_and_longer_keys(dev, dtype):
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, 2, 70, 150, 2, 64, dtype, dev)
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    for causal, window in ((False, None), (True, None), (False, 9)):
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ops.flash_attention.plain(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def _ssd_inputs(rng, P, q, hp, n, dtype, dev):
+    def t(x, dt=torch.float32):
+        return torch.tensor(x.astype(np.float32), device=dev).to(dt)
+
+    xdt = t(rng.standard_normal((P, q, hp)) * 0.3, dtype)
+    cs = t(np.cumsum(-rng.uniform(0.01, 0.4, (P, q, 1)), axis=1))
+    B = t(rng.standard_normal((P, q, n)) * 0.3, dtype)
+    C = t(rng.standard_normal((P, q, n)) * 0.3, dtype)
+    S = t(rng.standard_normal((P, hp, n)) * 0.3)
+    return xdt, cs, B, C, S
+
+
+@pytest.mark.parametrize("P,q,hp,n", [
+    (3, 256, 64, 64), (5, 100, 16, 32), (2, 64, 128, 128), (4, 1, 16, 16), (2, 300, 32, 16),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_kernel_equals_plain(dev, P, q, hp, n, dtype):
+    rng = np.random.default_rng(q + hp + n)
+    args = _ssd_inputs(rng, P, q, hp, n, getattr(torch, dtype), dev)
+    y, S_c = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    y_ref, S_ref = ops.ssd_chunk.plain(*args)
+    assert y.shape == (P, q, hp) and S_c.shape == (P, n, hp)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(S_c, S_ref, rtol=2e-4, atol=2e-4)
+
+
+def test_lm_wrappers_count_launches_on_the_card_only(dev):
+    rng = np.random.default_rng(2)
+    q, k, v = _qkv(rng, 1, 16, 16, 2, 32, torch.float32, torch.device("cpu"))
+    args = _ssd_inputs(rng, 2, 16, 16, 16, torch.float32, torch.device("cpu"))
+    ops.reset_launches()
+    ops.flash_attention(q, k, v, causal=True, window=None)
+    ops.ssd_chunk(*args)
+    assert ops.flash_attention.launches == 0 and ops.ssd_chunk.launches == 0
+    ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=True, window=4)
+    ops.ssd_chunk(*[a.to(dev) for a in args])
+    assert ops.flash_attention.launches == 1 and ops.ssd_chunk.launches == 1
+
+
+def test_lm_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, 1, 32, 32, 2, 64, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.half(), k.half(), v.half())                 # f16
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.float(), v)                              # mixed dtypes
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), k, v)                      # not contiguous
+    q36, k36, v36 = _qkv(rng, 1, 32, 32, 2, 36, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q36, k36, v36)                                # not a multiple of 8
+    q_wide = _qkv(rng, 1, 8, 8, 1, 136, torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(*q_wide)                                      # above 128
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :, :1].contiguous(), v[:, :, :1].contiguous())
+    xdt, cs, B, C, S = _ssd_inputs(rng, 2, 32, 16, 16, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(xdt, cs.to(torch.bfloat16), B, C, S)                # cs not f32
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(xdt, cs, B.float(), C, S)                           # mixed dtypes
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(xdt.transpose(1, 2).contiguous().transpose(1, 2), cs, B, C, S)
+    x24, _, B24, C24, S24 = _ssd_inputs(rng, 2, 32, 24, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ops.ssd_chunk(x24, cs, B24, C24, S24)
+
+
+# ------------------------------------------------------------- LM prefill
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "tinyllama-1.1b", "mamba2-2.7b",
+                                  "h2o-danube-3-4b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_on_the_card_equals_the_plain_versions(dev, arch, dtype):
+    """The smoke model's prefill through K6 and K7 on the card against the same
+    model on its plain versions on the CPU (f32: atol 1e-4; bf16: 5e-2 of the
+    logits' scale, bf16 rounding at other places), then decode on both."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype=dtype, param_dtype=dtype,
+                              attn_p_dtype=dtype)
+    params = model.init_params(cfg, seed=1, device="cpu")
+    on_card = _to(params, dev)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24)))
+    want, _ = model.prefill(params, toks, cfg)
+    ops.reset_launches()
+    got, _ = model.prefill(on_card, toks.to(dev), cfg)
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds
+    n_attn = kinds.count("attn") + (len(kinds) // cfg.shared_attn_every if cfg.shared_attn_every else 0)
+    assert ops.flash_attention.launches == n_attn
+    assert ops.ssd_chunk.launches == 2 * kinds.count("ssm")
+    got, want = got.float().cpu(), want.float()
+    tol = 1e-4 if dtype == "float32" else 5e-2 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    caches = model.make_cache(cfg, 2, 8, device=dev)
+    cpu_caches = model.make_cache(cfg, 2, 8, device="cpu")
+    for t in range(4):
+        a, caches = model.decode_step(on_card, caches, toks[:, t : t + 1].to(dev), cfg)
+        b, cpu_caches = model.decode_step(params, cpu_caches, toks[:, t : t + 1], cfg)
+        assert (a.float().cpu() - b.float()).abs().max().item() <= tol
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}

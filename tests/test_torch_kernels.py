@@ -30,10 +30,12 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     build_merge_chunk_ref,
     build_merge_packed_ref,
+    flash_attention_ref,
     packed_reach_chunk_product_ref,
     reach_chunk_product_ref,
     semiring_matmul_ref,
     sparse_reach_rows_ref,
+    ssd_chunk_ref,
 )
 
 PATTERNS = ["(ab|a)*", "(a|b|ab)+", "x(yz|y)*z?"]
@@ -111,10 +113,19 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     assert torch.equal(ops.packed_reach_chunk_product(Np, ids),
                        packed_reach_chunk_product_ref(Np, ids))
     assert torch.equal(ops.sparse_reach_rows(Np, ids, R0), sparse_reach_rows_ref(Np, ids, R0))
-    assert [k.launches for k in ops.KERNELS] == [0] * 5
+    q = torch.tensor(rng.standard_normal((1, 8, 2, 16)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(q, q, q, causal=True, window=3),
+                       flash_attention_ref(q, q, q, causal=True, window=3))
+    x = torch.tensor(rng.standard_normal((2, 8, 16)).astype(np.float32))
+    cs = torch.cumsum(-torch.rand((2, 8, 1)), dim=1)
+    S = torch.zeros((2, 16, 16))
+    for got, want in zip(ops.ssd_chunk(x, cs, x, x, S), ssd_chunk_ref(x, cs, x, x, S)):
+        assert torch.equal(got, want)
+    assert [k.launches for k in ops.KERNELS] == [0] * 7
     assert {k.plain for k in ops.KERNELS} == {
         reach_chunk_product_ref, build_merge_packed_ref, semiring_matmul_ref,
-        packed_reach_chunk_product_ref, sparse_reach_rows_ref,
+        packed_reach_chunk_product_ref, sparse_reach_rows_ref, flash_attention_ref,
+        ssd_chunk_ref,
     }
 
 

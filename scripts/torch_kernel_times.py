@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Time K3 and K6 of one tree of the PyTorch/CUDA port on one NVIDIA GPU, as
+``chip_smoke.py`` times them, and read K6's errors against its plain version.
+
+    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k3,k6,join]
+
+``--tree`` is the root of a checkout of this repository (default: the one
+holding this script).  Its ``src/repro_torch`` is imported and its kernels
+are built there, while the timing code is this script's and
+``chip_smoke.py``'s, so an earlier commit unpacked with ``git archive`` into
+a directory that ``.gitignore`` lists is measured exactly as the current
+one.  To compare two trees, run parent, change, change, parent
+on one card, one after another.  Prints one JSON line per record:
+
+  k3  ``semiring_matmul`` at the first join level of chip_smoke.py's TRAFFIC
+      (8 MiB) and e125 (1 MiB) texts, 1024 chunks: the compose
+      (1023, ℓp, ℓp)², the mat-vec (n = 1) and the vec-mat (m = 1), each
+      beside ``torch.clamp(torch.bmm(a, b), max=1)``.  ``ms``: CUDA events
+      around eager calls; ``device_ms``: the calls back to back behind a
+      device spin; ``cold_device_ms``: the same, each call taking the next of
+      several operand copies that together exceed four times the L2, so its
+      operands come from HBM, as the HBM bound assumes.  Kernel and library
+      in turns (library, kernel, kernel, library) under each measure.
+  k6  ``flash_attention`` at zamba2-2.7b's prefill shape, q, k, v of
+      (2, 2048, 32, 80), causal, bf16 and f32: ``ms`` and ``device_ms`` beside
+      SDPA's in turns, max |err| and the largest per-row relative error
+      (``chip_smoke.row_rel_err``), and that error's largest value over the
+      card tests' ring-edge shapes.
+  join  the ``cuda`` backend's join phase (K3's 23 launches and the scan's
+      host code) on both texts' chunk products: host-clock seconds of
+      JOIN_RUNS joins in a row, the first right after the allocator's cache
+      is emptied (as chip_smoke.py's ``phases`` runs it), with the
+      ``cudaMalloc`` segments each one made, and the device time of one
+      more join's kernels by ``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402  (stdlib only at import; the timing code)
+
+# the card tests' K6 ring-edge cases (tests/test_torch_cuda.py): L, Lk, causal, window
+RING_EDGES = [(1, 1, True, None), (1, 100, False, None), (100, 150, False, None),
+              (150, 100, True, None), (1000, 1000, True, None), (700, 700, True, 40),
+              (300, 300, False, 100), (129, 129, True, 65)]
+JOIN_RUNS = 5
+
+
+def emit(part: str, **fields) -> None:
+    print(json.dumps({"part": part, **fields}), flush=True)
+
+
+def in_turns_all(kernel_fn, library_fn, measures) -> dict:
+    out = {}
+    for key, measure in measures:
+        out[key], out["library_" + key] = cs.in_turns(measure, kernel_fn, library_fn)
+    return out
+
+
+def k3_records(label: str, regex: str, text: bytes, dev) -> None:
+    import torch
+
+    from repro_torch import Parser, ParserConfig
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.kernels import ops
+
+    parser = Parser(ParserConfig(regex=regex, backend="torch", n_chunks=cs.N_CHUNKS), device=dev)
+    eng = parser.engine
+    t = eng.tables
+    classes = eng.classes_of_text(text)
+    c, k = eng.bucket_shape(len(classes), parser.config.n_chunks)
+    P = ops.reach_chunk_product(t.N, eng.chunks_tensor(eng._pad_to(classes, c, k)))
+    Jf, _ = TorchBackend().join(P, t.I, t.F)
+    a, b = P[1:].contiguous(), P[:-1].contiguous()
+    v = Jf[:-1].contiguous()
+    del P, Jf
+    props = torch.cuda.get_device_properties(0)
+    l2 = getattr(props, "L2_cache_size", 50 << 20) or (50 << 20)
+    for case, args in (("compose", (a, b)), ("matvec", (a, v.unsqueeze(-1))),
+                       ("vecmat", (v.unsqueeze(-2), b))):
+        if not torch.equal(ops.semiring_matmul(*args), ops.semiring_matmul.plain(*args)):
+            raise AssertionError(f"{label} {case}: kernel != plain version")
+        nbytes = sum(x.numel() * x.element_size() for x in args)
+        copies = [args] + [tuple(x.clone() for x in args)
+                           for _ in range(max(0, -(-4 * l2 // nbytes) - 1))]
+        turn = itertools.cycle(copies)
+        kern = lambda: ops.semiring_matmul(*args)  # noqa: E731
+        lib = lambda: torch.clamp(torch.bmm(*args), max=1.0)  # noqa: E731
+        kern_cold = lambda: ops.semiring_matmul(*next(turn))  # noqa: E731
+        lib_cold = lambda: torch.clamp(torch.bmm(*next(turn)), max=1.0)  # noqa: E731
+        rec = in_turns_all(kern, lib, (("ms", cs.time_ms), ("device_ms", cs.device_ms)))
+        rec.update(in_turns_all(kern_cold, lib_cold, (("cold_device_ms", cs.device_ms),)))
+        out_bytes = args[0].shape[0] * args[0].shape[1] * args[1].shape[2] * 4
+        emit("k3", text=label, case=case, operands=[list(x.shape) for x in args],
+             copies=len(copies), l2_bytes=l2,
+             hbm_bound_ms=(nbytes + out_bytes) / cs.HBM_BYTES_PER_S * 1e3, **rec)
+        del copies, turn
+        torch.cuda.empty_cache()
+
+
+def k6_records(dev, seed: int) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    b, L, h, hd = cs.LM_BATCH, cs.LM_LEN, 32, 80
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn((b, L, h, hd), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=True, window=None)
+        want = ops.flash_attention.plain(q, k, v, causal=True, window=None)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = cs.row_rel_err(got, want)
+        late = cs.row_rel_err(got[:, L // 2:], want[:, L // 2:])
+        del got, want
+        edge_rel = 0.0
+        for Lq, Lk, causal, window in RING_EDGES:
+            for ehd in (40, 80, 128):
+                eq = torch.randn((1, Lq, 3, ehd), generator=gen, device=dev).to(dtype)
+                ek, ev = (torch.randn((1, Lk, 3, ehd), generator=gen, device=dev).to(dtype)
+                          for _ in range(2))
+                edge_rel = max(edge_rel, cs.row_rel_err(
+                    ops.flash_attention(eq, ek, ev, causal=causal, window=window),
+                    ops.flash_attention.plain(eq, ek, ev, causal=causal, window=window)))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rec = in_turns_all(lambda: ops.flash_attention(q, k, v, causal=True, window=None),
+                           lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                           (("ms", cs.time_ms), ("device_ms", cs.device_ms)))
+        emit("k6", dtype=tag, shape=[b, L, h, hd], max_abs_err=err, max_row_rel_err=rel,
+             late_rows_max_row_rel_err=late, ring_edges_max_row_rel_err=edge_rel, **rec)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def join_records(label: str, regex: str, text: bytes, dev) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import Parser, ParserConfig
+    from repro_torch.kernels import ops
+
+    parser = Parser(ParserConfig(regex=regex, backend="cuda", n_chunks=cs.N_CHUNKS), device=dev)
+    eng = parser.engine
+    t = eng.tables
+    classes = eng.classes_of_text(text)
+    c, k = eng.bucket_shape(len(classes), parser.config.n_chunks)
+    chunks = eng.chunks_tensor(eng._pad_to(classes, c, k))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    P = eng.phases.reach(t.N, chunks)
+    secs, segments = [], []
+    for _ in range(JOIN_RUNS):
+        before = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.phases.join(P, t.I, t.F)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        segments.append(torch.cuda.memory_stats().get("segment.all.allocated", 0) - before)
+    launches = ops.semiring_matmul.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.phases.join(P, t.I, t.F)
+        torch.cuda.synchronize()
+    kernel_ms = sum(cs._device_us(ev) for ev in prof.key_averages()
+                    if ev.device_type.name == "CUDA") / 1e3
+    emit("join", text=label, bucket=[c, k], seconds=secs, malloc_segments=segments,
+         k3_launches=launches, device_kernel_ms=kernel_ms)
+    del P
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", type=Path, default=REPO)
+    ap.add_argument("--parts", default="k3,k6,join")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.tree.resolve() / "src"))
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    ops.build()
+    emit("env", tree=str(args.tree), nvidia_smi=cs.nvidia_smi_line(),
+         torch=torch.__version__, repro_torch=str(Path(ops.__file__).resolve()))
+    parts = args.parts.split(",")
+    if "k3" in parts:
+        k3_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
+        k3_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
+    if "k6" in parts:
+        k6_records(dev, 0)
+    if "join" in parts:
+        join_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
+        join_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

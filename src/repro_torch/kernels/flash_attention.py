@@ -3,9 +3,9 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.  The
 kernel reads the public layout (b, L, h, hd) in place, with K and V already
 repeated to the query heads, so one launch covers every (batch, head) pair
-and no transpose is copied.  bf16 runs on the tensor cores (head_dim a
-multiple of 8 up to 128), f32 in full f32 (head_dim up to 128).  The plain
-version is ``kernels/ref.py::flash_attention_ref``.
+and no transpose is copied.  bf16 runs on wgmma (head_dim a multiple of 8 up
+to 128), f32 on mma.sync in 3xTF32 (head_dim up to 128).  The plain version
+is ``kernels/ref.py::flash_attention_ref``.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "repro_flash_supports": (_I, [_I, _I]),
+    "repro_flash_query_tile": (_I, [_I]),
 }
+MAX_GRID_Y = 65535   # query tiles of one launch
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,7 +57,8 @@ def launch(
         lib.repro_flash_supports(dtype, hd) == 1,
         f"{name}: head_dim {hd} is not supported for {q.dtype}",
     )
-    require(b * h <= 65535, f"{name}: b*h = {b * h} exceeds the grid (65535)")
+    tiles = -(-Lq // lib.repro_flash_query_tile(dtype))
+    require(tiles <= MAX_GRID_Y, f"{name}: {tiles} query tiles exceed the grid ({MAX_GRID_Y})")
     require(window is None or window > 0, f"{name}: window must be positive, got {window}")
     require(Lk > 0 or Lq == 0, f"{name}: no keys")
     require(

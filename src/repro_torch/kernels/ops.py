@@ -17,6 +17,10 @@ library at first use — one ``nvcc`` per source, all started together — under
 ``repro_torch/kernels/_build/``, named by a hash of the source and flags so
 an edited source is rebuilt.  The libraries are loaded with ``ctypes``.
 
+``semiring_matmul`` takes f32 operands holding only 0 and 1 (every caller's
+Boolean matrices): its tensor-core kernel rounds them to bf16, exact on
+{0, 1} and on no other value, where the plain version multiplies in f32.
+
 Every wrapper has the signature of its plain version in ``kernels/ref.py``:
 tensors, then static keyword arguments (K6's ``causal`` and ``window``).
 Given CPU tensors it runs that plain version; given CUDA tensors it checks
@@ -60,6 +64,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",   # registers, shared memory and spills of each kernel, kept in the build log
 ]
 _LAUNCHERS = (_reach, _build, _semiring, _packed_reach, _sparse_reach, _flash, _ssd)
 
@@ -83,6 +88,13 @@ def _target(source: str) -> Path:
     text = (CSRC / f"{source}.cu").read_bytes()
     digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{source}-{digest}.so"
+
+
+def build_log(source: str) -> str:
+    """The compiler's output (with ``ptxas``'s resource lines) of ``source``'s
+    current build, or "" when it has not been built here."""
+    log = _target(source).with_suffix(".log")
+    return log.read_text(errors="replace") if log.exists() else ""
 
 
 def _signatures() -> Dict[str, dict]:
@@ -119,6 +131,7 @@ def build() -> Dict[str, ctypes.CDLL]:
                 if proc.returncode != 0:
                     failures.append(f"{source}.cu:\n{log.decode(errors='replace')}")
                 else:
+                    target.with_suffix(".log").write_bytes(log)
                     os.replace(tmp, target)
             if failures:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
@@ -155,6 +168,7 @@ class KernelWrapper:
 
 reach_chunk_product = KernelWrapper("reach_chunk_product", reach_chunk_product_ref, _reach)
 build_merge_packed = KernelWrapper("build_merge_packed", build_merge_packed_ref, _build)
+# K3: operands must hold only 0 and 1 (multiplied in bf16 on the card)
 semiring_matmul = KernelWrapper("semiring_matmul", semiring_matmul_ref, _semiring)
 packed_reach_chunk_product = KernelWrapper(
     "packed_reach_chunk_product", packed_reach_chunk_product_ref, _packed_reach

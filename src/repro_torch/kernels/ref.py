@@ -22,7 +22,11 @@ from ..core.matrices import pack_bits_torch, packed_identity, packed_semiring_ma
 
 
 def semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Boolean product clamp(a @ b) of (…, m, k) × (…, k, n) {0,1} f32."""
+    """Boolean product clamp(a @ b) of (…, m, k) × (…, k, n) {0,1} f32.
+
+    The operands must hold only 0 and 1: K3 rounds them to bf16, exact on
+    those values only, so this f32 product is its plain version there alone.
+    """
     return torch.clamp(torch.matmul(a, b), max=1.0)
 
 

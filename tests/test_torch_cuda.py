@@ -67,6 +67,61 @@ def test_semiring_matmul_kernel_equals_plain(dev, shape, density):
     assert torch.equal(got, ops.semiring_matmul.plain(a, bb))
 
 
+# the join's automata: TRAFFIC (ℓp = 64) and e125 (ℓp = 288), as chip_smoke.py runs them
+JOIN_PATTERNS = {
+    "traffic": r"((GET|POST|PUT) /([a-z0-9]|/)* ([0-9]{3}) (ok|err|-)\n)+",
+    "e125": "(a|b)*a(a|b){125}",
+}
+
+
+def _join_operands(dev, which, source, density):
+    """The first join level's operands (P[1:], P[:-1]) of 1024 chunk products:
+    real products of random class ids (``source='products'``) or random
+    {0,1} matrices of ``density``; plus {0,1} vectors for the mat-vecs."""
+    t = _pattern_table(JOIN_PATTERNS[which], dev)
+    lp = t.ell_pad
+    rng = np.random.default_rng(lp)
+    if source == "products":
+        ids = torch.tensor(rng.integers(0, t.N.shape[0], size=(1024, 8)), dtype=torch.int32,
+                           device=dev)
+        P = ops.reach_chunk_product.plain(t.N, ids)
+    else:
+        P = torch.tensor((rng.random((1024, lp, lp)) < density).astype(np.float32), device=dev)
+    v = torch.tensor((rng.random((1023, lp)) < 0.5).astype(np.float32), device=dev)
+    return P[1:].contiguous(), P[:-1].contiguous(), v
+
+
+@pytest.mark.parametrize("which", ["traffic", "e125"])
+@pytest.mark.parametrize("source,density", [("products", None), ("random", 0.02),
+                                            ("random", 0.5)])
+def test_semiring_matmul_at_the_join_shapes(dev, which, source, density):
+    """K3 bit for bit at the join's real shapes: the first level's compose
+    (1023, ℓp, ℓp)², the forward act (1023, ℓp, ℓp)·(1023, ℓp, 1) and the
+    backward act (1023, 1, ℓp)·(1023, ℓp, ℓp)."""
+    a, b, v = _join_operands(dev, which, source, density)
+    for x, y in ((a, b), (a, v.unsqueeze(-1)), (v.unsqueeze(-2), b)):
+        got = ops.semiring_matmul(x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.semiring_matmul.plain(x, y))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1, 1), (2, 1, 64, 1), (600, 64, 32, 64), (3, 96, 1000, 96), (2, 97, 288, 95),
+    (4, 64, 33, 130), (1, 1, 5, 7), (9, 5, 3, 1), (300, 288, 288, 288),
+])
+def test_semiring_matmul_ragged_and_ring_wrapping_shapes(dev, shape):
+    """Ragged edges in every dimension, k slices wrapping the 4-stage ring
+    many times (k = 1000: 32 slices), and more work items than resident
+    blocks (persistent blocks walk several)."""
+    b, m, k, n = shape
+    rng = np.random.default_rng(b + m + k + n)
+    a = torch.tensor((rng.random((b, m, k)) < 0.1).astype(np.float32), device=dev)
+    bb = torch.tensor((rng.random((b, k, n)) < 0.1).astype(np.float32), device=dev)
+    got = ops.semiring_matmul(a, bb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.semiring_matmul.plain(a, bb))
+
+
 @pytest.mark.parametrize("lp,density", [(64, 0.05), (288, 0.01), (512, 0.004), (32, 0.2)])
 @pytest.mark.parametrize("k", [0, 1, 7, 33])
 def test_reach_kernel_equals_plain_random_tables(dev, lp, density, k):
@@ -305,6 +360,54 @@ def test_flash_attention_kernel_non_causal_and_longer_keys(dev, dtype):
         torch.cuda.synchronize()
         want = ops.flash_attention.plain(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# beside K6's absolute limits, the largest error of one output row (one
+# batch, position and head) relative to that row: a fault confined to late
+# rows, whose outputs are about as small as the absolute limit, shows here
+K6_ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _assert_flash_close(got, want, dtype):
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    g, w = got.float(), want.float()
+    rel = ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max().item()
+    assert rel <= K6_ROW_REL_TOL[dtype], f"row-relative error {rel}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_at_the_prefill_shape(dev, dtype):
+    """zamba2-2.7b's prefill: q, k, v (2, 2048, 32, 80), causal."""
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(80)
+    q, k, v = _qkv(rng, 2, 2048, 2048, 32, 80, dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=True, window=None)
+    torch.cuda.synchronize()
+    want = ops.flash_attention.plain(q, k, v, causal=True, window=None)
+    _assert_flash_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("L,Lk,causal,window", [
+    (1, 1, True, None),          # one row, one key
+    (1, 100, False, None),       # one row, Lk not a multiple of the 64-key stage
+    (100, 150, False, None),
+    (150, 100, True, None),      # more queries than keys
+    (1000, 1000, True, None),    # 16 key tiles: the ring wraps five times
+    (700, 700, True, 40),        # the window's edge inside a key tile
+    (300, 300, False, 100),      # window without the causal mask
+    (129, 129, True, 65),        # one row past a query tile, window past a key tile
+])
+@pytest.mark.parametrize("hd", [40, 80, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_ring_edges(dev, L, Lk, causal, window, hd, dtype):
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(L + Lk + hd)
+    q, k, v = _qkv(rng, 1, L, Lk, 3, hd, dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ops.flash_attention.plain(q, k, v, causal=causal, window=window)
+    _assert_flash_close(got, want, dtype)
 
 
 def _ssd_inputs(rng, P, q, hp, n, dtype, dev):

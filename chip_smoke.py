@@ -8,14 +8,15 @@ or ``repro``).  Phases, each printing one JSON line:
 
   env        PyTorch version, card name, ``nvidia-smi`` name and power limit
   build      nvcc build time of the kernels' six sources (one process each)
-  kernel_build  K3's and K6's kernels: registers, shared memory and spills
-             (``-Xptxas -v``) and HGMMA / HMMA counts in their SASS
-             (``cuobjdump -sass``); fails if a tensor-core kernel has none
+  kernel_build  K1's, K3's, K6's and K7's kernels: registers, shared memory
+             and spills (``-Xptxas -v``) and HGMMA / HMMA counts in their
+             SASS (``cuobjdump -sass``); fails if a tensor-core kernel has none
   kernel     each of the five kernels against its plain PyTorch version at
              the main path's shapes (``torch.equal``), with kernel, plain and
-             library times; K5's start rows are the sparse backend's own
-             feasible rows for the text; K3 also at the join's mat-vec
-             shapes (n = 1, m = 1)
+             library times; K1 with the kernel its plan chose and, for the
+             group kernel, its shared-memory floor; K5's start rows are the
+             sparse backend's own feasible rows for the text; K3 also at the
+             join's mat-vec shapes (n = 1, m = 1)
   main_path  the user path, each run counted on its own (every launch count
              set to 0 just before it, read just after): on the ``cuda``
              backend, ``Parser.parse`` of an 8 MiB TRAFFIC log
@@ -40,12 +41,14 @@ and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
   kernel          K6 (flash attention) and K7 (SSD chunk) against their plain
                   versions at the prefill's shapes, bf16 and f32 (K6 atol 3e-5
                   f32 / 3e-2 bf16 and a per-row relative limit,
-                  ``K6_ROW_REL_TOL``; K7 rtol = atol = 2e-4), with kernel, plain
-                  and (K6) ``scaled_dot_product_attention`` times and the name
-                  of the kernel SDPA ran
+                  ``K6_ROW_REL_TOL``; K7 rtol = atol = 2e-4 in each ``outputs``
+                  mode, one line each with its own bound and plan), with
+                  kernel, plain and (K6)
+                  ``scaled_dot_product_attention`` times and the name of the
+                  kernel SDPA ran
   lm_prefill      ``prefill`` of 2 x 2048 tokens in bf16, counted: seconds,
                   tokens/s, peak memory, K6 and K7 launches (9 and 108 for
-                  the two-pass SSD), finite logits
+                  the two-pass SSD: 54 ``"state"``, 54 ``"y"``), finite logits
   lm_profile      one more prefill under ``torch.profiler``: device time by
                   kernel family (K6, K7, cuBLAS GEMMs, the rest) and the
                   largest kernels
@@ -63,8 +66,9 @@ and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
                   every finished one a full match; decode tokens/s
 
 then the f32 LM kernel records (``kernels_f32``, launches of the f32
-prefill), the kernel table, the ``nvidia-smi`` line, and as the last line
-``{"ok": true, "device": {...}}``.
+prefill), the kernel table (one record a launch kind: K7's ``"state"`` and
+``"y"`` launches each with their own count, time and bound), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Times: ``ms``, ``library_ms`` and ``plain_ms`` are CUDA-event times around
 eager calls (``time_ms``), which for a call of a few microseconds measure the
@@ -136,12 +140,16 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_query(fields: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi_query("name,power.limit")
 
 
 def traffic_log(n_bytes: int, seed: int) -> bytes:
@@ -296,19 +304,28 @@ def timing_fields(kern_fn, plain_fn, library_fn) -> dict:
     return fields
 
 
-# the redesigned kernels (K3, K6): their ptxas resources and tensor-core
-# instructions are reported, and the latter checked
+# the redesigned kernels (K1, K3, K6, K7): their ptxas resources and
+# tensor-core instructions are reported, and the latter checked
 KERNEL_FUNCS = ("semiring_mm_tc_kernel", "semiring_matvec_kernel", "semiring_vecmat_kernel",
-                "flash_bf16_kernel", "flash_f32_kernel")
+                "flash_bf16_kernel", "flash_f32_kernel", "reach_group_kernel",
+                "reach_strip_kernel", "ssd_tc_kernel", "ssd_simt_kernel")
 TENSOR_CORE_SASS = {"semiring_mm_tc_kernel": ("HMMA", "HGMMA"), "flash_bf16_kernel": ("HGMMA",),
-                    "flash_f32_kernel": ("HMMA", "HGMMA")}
+                    "flash_f32_kernel": ("HMMA", "HGMMA"), "ssd_tc_kernel": ("HMMA", "HGMMA")}
+REDESIGNED_SOURCES = ("reach", "semiring", "flash_attention", "ssd_chunk")
 
 
 def _kernel_name(mangled: str) -> str:
+    """A kernel's name with its template arguments: integers (``<9,4>``) or
+    the element type (``<float>``, ``<bf16>``)."""
     for f in KERNEL_FUNCS:
         if f in mangled:
-            m = re.search(re.escape(f) + r"IL[a-z](\d+)E", mangled)
-            return f"{f}<{m.group(1)}>" if m else f
+            m = re.search(re.escape(f) + r"I((?:L[a-z]\d+E)+)E", mangled)
+            if m:
+                return f"{f}<{','.join(re.findall(r'L[a-z](\d+)E', m.group(1)))}>"
+            m = re.search(re.escape(f) + r"I(f|13__nv_bfloat16)E", mangled)
+            if m:
+                return f"{f}<{'float' if m.group(1) == 'f' else 'bf16'}>"
+            return f
     return mangled[:80]
 
 
@@ -363,9 +380,10 @@ def sass_tensor_ops(source: str):
 
 
 def kernel_build_report() -> None:
-    """ptxas resources and SASS tensor-core counts of K3's and K6's kernels;
-    fails if a kernel that the design puts on the tensor cores has none."""
-    for source in ("semiring", "flash_attention"):
+    """ptxas resources and SASS tensor-core counts of the redesigned kernels
+    (K1, K3, K6, K7); fails if a kernel that the design puts on the tensor
+    cores has none."""
+    for source in REDESIGNED_SOURCES:
         sass = sass_tensor_ops(source)
         if sass is not None:
             for name, counts in sass.items():
@@ -472,9 +490,29 @@ def kernel_cases(parser, text: bytes):
             rec["case"] = case[0]
         else:
             records.append(rec)
-        emit("kernel", pattern=parser.config.regex[:24], tolerance=0, **rec)
+        plan = reach_plan_fields(A1, lp, c * k) if name == "reach_chunk_product" else {}
+        emit("kernel", pattern=parser.config.regex[:24], tolerance=0, **rec, **plan)
         torch.cuda.empty_cache()
     return records
+
+
+def reach_plan_fields(n_classes: int, lp: int, steps: int) -> dict:
+    """K1's plan for the table, and for the group kernel its own floor: at
+    each of the ``steps`` it walks (PAD ones too), every column reads W words
+    from each of ℓp/g table entries, which shared memory serves at 128 bytes
+    a clock on each SM (the card's SM count and maximum SM clock)."""
+    import torch
+
+    from repro_torch.kernels import reach
+
+    kind, g = reach.plan(n_classes, lp)
+    fields = {"plan": [kind, g]}
+    if kind == "group":
+        clock_hz = float(nvidia_smi_query("clocks.max.sm").split()[0]) * 1e6
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        n_bytes = steps * lp * (lp // g) * (lp // 32) * 4
+        fields["smem_floor_ms"] = n_bytes / (128 * sms * clock_hz) * 1e3
+    return fields
 
 
 def torch_backend_columns(p_torch, text: bytes):
@@ -542,7 +580,7 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, seconds, {k.name: k.launches for k in ops.KERNELS}
+    return out, seconds, ops.launch_counts()
 
 
 # ------------------------------------------------------------------ LM path
@@ -554,9 +592,8 @@ def lm_kernel_cases(cfg, dev, seed: int):
     {dtype name: [K6 record, K7 record]} (launch counts filled later).
 
     K6 operations: QK^T and PV over the causal triangle, 2·L(L+1)·hd per
-    (batch, head).  K7 operations: C·Bᵀ and (L∘CB)·xdt over the triangle,
-    q(q+1)·(n + hp), plus C·S_prevᵀ and S_c, 4·q·n·hp, per program.  Bytes:
-    each input read once, each output written once."""
+    (batch, head); K7's by ``outputs`` (``ssd_bound``).  Bytes: each input
+    read once, each output written once."""
     import torch
     import torch.nn.functional as F
 
@@ -617,33 +654,71 @@ def lm_kernel_cases(cfg, dev, seed: int):
         B, C = randn(P, q, n, scale=0.3).to(dtype), randn(P, q, n, scale=0.3).to(dtype)
         S_prev = randn(P, hp, n, scale=0.3)
         args = (xdt, cs, B, C, S_prev)
-        y, S_c = ops.ssd_chunk(*args)
+        emit("kernel", **recs[0])
+        recs += ssd_records(args, e, rate, tag)
+        del args, xdt, cs, B, C, S_prev
+        torch.cuda.empty_cache()
+        out[tag] = recs
+    return out
+
+
+def ssd_bound(P, q, hp, n, e, rate, outputs):
+    """K7's bound for ``outputs``: y reads xdt, cs, B, C, S_prev and writes y
+    with q(q+1)(n + hp) + 2qn·hp operations per program (C·Bᵀ and (L∘CB)·xdt
+    over the triangle, C·S_prevᵀ); S_c reads xdt, cs, B and writes S_c with
+    2qn·hp; both, the union."""
+    ops_y = q * (q + 1) * (n + hp) + 2.0 * q * n * hp
+    ops_s = 2.0 * q * n * hp
+    common = q * hp * e + 4 * q + q * n * e                     # xdt, cs, B
+    bytes_y = q * n * e + 4 * hp * n + 4 * q * hp                # C, S_prev, y
+    bytes_s = 4 * n * hp                                         # S_c
+    n_ops = P * ({"y": ops_y, "state": ops_s}.get(outputs, ops_y + ops_s))
+    n_bytes = P * (common + {"y": bytes_y, "state": bytes_s}.get(outputs, bytes_y + bytes_s))
+    return bound_ms(n_ops, n_bytes, rate)
+
+
+def ssd_records(args, e, rate, tag):
+    """K7 against its plain version in each ``outputs`` mode (rtol = atol =
+    2e-4), each timed with its own bound and emitted as a ``kernel`` line
+    with the kernel its plan chose; returns the records of the modes the
+    two-pass SSD launches, ``"state"`` and ``"y"``, for the kernel table."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as ssd_launcher
+
+    P, q, hp = args[0].shape
+    n = args[2].shape[2]
+    lib = ops.build()[ssd_launcher.SOURCE]
+    records = []
+    for outputs in ("both", "state", "y"):
+        got = ops.ssd_chunk(*args, outputs=outputs)
         torch.cuda.synchronize()
-        y_ref, S_ref = ops.ssd_chunk.plain(*args)
-        err = max((y - y_ref).abs().max().item(), (S_c - S_ref).abs().max().item())
-        close = torch.allclose(y, y_ref, rtol=2e-4, atol=2e-4) and torch.allclose(
-            S_c, S_ref, rtol=2e-4, atol=2e-4)
-        if not close:
-            raise AssertionError(f"ssd_chunk {tag}: not within rtol = atol = 2e-4 (max |err| {err})")
-        del y, S_c, y_ref, S_ref
-        n_ops = P * (q * (q + 1) * (n + hp) + 4.0 * q * n * hp)
-        n_bytes = P * (q * hp * e + 4 * q + 2 * q * n * e + 4 * hp * n + 4 * q * hp + 4 * n * hp)
-        b_ms, b_by = bound_ms(n_ops, n_bytes, rate)
-        recs.append({
-            "name": "ssd_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd_chunk.cu",
+        want = ops.ssd_chunk.plain(*args, outputs=outputs)
+        pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+        err = max((g - w).abs().max().item() for g, w in pairs)
+        if not all(g is not None and torch.allclose(g, w, rtol=2e-4, atol=2e-4) for g, w in pairs):
+            raise AssertionError(f"ssd_chunk {tag} {outputs}: not within rtol = atol = 2e-4 "
+                                 f"(max |err| {err})")
+        del got, want, pairs
+        b_ms, b_by = ssd_bound(P, q, hp, n, e, rate, outputs)
+        rec = {
+            "name": "ssd_chunk", "case": outputs, "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_chunk.py:64",
             "launches": None, "max_abs_err": err,
-            **timing_fields(lambda: ops.ssd_chunk(*args), lambda: ops.ssd_chunk.plain(*args), None),
+            **timing_fields(lambda o=outputs: ops.ssd_chunk(*args, outputs=o),
+                            lambda o=outputs: ops.ssd_chunk.plain(*args, outputs=o), None),
             "bound_ms": b_ms, "bound_by": b_by,
             "shapes": {"dtype": tag, "P": P, "q": q, "hp": hp, "n": n,
                        "tolerance_rtol_atol": 2e-4},
-        })
-        del args, xdt, cs, B, C, S_prev
+        }
+        emit("kernel", **rec,
+             plan=ssd_launcher.plan(lib, args[0], args[2], args[3], args[4], outputs))
+        if outputs != "both":
+            records.append(rec)
         torch.cuda.empty_cache()
-        for rec in recs:
-            emit("kernel", **rec)
-        out[tag] = recs
-    return out
+    return records
 
 
 def row_rel_err(got, want) -> float:
@@ -668,8 +743,10 @@ def lm_prefill_phase(cfg, params, dev, seed: int):
         (logits, _), secs, counts = counted(lambda: prefill(params, tokens, cfg))
         prefill_ms = time_ms(lambda: prefill(params, tokens, cfg))
     n_shared = len(cfg.layer_kinds) // cfg.shared_attn_every
-    want = {"flash_attention": n_shared, "ssd_chunk": 2 * cfg.layer_kinds.count("ssm")}
-    if any(counts[k] != v for k, v in want.items()):
+    n_ssm = cfg.layer_kinds.count("ssm")
+    want = {"flash_attention": n_shared, "ssd_chunk": 2 * n_ssm,
+            "ssd_chunk/state": n_ssm, "ssd_chunk/y": n_ssm}
+    if any(counts.get(k) != v for k, v in want.items()):
         raise AssertionError(f"lm_prefill launches {counts}, expected {want}")
     if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"lm_prefill logits: shape {tuple(logits.shape)} or not finite")
@@ -701,7 +778,7 @@ def lm_profile(cfg, params, tokens) -> None:
             continue
         name = ev.key.lower()
         fam = ("flash_attention" if "flash_" in name and "kernel" in name
-               else "ssd_chunk" if "ssd_chunk" in name
+               else "ssd_chunk" if "ssd_" in name and "kernel" in name
                else "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
                else "other")
         families[fam] += us / 1e3
@@ -748,7 +825,7 @@ def lm_consistency_phase(cfg, params32, dev, seed: int) -> dict:
         with torch.no_grad():
             ops.reset_launches()
             full, _ = prefill(params, tokens, cfg)
-            launches = {k.name: k.launches for k in ops.KERNELS if k.launches}
+            launches = {k: n for k, n in ops.launch_counts().items() if n}
             nudged, _ = prefill(dict(params, embed=params["embed"] * noise), tokens, cfg)
             caches = make_cache(cfg, 1, CONSISTENCY_LEN, device=dev)
             torch.cuda.synchronize()
@@ -865,6 +942,12 @@ def lm_serve_phase(cfg, params, dev, seed: int) -> None:
          token_dfa_s=dfa_s, all_outputs_in_language=True, **runs)
 
 
+def count_key(rec) -> str:
+    """The launch count that belongs to a kernel record: K7's by its
+    ``outputs`` mode (``ops.launch_counts``), the others' by name."""
+    return f"{rec['name']}/{rec['case']}" if rec["name"] == "ssd_chunk" else rec["name"]
+
+
 def lm_phases(dev, seed: int):
     """The LM serving path; returns the bf16 kernel records with the
     launches of the counted prefill."""
@@ -883,7 +966,7 @@ def lm_phases(dev, seed: int):
     bf16 = kernel_records["bfloat16"]
     counts = lm_prefill_phase(cfg, params, dev, seed)
     for rec in bf16:
-        rec["launches"] = counts[rec["name"]]
+        rec["launches"] = counts[count_key(rec)]
     lm_serve_phase(cfg, params, dev, seed)
     params32 = _map_leaves(params, lambda t: t.float())
     del params
@@ -892,7 +975,7 @@ def lm_phases(dev, seed: int):
                                 attn_p_dtype="float32")
     counts32 = lm_consistency_phase(cfg32, params32, dev, seed)
     for rec in kernel_records["float32"]:
-        rec["launches"] = counts32.get(rec["name"], 0)
+        rec["launches"] = counts32.get(count_key(rec), 0)
     emit("kernels_f32", prompt=CONSISTENCY_LEN, kernels=kernel_records["float32"])
     del params32
     torch.cuda.empty_cache()

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K3 and K6 of one tree of the PyTorch/CUDA port on one NVIDIA GPU, as
-``chip_smoke.py`` times them, and read K6's errors against its plain version.
+"""Time K1, K3, K6 and K7 of one tree of the PyTorch/CUDA port on one NVIDIA
+GPU, as ``chip_smoke.py`` times them, and read K6's and K7's errors against
+their plain versions.
 
-    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k3,k6,join]
+    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k3,k6,k7,join]
 
 ``--tree`` is the root of a checkout of this repository (default: the one
 holding this script).  Its ``src/repro_torch`` is imported and its kernels
@@ -26,6 +27,16 @@ on one card, one after another.  Prints one JSON line per record:
       SDPA's in turns, max |err| and the largest per-row relative error
       (``chip_smoke.row_rel_err``), and that error's largest value over the
       card tests' ring-edge shapes.
+  k1  ``reach_chunk_product`` on chip_smoke.py's TRAFFIC (8 MiB) and e125
+      (1 MiB) texts, 1024 chunks: ``ms`` and ``device_ms``, equality with
+      the plain version, and the tree's plan where it has one.
+  k7  ``ssd_chunk`` at zamba2-2.7b's prefill shape (P = 1280, q = 256,
+      hp = n = 64), bf16 and f32: for a tree whose K7 takes ``outputs``,
+      each mode and the layer's pair (``"state"`` then ``"y"``); for an
+      earlier tree, one launch (both outputs) and the layer's pair of such
+      launches.  ``ms``, ``device_ms`` and max |err| against the plain
+      version with ``within_tolerance`` (rtol = atol = 2e-4): a build with a
+      planted fault reports its error rather than stopping.
   join  the ``cuda`` backend's join phase (K3's 23 launches and the scan's
       host code) on both texts' chunk products: host-clock seconds of
       JOIN_RUNS joins in a row, the first right after the allocator's cache
@@ -145,6 +156,72 @@ def k6_records(dev, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+def k1_records(label: str, regex: str, text: bytes, dev) -> None:
+    import torch
+
+    from repro_torch import Parser, ParserConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import reach as reach_launcher
+
+    parser = Parser(ParserConfig(regex=regex, backend="torch", n_chunks=cs.N_CHUNKS), device=dev)
+    eng = parser.engine
+    t = eng.tables
+    classes = eng.classes_of_text(text)
+    c, k = eng.bucket_shape(len(classes), parser.config.n_chunks)
+    ids = eng.chunks_tensor(eng._pad_to(classes, c, k))
+    equal = torch.equal(ops.reach_chunk_product(t.N, ids), ops.reach_chunk_product.plain(t.N, ids))
+    plan = getattr(reach_launcher, "plan", None)
+    kern = lambda: ops.reach_chunk_product(t.N, ids)  # noqa: E731
+    emit("k1", text=label, chunks=c, k=k, ell_pad=t.ell_pad, classes=t.N.shape[0],
+         plan=list(plan(t.N.shape[0], t.ell_pad)) if plan else None, equal_plain=equal,
+         ms=cs.time_ms(kern), device_ms=cs.device_ms(kern))
+    del ids
+    torch.cuda.empty_cache()
+
+
+def k7_records(dev, seed: int) -> None:
+    import inspect
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as ssd_launcher
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    P, q, hp, n = 1280, 256, 64, 64
+    takes_outputs = "outputs" in inspect.signature(ssd_launcher.launch).parameters
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        xdt = (torch.randn((P, q, hp), generator=gen, device=dev) * 0.3).to(dtype)
+        csum = torch.cumsum(-(torch.rand((P, q, 1), generator=gen, device=dev) * 0.39 + 0.01), 1)
+        B, C = ((torch.randn((P, q, n), generator=gen, device=dev) * 0.3).to(dtype)
+                for _ in range(2))
+        S_prev = torch.randn((P, hp, n), generator=gen, device=dev) * 0.3
+        args = (xdt, csum, B, C, S_prev)
+        modes = ("both", "state", "y") if takes_outputs else ("both",)
+        for outputs in modes:
+            static = {"outputs": outputs} if takes_outputs else {}
+            got = ops.ssd_chunk(*args, **static)
+            torch.cuda.synchronize()
+            want = ops.ssd_chunk.plain(*args, **static)
+            pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+            err = max((g - w).abs().max().item() for g, w in pairs)
+            close = all(torch.allclose(g, w, rtol=2e-4, atol=2e-4) for g, w in pairs)
+            del got, want, pairs
+            kern = lambda s=static: ops.ssd_chunk(*args, **s)  # noqa: E731
+            emit("k7", dtype=tag, case=outputs, max_abs_err=err, within_tolerance=close,
+                 ms=cs.time_ms(kern), device_ms=cs.device_ms(kern))
+        if takes_outputs:
+            pair = lambda: (ops.ssd_chunk(*args, outputs="state"),  # noqa: E731
+                            ops.ssd_chunk(*args, outputs="y"))
+        else:
+            pair = lambda: (ops.ssd_chunk(*args), ops.ssd_chunk(*args))  # noqa: E731
+        emit("k7", dtype=tag, case="layer pair", ms=cs.time_ms(pair), device_ms=cs.device_ms(pair))
+        del args, xdt, csum, B, C, S_prev
+        torch.cuda.empty_cache()
+
+
 def join_records(label: str, regex: str, text: bytes, dev) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -186,7 +263,7 @@ def join_records(label: str, regex: str, text: bytes, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=REPO)
-    ap.add_argument("--parts", default="k3,k6,join")
+    ap.add_argument("--parts", default="k1,k3,k6,k7,join")
     args = ap.parse_args()
 
     import torch
@@ -204,6 +281,11 @@ def main() -> int:
     emit("env", tree=str(args.tree), nvidia_smi=cs.nvidia_smi_line(),
          torch=torch.__version__, repro_torch=str(Path(ops.__file__).resolve()))
     parts = args.parts.split(",")
+    if "k1" in parts:
+        k1_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
+        k1_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
+    if "k7" in parts:
+        k7_records(dev, 0)
     if "k3" in parts:
         k3_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
         k3_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)

@@ -9,18 +9,41 @@
 // chunk are a chain that cannot be split.  Blocks run in parallel and in no
 // order, so the TPU's sequential grid does not carry over.
 //
-// Design: under left multiplication P' = N[x] P every column of P evolves on its
-// own.  So the grid is (chunks) x (lp / 32 column strips), and each block walks
-// its chunk's k class ids itself, keeping only its 32-column strip.  The strip
-// is held as bits (column j = W = lp/32 words over the rows) and N as row-packed
-// words, so one step is P'[i][j] = (OR_w Nr[x][i][w] & P[j][w]) != 0: lp*32*W
-// word operations instead of lp^2*32 multiply-adds.  One warp produces one word
-// of one column (lane = row), gathered with __ballot_sync.  N[x_{t+1}] is copied
-// into shared memory while step t computes (double buffering of both N and the
-// strip), so each step costs one __syncthreads.  The table lives in L2 (TRAFFIC
-// 19*64*2 words, e125 4*288*9 words).  The strip is written out as f32 {0,1},
-// bit for bit the product of the plain version.  PAD steps (N = identity) are
-// folded like any other step.
+// Two kernels; the launcher's plan picks one by the table's size.
+//
+// reach_group_kernel (the plan's first choice): under left multiplication
+// P' = N[x] P every column of P evolves on its own, so one thread walks one
+// column j of one chunk, holding its state set as W = lp/32 words in
+// registers: one step is col' = OR over the set bits s of col of column s of
+// N[x].  No barrier and no exchange between threads while walking.  The
+// walk reads a group table ("Four Russians"): for every class x, every g-bit
+// group of source states and every value v of that group, T[x][group][v] is
+// the OR of the matching columns of N[x], so a step is lp/g lookups of W
+// words, g = 4 or 2 (g = 1 needs as many bytes as g = 2 for twice the
+// lookups).  The launcher builds T once per call from N; the block copies all
+// of it into shared memory (g = 4: TRAFFIC 19 classes at lp = 64, 58 KB;
+// e125 4 classes at lp = 288, 166 KB).  An entry is W | 1 words long, odd,
+// so the 16 entries of a group lie in 16 distinct banks and a warp's lookups
+// (one class, one group, 32 values of v) are free of conflicts.  A warp walks
+// 32 columns of one chunk; the chunk's class ids come in 32 at a time, one
+// coalesced load (the next 32 prefetched) shared out by __shfl_sync.  Warps
+// take (chunk, 32-column) units in turn across a grid of one or a few blocks
+// an SM, interleaved so that every SM gets nearly the same number.  Shared
+// memory bounds it: each lookup reads W words, lp^3 / (32 g) words a step
+// over the chunk's lp columns.
+//
+// reach_strip_kernel (tables that no group width fits, up to lp = 928): the
+// port's first design.  The grid is (chunks) x (lp / 32 column strips), and
+// each block walks its chunk's k class ids itself, keeping only its
+// 32-column strip as bits (column j = W words over the rows) and N as
+// row-packed words, so one step is P'[i][j] = (OR_w Nr[x][i][w] & P[j][w])
+// != 0.  One
+// warp produces one word of one column (lane = row), gathered with
+// __ballot_sync; N[x_{t+1}] is copied into shared memory while step t
+// computes, one __syncthreads a step.
+//
+// Both write the product as f32 {0,1}, bit for bit the product of the plain
+// version.  PAD steps (N = identity) are folded like any other step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,8 +55,8 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 
 __global__ void __launch_bounds__(THREADS)
-reach_kernel(const uint32_t* __restrict__ nr, const int32_t* __restrict__ ids,
-             float* __restrict__ out, int k, int lp, int W) {
+reach_strip_kernel(const uint32_t* __restrict__ nr, const int32_t* __restrict__ ids,
+                   float* __restrict__ out, int k, int lp, int W) {
   extern __shared__ uint32_t smem[];
   const int NW = lp * W;
   uint32_t* sN = smem;               // [2][lp * W]    row-packed N[x_t]
@@ -90,32 +113,166 @@ reach_kernel(const uint32_t* __restrict__ nr, const int32_t* __restrict__ ids,
   }
 }
 
-}  // namespace
+constexpr int MAX_GROUP_W = 16;     // lp <= 512 on the group kernel
+constexpr int GROUP_THREADS = 1024;
 
-// Shared memory one block needs at this lp (bytes); above 232448 the kernel
-// cannot launch on Hopper.
-extern "C" long long repro_reach_smem_bytes(int lp) {
-  const long long W = lp / 32;
-  return (2LL * lp * W + 2LL * STRIP * W) * 4;
+// T: (A+1, lp/G, 2^G, W|1) words of the group table, t_words of them (a
+// multiple of 4); ids (n_chunks, k); out (n_chunks, lp, lp).  At least one
+// block an SM lets ptxas give a thread 64 registers, so that a column's
+// words stay in them (left to itself it chose 32 at W = 9, and spilled).
+template <int W, int G>
+__global__ void __launch_bounds__(GROUP_THREADS, 1)
+reach_group_kernel(const uint32_t* __restrict__ T, int t_words, const int32_t* __restrict__ ids,
+                   float* __restrict__ out, int n_chunks, int k, int lp) {
+  extern __shared__ __align__(16) uint32_t sT[];
+  constexpr int WS = W | 1;           // entry stride: odd, so distinct v -> distinct banks
+  constexpr int V = 1 << G;
+  constexpr int GPW = 32 / G;         // groups in a word
+  for (int e = threadIdx.x; e < t_words / 4; e += blockDim.x)
+    reinterpret_cast<uint4*>(sT)[e] = reinterpret_cast<const uint4*>(T)[e];
+  __syncthreads();
+
+  const int cls_stride = (lp / G) * V * WS;
+  const int lane = threadIdx.x & 31;
+  const int warps_per_block = blockDim.x >> 5;
+  const long long warps = static_cast<long long>(gridDim.x) * warps_per_block;
+  // interleaved: the first warps of every block come first, so the units
+  // left over after whole rounds spread over all SMs
+  const long long gw = static_cast<long long>(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  const long long units = static_cast<long long>(n_chunks) * W;
+  for (long long u = gw; u < units; u += warps) {
+    const long long chunk = u / W;
+    const int strip = static_cast<int>(u % W);
+    uint32_t col[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) col[w] = w == strip ? 1u << lane : 0u;
+    const int32_t* cid = ids + chunk * k;
+    int idv = lane < k ? cid[lane] : 0;
+    for (int t0 = 0; t0 < k; t0 += 32) {
+      const int nxt = t0 + 32 + lane < k ? cid[t0 + 32 + lane] : 0;
+      const int steps = k - t0 < 32 ? k - t0 : 32;
+      for (int s = 0; s < steps; ++s) {
+        const uint32_t* tb = sT + __shfl_sync(0xffffffffu, idv, s) * cls_stride;
+        uint32_t nw[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i) nw[i] = 0u;
+        // word w of col is consumed from col[0], the rest shifted down, so
+        // that the loop over words need not be unrolled
+#pragma unroll 1
+        for (int w = 0; w < W; ++w) {
+          const uint32_t word = col[0];
+#pragma unroll
+          for (int i = 0; i + 1 < W; ++i) col[i] = col[i + 1];
+          const uint32_t* gb = tb + w * (GPW * V * WS);
+#pragma unroll
+          for (int b = 0; b < GPW; ++b) {
+            const uint32_t* e = gb + (b * V + ((word >> (b * G)) & (V - 1))) * WS;
+#pragma unroll
+            for (int i = 0; i < W; ++i) nw[i] |= e[i];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < W; ++i) col[i] = nw[i];
+      }
+      idv = nxt;
+    }
+    float* o = out + chunk * lp * lp + strip * 32 + lane;
+#pragma unroll 1
+    for (int w = 0; w < W; ++w) {
+      const uint32_t word = col[0];
+#pragma unroll
+      for (int i = 0; i + 1 < W; ++i) col[i] = col[i + 1];
+#pragma unroll
+      for (int b = 0; b < 32; ++b)
+        o[static_cast<long long>(32 * w + b) * lp] = (word >> b) & 1u ? 1.f : 0.f;
+    }
+  }
 }
 
-// nr (A+1, lp, W) int32 row-packed N; ids (n_chunks, k) int32 class ids in
-// [0, A]; out (n_chunks, lp, lp) f32.  lp % 32 == 0.  Returns the cudaError_t
-// of the launch (0 on success).
+typedef void (*GroupKernel)(const uint32_t*, int, const int32_t*, float*, int, int, int);
+
+template <int W>
+GroupKernel group_kernel_g(int g) {
+  return g == 4 ? &reach_group_kernel<W, 4> : g == 2 ? &reach_group_kernel<W, 2> : nullptr;
+}
+
+GroupKernel group_kernel(int W, int g) {
+  switch (W) {
+    case 1: return group_kernel_g<1>(g);
+    case 2: return group_kernel_g<2>(g);
+    case 3: return group_kernel_g<3>(g);
+    case 4: return group_kernel_g<4>(g);
+    case 5: return group_kernel_g<5>(g);
+    case 6: return group_kernel_g<6>(g);
+    case 7: return group_kernel_g<7>(g);
+    case 8: return group_kernel_g<8>(g);
+    case 9: return group_kernel_g<9>(g);
+    case 10: return group_kernel_g<10>(g);
+    case 11: return group_kernel_g<11>(g);
+    case 12: return group_kernel_g<12>(g);
+    case 13: return group_kernel_g<13>(g);
+    case 14: return group_kernel_g<14>(g);
+    case 15: return group_kernel_g<15>(g);
+    case 16: return group_kernel_g<16>(g);
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// The strip kernel.  nr (A+1, lp, W) int32 row-packed N; ids (n_chunks, k)
+// int32 class ids in [0, A]; out (n_chunks, lp, lp) f32.  lp % 32 == 0, and
+// 8 * W * (lp + 32) bytes of shared memory (lp <= 928).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int repro_reach_products(const uint32_t* nr, const int32_t* ids,
                                     float* out, int n_chunks, int k, int lp,
                                     void* stream) {
   if (n_chunks <= 0) return 0;
   if (lp <= 0 || lp % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = repro_reach_smem_bytes(lp);
+  const long long smem = (2LL * lp * (lp / 32) + 2LL * STRIP * (lp / 32)) * 4;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        reach_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        reach_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>(n_chunks), static_cast<unsigned>(lp / STRIP));
-  reach_kernel<<<grid, THREADS, static_cast<size_t>(smem),
+  reach_strip_kernel<<<grid, THREADS, static_cast<size_t>(smem),
                  static_cast<cudaStream_t>(stream)>>>(nr, ids, out, k, lp, lp / 32);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The group kernel.  T: the launcher's group table, (A+1, lp/g, 2^g, W|1)
+// int32 words, t_words of them (a multiple of 4, all in one block's shared
+// memory); ids (n_chunks, k) int32 class ids in [0, A]; out (n_chunks, lp,
+// lp) f32.  lp % 32 == 0, lp <= 512, g in {2, 4}.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int repro_reach_group(const uint32_t* T, int t_words, const int32_t* ids, float* out,
+                                 int n_chunks, int k, int lp, int g, void* stream) {
+  if (n_chunks <= 0) return 0;
+  const GroupKernel fn = lp > 0 && lp % 32 == 0 ? group_kernel(lp / 32, g) : nullptr;
+  if (fn == nullptr || t_words % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(t_words) * 4;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  // about as many warps an SM as there are units for it, up to one full block
+  const long long units = static_cast<long long>(n_chunks) * (lp / 32);
+  long long wpb = (units + sms - 1) / sms;
+  wpb = wpb < 1 ? 1 : wpb > GROUP_THREADS / 32 ? GROUP_THREADS / 32 : wpb;
+  const int threads = static_cast<int>(wpb) * 32;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  long long blocks = (units + wpb - 1) / wpb;
+  if (blocks > static_cast<long long>(sms) * per_sm) blocks = static_cast<long long>(sms) * per_sm;
+  fn<<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      T, t_words, ids, out, n_chunks, k, lp);
   return static_cast<int>(cudaGetLastError());
 }

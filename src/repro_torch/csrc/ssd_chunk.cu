@@ -4,23 +4,48 @@
 // Per flattened program p = (batch, chunk, head):
 //   y   = (L o C B^T) xdt + exp(cs) o (C S_prev^T)        (q, hp)
 //   S_c = (w o B)^T xdt,   w_j = exp(cs_last - cs_j)       (n, hp)
-// with L_ij = exp(cs_i - cs_j) for i >= j, else 0.
+// with L_ij = exp(cs_i - cs_j) for i >= j, else 0.  A launch computes y, S_c
+// or both (`outputs`): the two-pass SSD asks for S_c alone in its reach pass
+// and for y alone in its build pass, and a launch for S_c alone reads
+// neither C nor S_prev.
 //
 // Bound on this card: zamba2-2.7b's prefill (batch 2 x 2048 tokens) calls it
 // with P = 2 * 8 chunks * 80 heads = 1280, q = 256, hp = n = 64, xdt / B / C
-// in bf16 and cs / S_prev / y / S_c in f32: ~247 MB moved (0.074 ms at
-// 3.35 TB/s) against ~27 GFLOP (0.027 ms at 989 TFLOP/s bf16).  Bytes bound it.
+// in bf16 and cs / S_prev / y / S_c in f32.  A launch for S_c moves ~106 MB
+// (0.032 ms at 3.35 TB/s), one for y ~232 MB (0.069 ms), against at most
+// ~27 GFLOP (0.027 ms at 989 TFLOP/s bf16).  Bytes bound both.
 //
-// Design: the TPU kernel holds the whole (q, q) decay-masked product in VMEM.
-// At q = 256 that tile is 256 KB in f32, above the 227 KB one block may use.
-// So a program is split over blocks: block role y (one per 64-row tile of
-// y) walks the column tiles j <= i of L o C B^T, 64 at a time, through shared
-// memory, and then adds the inter-chunk term; block role S (one per program)
-// computes S_c as its own reduction over j.  All three products run in full
-// f32 on the SIMT units with 4-row register tiles (bf16 operands are widened
-// on load): the plain version is f32 throughout, and its tolerance (2e-4)
-// leaves no room for bf16 rounding of L o CB.  hp and n are multiples of 16
-// up to 128.  The tensor cores (with an error analysis) are the next step.
+// Two kernels; the launcher's plan picks one by dtype and shape:
+//
+// ssd_tc_kernel (bf16 operands, the prefill's): one block per program and
+// role.  The block copies the program's C, B and xdt (and cs) into shared
+// memory in one go (16-byte cp.async, rows XOR-swizzled so that ldmatrix is
+// free of bank conflicts) and runs every product on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulators):
+//  - role y: each warp owns a pair of 16-row tiles, i and the mirrored
+//    nrt-1-i, so all warps walk the same number of column tiles j <= i.
+//    G = C B^T on a (16, 16) tile is exact (bf16 products, f32 sums).  L o G
+//    is f32 in registers and enters the next product as hi = bf16(G) and
+//    lo = bf16(G - hi), two products against xdt: one bf16 rounding of G
+//    would cost ~5e-3 at the prefill's inputs, the split leaves ~2^-17 of G.
+//    The G accumulator is, register for register, the A fragment of that
+//    product (no shared-memory round trip).  The inter-chunk term comes
+//    first, as C (S_hi + S_lo)^T from S_prev split the same way, scaled by
+//    exp(cs_i) in registers.
+//  - role S: warps split the (n, hp) output by 16-row and 16-column tiles and
+//    walk all q rows; A = (w o B)^T is loaded transposed (ldmatrix.trans),
+//    scaled by w in registers and split into hi / lo.
+//  A y launch whose program does not fit in shared memory with S_prev's
+//  hi / lo copy (q = 256 at hp = n = 128) goes to the SIMT kernel.
+//
+// ssd_simt_kernel (f32 operands, and bf16 shapes that the first does not fit
+// in shared memory): the port's first design.  Per program, one block for
+// each 64-row tile of y walking the column tiles j <= i through shared
+// memory, plus one block for S_c; every product in full f32 on the SIMT
+// units.  f32 operands occur only in the f32 consistency prefill and in
+// tests.
+//
+// hp and n are multiples of 16 up to 128 in both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,9 +54,14 @@
 
 namespace {
 
+constexpr int MAXD = 128;           // largest hp and n
+constexpr long long MAX_SMEM = 232448;
+enum Roles { ROLE_Y = 1, ROLE_S = 2, ROLE_BOTH = 3 };
+
+// ============================================================== SIMT kernel
+
 constexpr int R = 64;       // rows of a y tile, and columns of a j tile
 constexpr int THREADS = 256;
-constexpr int MAXD = 128;   // largest hp and n
 constexpr int MB = MAXD / 16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -55,12 +85,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int 
   }
 }
 
+// blockIdx.y + role0 is the block's role: a y row tile below n_row_tiles,
+// the S block at n_row_tiles.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_chunk_kernel(const T* __restrict__ xdt, const float* __restrict__ cs,
-                 const T* __restrict__ B, const T* __restrict__ C,
-                 const float* __restrict__ S_prev, float* __restrict__ y,
-                 float* __restrict__ S_c, int q, int hp, int n) {
+ssd_simt_kernel(const T* __restrict__ xdt, const float* __restrict__ cs,
+                const T* __restrict__ B, const T* __restrict__ C,
+                const float* __restrict__ S_prev, float* __restrict__ y,
+                float* __restrict__ S_c, int q, int hp, int n, int role0) {
   extern __shared__ __align__(16) float smem[];
   const int n1 = n + 1, hp1 = hp + 1;
   float* s_cs = smem;                  // (q)   cs, then the S role's weights w
@@ -78,11 +110,12 @@ ssd_chunk_kernel(const T* __restrict__ xdt, const float* __restrict__ cs,
   const int tr = tid / 16, tc = tid % 16;   // 16 x 16 thread grid
   const int hb = hp / 16;                    // output columns per thread: tc + 16 b
   const int n_row_tiles = (q + R - 1) / R;
+  const int role = static_cast<int>(blockIdx.y) + role0;
 
   for (int i = tid; i < q; i += THREADS) s_cs[i] = csp[i];
   __syncthreads();
 
-  if (static_cast<int>(blockIdx.y) == n_row_tiles) {
+  if (role == n_row_tiles) {
     // ---- role S: S_c[kk][c] = sum_j w_j B[j][kk] xdt[j][c] ----------------
     const float last = s_cs[q - 1];
     __syncthreads();
@@ -120,7 +153,7 @@ ssd_chunk_kernel(const T* __restrict__ xdt, const float* __restrict__ cs,
   }
 
   // ---- role y: rows i0 .. i0 + R - 1 --------------------------------------
-  const int i0 = blockIdx.y * R;
+  const int i0 = role * R;
   load_tile(s_a, Cp, i0, q, n, nullptr);
   float acc[4][MB];                          // rows tr*4 + a, columns tc + 16 b
 #pragma unroll
@@ -205,44 +238,440 @@ ssd_chunk_kernel(const T* __restrict__ xdt, const float* __restrict__ cs,
   }
 }
 
-template <typename T>
-int launch(const void* xdt, const float* cs, const void* B, const void* C,
-           const float* S_prev, float* y, float* S_c, int P, int q, int hp, int n,
-           long long smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(P, (q + R - 1) / R + 1);
-  ssd_chunk_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(xdt), cs, static_cast<const T*>(B), static_cast<const T*>(C),
-      S_prev, y, S_c, q, hp, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Dynamic shared memory one block needs at (q, hp, n).
-extern "C" long long repro_ssd_chunk_smem_bytes(int q, int hp, int n) {
+long long simt_smem_bytes(int q, int hp, int n) {
   const long long sg = static_cast<long long>(R) * (R + 1) > static_cast<long long>(hp) * (n + 1)
                            ? static_cast<long long>(R) * (R + 1)
                            : static_cast<long long>(hp) * (n + 1);
   return 4LL * (q + 2LL * R * (n + 1) + static_cast<long long>(R) * (hp + 1) + sg);
 }
 
+template <typename T>
+int launch_simt(const void* xdt, const float* cs, const void* B, const void* C,
+                const float* S_prev, float* y, float* S_c, int P, int q, int hp, int n,
+                int roles, cudaStream_t stream) {
+  const long long smem = simt_smem_bytes(q, hp, n);
+  cudaError_t err = cudaFuncSetAttribute(ssd_simt_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_row_tiles = (q + R - 1) / R;
+  const int blocks_y = (roles & ROLE_Y ? n_row_tiles : 0) + (roles & ROLE_S ? 1 : 0);
+  const int role0 = roles & ROLE_Y ? 0 : n_row_tiles;
+  dim3 grid(P, blocks_y);
+  ssd_simt_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(xdt), cs, static_cast<const T*>(B), static_cast<const T*>(C),
+      S_prev, y, S_c, q, hp, n, role0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ======================================================= tensor-core kernel
+
+constexpr int TC_THREADS = 256;
+constexpr int TC_WARPS = TC_THREADS / 32;
+constexpr int MAX_NT = MAXD / 8;    // n8 tiles of a 128-wide output row
+
+typedef __nv_bfloat16 bf16;
+
+// Shared-memory layout of one block (byte offsets, 16-aligned).  qp is q
+// rounded up to 16; rows q .. qp-1 are zero.
+struct TcLayout {
+  long long c, b, x, cs, s, total;   // total < 0: does not fit
+};
+
+__host__ __device__ inline TcLayout tc_layout(int q, int hp, int n, int roles) {
+  const long long qp = (q + 15) / 16 * 16;
+  TcLayout L;
+  long long off = 0;
+  const bool with_y = roles & ROLE_Y;
+  L.c = off;
+  off += with_y ? qp * n * 2 : 0;
+  L.b = off;
+  off += qp * n * 2;
+  L.x = off;
+  off += qp * hp * 2;
+  L.cs = off;
+  off += qp * 4;
+  L.s = off;
+  off += with_y ? 2LL * hp * n * 2 : 0;   // S_prev's hi / lo copies
+  L.total = off > MAX_SMEM ? -1 : off;
+  return L;
+}
+
+// XOR swizzle of the 16-byte chunks of a row of `cw` chunks: the 8 rows that
+// one ldmatrix reads at one logical chunk land in 8 distinct bank groups
+// (exactly so when cw is a power of two; a permutation within the row always).
+struct Swizzle {
+  int shift, mask;
+};
+
+__host__ __device__ inline Swizzle make_swizzle(int cw) {
+  const int low = cw & -cw;
+  const int p = low < 8 ? low : 8;
+  int shift = 0;
+  if (cw < 8 && (8 % cw) == 0)
+    for (int r = 8 / cw; r > 1; r >>= 1) ++shift;
+  return Swizzle{shift, p - 1};
+}
+
+// element offset of (r, c) in a swizzled (rows, w) bf16 matrix; c % 8 == 0
+// or any c within a chunk
+__device__ __forceinline__ int sw_off(int r, int c, int w, Swizzle s) {
+  const int chunk = (c >> 3) ^ ((r >> s.shift) & s.mask);
+  return r * w + (chunk << 3) + (c & 7);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x0, x1) -> bf16 pairs hi = bf16(x) and lo = bf16(x - hi), x0 in the low half
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// A (rows, w) row-major bf16 slab of global memory (rows q, zero to qp) into
+// a swizzled shared matrix, by 16-byte cp.async (not waited for here).
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int q, int qp, int w,
+                                          Swizzle s) {
+  const int cw = w >> 3;
+  for (int e = threadIdx.x; e < qp * cw; e += TC_THREADS) {
+    const int r = e / cw, c = (e - r * cw) << 3;
+    bf16* d = dst + sw_off(r, c, w, s);
+    if (r < q)
+      cp_async16(d, src + static_cast<long long>(r) * w + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// y[i0 .. i0+15][:] as the mma accumulator layout: acc[t][0..1] row g,
+// columns 8t + 2c .. +1; acc[t][2..3] row g + 8.
+__device__ __forceinline__ void store_y(float* yp, const float (&acc)[MAX_NT][4], int i0, int q,
+                                        int hp) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int t = 0; t < MAX_NT; ++t) {
+    if (8 * t >= hp) break;
+    const int col = 8 * t + 2 * c;
+    if (i0 + g < q)
+      *reinterpret_cast<float2*>(yp + static_cast<long long>(i0 + g) * hp + col) =
+          make_float2(acc[t][0], acc[t][1]);
+    if (i0 + g + 8 < q)
+      *reinterpret_cast<float2*>(yp + static_cast<long long>(i0 + g + 8) * hp + col) =
+          make_float2(acc[t][2], acc[t][3]);
+  }
+}
+
+struct YTiles {
+  bf16 *C, *B, *X, *Shi, *Slo;
+  float* cs;
+  int q, hp, n;
+  Swizzle swn, swh;
+};
+
+// acc = exp(cs_i) * (C (S_hi + S_lo)^T) on rows i0 .. i0+15
+__device__ __forceinline__ void y_inter(const YTiles& T, float (&acc)[MAX_NT][4], int i0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  for (int kk0 = 0; kk0 < T.n; kk0 += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, T.C + sw_off(i0 + (lane & 15), kk0 + ((lane >> 4) << 3), T.n, T.swn));
+#pragma unroll
+    for (int p = 0; p < MAX_NT / 2; ++p) {
+      if (16 * p >= T.hp) break;
+      const int off = sw_off(16 * p + (lane & 7) + ((lane >> 4) << 3),
+                             kk0 + (((lane >> 3) & 1) << 3), T.n, T.swn);
+      uint32_t bh[4], bl[4];
+      ldsm_x4(bh, T.Shi + off);
+      ldsm_x4(bl, T.Slo + off);
+      mma16816(acc[2 * p], a, bh[0], bh[1]);
+      mma16816(acc[2 * p + 1], a, bh[2], bh[3]);
+      mma16816(acc[2 * p], a, bl[0], bl[1]);
+      mma16816(acc[2 * p + 1], a, bl[2], bl[3]);
+    }
+  }
+  const float e0 = expf(T.cs[i0 + g]), e1 = expf(T.cs[i0 + g + 8]);
+#pragma unroll
+  for (int t = 0; t < MAX_NT; ++t) {
+    acc[t][0] *= e0;
+    acc[t][1] *= e0;
+    acc[t][2] *= e1;
+    acc[t][3] *= e1;
+  }
+}
+
+// L o G on one (16, 8) accumulator tile: rows ia (elements 0, 1) and ib
+// (2, 3), columns j, j + 1
+__device__ __forceinline__ void mask_decay(const YTiles& T, float (&gt)[4], int ia, int ib,
+                                           float ca, float cb, int j) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const bool jin = j + e < T.q;
+    const float cj = T.cs[j + e];
+    gt[e] = (jin && ia < T.q && ia >= j + e) ? gt[e] * expf(ca - cj) : 0.f;
+    gt[2 + e] = (jin && ib < T.q && ib >= j + e) ? gt[2 + e] * expf(cb - cj) : 0.f;
+  }
+}
+
+// acc += (L o C B^T) xdt on rows i0 .. i0+15, over the column tiles j <= i
+__device__ __forceinline__ void y_intra(const YTiles& T, float (&acc)[MAX_NT][4], int i0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int ia = i0 + g, ib = ia + 8;
+  const float ca = T.cs[ia], cb = T.cs[ib];
+  for (int j0 = 0; j0 <= i0; j0 += 16) {
+    float g0[4] = {0.f, 0.f, 0.f, 0.f}, g1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kk0 = 0; kk0 < T.n; kk0 += 16) {
+      uint32_t a[4], b[4];
+      ldsm_x4(a, T.C + sw_off(i0 + (lane & 15), kk0 + ((lane >> 4) << 3), T.n, T.swn));
+      ldsm_x4(b, T.B + sw_off(j0 + (lane & 7) + ((lane >> 4) << 3),
+                              kk0 + (((lane >> 3) & 1) << 3), T.n, T.swn));
+      mma16816(g0, a, b[0], b[1]);
+      mma16816(g1, a, b[2], b[3]);
+    }
+    mask_decay(T, g0, ia, ib, ca, cb, j0 + 2 * c);
+    mask_decay(T, g1, ia, ib, ca, cb, j0 + 8 + 2 * c);
+    uint32_t ahi[4], alo[4];
+    split_pair(g0[0], g0[1], ahi[0], alo[0]);
+    split_pair(g0[2], g0[3], ahi[1], alo[1]);
+    split_pair(g1[0], g1[1], ahi[2], alo[2]);
+    split_pair(g1[2], g1[3], ahi[3], alo[3]);
+#pragma unroll
+    for (int p = 0; p < MAX_NT / 2; ++p) {
+      if (16 * p >= T.hp) break;
+      uint32_t b[4];
+      ldsm_x4_t(b, T.X + sw_off(j0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                16 * p + ((lane >> 4) << 3), T.hp, T.swh));
+      mma16816(acc[2 * p], ahi, b[0], b[1]);
+      mma16816(acc[2 * p + 1], ahi, b[2], b[3]);
+      mma16816(acc[2 * p], alo, b[0], b[1]);
+      mma16816(acc[2 * p + 1], alo, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[MAX_NT][4]) {
+#pragma unroll
+  for (int t = 0; t < MAX_NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+}
+
+__device__ void tc_role_y(const TcLayout& L, unsigned char* sm, const bf16* X, const float* csp,
+                          const bf16* Bp, const bf16* Cp, const float* Sp, float* yp, int q,
+                          int hp, int n) {
+  const int qp = (q + 15) & ~15;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  YTiles T;
+  T.C = reinterpret_cast<bf16*>(sm + L.c);
+  T.B = reinterpret_cast<bf16*>(sm + L.b);
+  T.X = reinterpret_cast<bf16*>(sm + L.x);
+  T.Shi = reinterpret_cast<bf16*>(sm + L.s);
+  T.Slo = T.Shi + hp * n;
+  T.cs = reinterpret_cast<float*>(sm + L.cs);
+  T.q = q;
+  T.hp = hp;
+  T.n = n;
+  T.swn = make_swizzle(n >> 3);
+  T.swh = make_swizzle(hp >> 3);
+
+  load_rows(T.C, Cp, q, qp, n, T.swn);
+  load_rows(T.B, Bp, q, qp, n, T.swn);
+  load_rows(T.X, X, q, qp, hp, T.swh);
+  for (int i = tid; i < qp; i += TC_THREADS) T.cs[i] = i < q ? csp[i] : 0.f;
+  // S_prev (hp, n) f32 -> hi / lo bf16 copies, 4 values a step
+  for (int e = tid; e < hp * n / 4; e += TC_THREADS) {
+    const int h = (4 * e) / n, kk = (4 * e) % n;
+    const float4 v = reinterpret_cast<const float4*>(Sp)[e];
+    uint32_t h01, l01, h23, l23;
+    split_pair(v.x, v.y, h01, l01);
+    split_pair(v.z, v.w, h23, l23);
+    const int off = sw_off(h, kk, n, T.swn);
+    *reinterpret_cast<uint2*>(T.Shi + off) = make_uint2(h01, h23);
+    *reinterpret_cast<uint2*>(T.Slo + off) = make_uint2(l01, l23);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int nrt = qp >> 4, npairs = (nrt + 1) >> 1;
+  float acc[MAX_NT][4];
+  for (int pi = warp; pi < npairs; pi += TC_WARPS)
+    for (int u = 0; u < 2; ++u) {
+      const int it = u == 0 ? pi : nrt - 1 - pi;
+      if (u == 1 && it == pi) break;
+      zero(acc);
+      y_inter(T, acc, 16 * it);
+      y_intra(T, acc, 16 * it);
+      store_y(yp, acc, 16 * it, q, hp);
+    }
+}
+
+__device__ void tc_role_s(const TcLayout& L, unsigned char* sm, const bf16* X, const float* csp,
+                          const bf16* Bp, float* sp, int q, int hp, int n) {
+  const int qp = (q + 15) & ~15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  bf16* sB = reinterpret_cast<bf16*>(sm + L.b);
+  bf16* sX = reinterpret_cast<bf16*>(sm + L.x);
+  float* sW = reinterpret_cast<float*>(sm + L.cs);
+  const Swizzle swn = make_swizzle(n >> 3), swh = make_swizzle(hp >> 3);
+  load_rows(sB, Bp, q, qp, n, swn);
+  load_rows(sX, X, q, qp, hp, swh);
+  const float last = csp[q - 1];
+  for (int i = tid; i < qp; i += TC_THREADS) sW[i] = i < q ? expf(last - csp[i]) : 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // warp -> (16-row tile m of S_c, column-tile pairs p = s, s + ns, ...)
+  const int mt = n >> 4, ns = TC_WARPS / mt;
+  const int m = warp % mt, s = warp / mt;
+  if (s >= ns) return;
+  float acc[MAX_NT][4];
+  zero(acc);
+  for (int j0 = 0; j0 < qp; j0 += 16) {
+    uint32_t raw[4], ahi[4], alo[4];
+    ldsm_x4_t(raw, sB + sw_off(j0 + (lane & 7) + ((lane >> 4) << 3),
+                               16 * m + (((lane >> 3) & 1) << 3), n, swn));
+    const float2 w01 = make_float2(sW[j0 + 2 * c], sW[j0 + 2 * c + 1]);
+    const float2 w89 = make_float2(sW[j0 + 2 * c + 8], sW[j0 + 2 * c + 9]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 v = bf16x2_to_float2(raw[r]);
+      const float2 w = r < 2 ? w01 : w89;
+      split_pair(v.x * w.x, v.y * w.y, ahi[r], alo[r]);
+    }
+#pragma unroll
+    for (int p = 0; p < MAX_NT / 2; ++p) {
+      if (16 * p >= hp) break;
+      if (p % ns != s) continue;
+      uint32_t b[4];
+      ldsm_x4_t(b, sX + sw_off(j0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                               16 * p + ((lane >> 4) << 3), hp, swh));
+      mma16816(acc[2 * p], ahi, b[0], b[1]);
+      mma16816(acc[2 * p + 1], ahi, b[2], b[3]);
+      mma16816(acc[2 * p], alo, b[0], b[1]);
+      mma16816(acc[2 * p + 1], alo, b[2], b[3]);
+    }
+  }
+  const int r0 = 16 * m + g;
+#pragma unroll
+  for (int t = 0; t < MAX_NT; ++t) {
+    if (8 * t >= hp) break;
+    if ((t >> 1) % ns != s) continue;
+    const int col = 8 * t + 2 * c;
+    *reinterpret_cast<float2*>(sp + r0 * hp + col) = make_float2(acc[t][0], acc[t][1]);
+    *reinterpret_cast<float2*>(sp + (r0 + 8) * hp + col) = make_float2(acc[t][2], acc[t][3]);
+  }
+}
+
+// One block per (program, role): ROLES = ROLE_Y, ROLE_S, or ROLE_BOTH with
+// the role from blockIdx.y (0: y, 1: S).
+template <int ROLES>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+ssd_tc_kernel(const bf16* __restrict__ xdt, const float* __restrict__ cs,
+              const bf16* __restrict__ B, const bf16* __restrict__ C,
+              const float* __restrict__ S_prev, float* __restrict__ y,
+              float* __restrict__ S_c, int q, int hp, int n) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const TcLayout L = tc_layout(q, hp, n, ROLES);
+  const long long p = blockIdx.x;
+  const int role = ROLES == ROLE_BOTH ? (blockIdx.y == 0 ? ROLE_Y : ROLE_S) : ROLES;
+  if (role == ROLE_Y)
+    tc_role_y(L, tc_smem, xdt + p * q * hp, cs + p * q, B + p * q * n, C + p * q * n,
+              S_prev + p * hp * n, y + p * q * hp, q, hp, n);
+  else
+    tc_role_s(L, tc_smem, xdt + p * q * hp, cs + p * q, B + p * q * n, S_c + p * n * hp, q,
+              hp, n);
+}
+
+template <int ROLES>
+int launch_tc_roles(const void* xdt, const float* cs, const void* B, const void* C,
+                    const float* S_prev, float* y, float* S_c, int P, int q, int hp, int n,
+                    long long smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(ssd_tc_kernel<ROLES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(ssd_tc_kernel<ROLES>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(P, ROLES == ROLE_BOTH ? 2 : 1);
+  ssd_tc_kernel<ROLES><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(xdt), cs, static_cast<const bf16*>(B),
+      static_cast<const bf16*>(C), S_prev, y, S_c, q, hp, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared memory of the SIMT kernel at (q, hp, n).
+extern "C" long long repro_ssd_chunk_smem_bytes(int q, int hp, int n) {
+  return simt_smem_bytes(q, hp, n);
+}
+
+// Dynamic shared memory of the tensor-core kernel at (q, hp, n) for the
+// outputs `roles` (1: y, 2: S_c, 3: both); -1 where it does not fit.
+extern "C" long long repro_ssd_chunk_tc_smem_bytes(int q, int hp, int n, int roles) {
+  return tc_layout(q, hp, n, roles).total;
+}
+
 // xdt (P, q, hp), B and C (P, q, n) all f32 (dtype 0) or all bf16 (dtype 1);
 // cs (P, q) f32, S_prev (P, hp, n) f32; outputs y (P, q, hp) and S_c (P, n, hp)
-// f32.  Contiguous on the device; hp and n multiples of 16 up to 128.
-// Returns the cudaError_t of the launch (0 on success).
+// f32, written where `roles` asks (1: y, 2: S_c, 3: both; the other output
+// may be null, and a launch for S_c alone reads neither C nor S_prev, which
+// may then be null too).
+// `kernel` 0 is the SIMT kernel, 1 the tensor-core kernel (bf16 only).
+// Contiguous on the device; hp and n multiples of 16 up to 128.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int repro_ssd_chunk(const void* xdt, const float* cs, const void* B, const void* C,
                                const float* S_prev, float* y, float* S_c, int dtype, int P,
-                               int q, int hp, int n, void* stream_ptr) {
+                               int q, int hp, int n, int roles, int kernel, void* stream_ptr) {
   if (P <= 0 || q <= 0) return 0;
-  if (hp % 16 || n % 16 || hp <= 0 || n <= 0 || hp > MAXD || n > MAXD || (q + R - 1) / R + 1 > 65535)
+  if (hp % 16 || n % 16 || hp <= 0 || n <= 0 || hp > MAXD || n > MAXD || (q + R - 1) / R + 1 > 65535 ||
+      roles < ROLE_Y || roles > ROLE_BOTH)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = repro_ssd_chunk_smem_bytes(q, hp, n);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (kernel == 1) {
+    const long long smem = tc_layout(q, hp, n, roles).total;
+    if (dtype != 1 || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (roles == ROLE_Y)
+      return launch_tc_roles<ROLE_Y>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, smem, stream);
+    if (roles == ROLE_S)
+      return launch_tc_roles<ROLE_S>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, smem, stream);
+    return launch_tc_roles<ROLE_BOTH>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, smem, stream);
+  }
   if (dtype == 1)
-    return launch<__nv_bfloat16>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, smem, stream);
-  return launch<float>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, smem, stream);
+    return launch_simt<__nv_bfloat16>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, roles, stream);
+  return launch_simt<float>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, roles, stream);
 }

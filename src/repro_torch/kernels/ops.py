@@ -22,11 +22,13 @@ Boolean matrices): its tensor-core kernel rounds them to bf16, exact on
 {0, 1} and on no other value, where the plain version multiplies in f32.
 
 Every wrapper has the signature of its plain version in ``kernels/ref.py``:
-tensors, then static keyword arguments (K6's ``causal`` and ``window``).
+tensors (K7's S_prev may be None for ``outputs="state"``), then static
+keyword arguments (K6's ``causal`` and ``window``, K7's ``outputs``).
 Given CPU tensors it runs that plain version; given CUDA tensors it checks
 them, launches the kernel on the current stream, raises if the launch
-fails, and adds one to its ``launches`` count.  A CUDA tensor never falls
-back to the plain version.
+fails, and adds one to its ``launches`` count (K7's also to the count of
+its ``outputs`` mode).  A CUDA tensor never falls back to the plain
+version.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -147,22 +149,30 @@ def build() -> Dict[str, ctypes.CDLL]:
 
 class KernelWrapper:
     """A kernel's public entry: the plain version on the CPU, the kernel on
-    the card.  ``launches`` counts the kernel launches it made."""
+    the card.  ``launches`` counts the kernel launches it made; where
+    ``case`` names a static keyword and its default, ``case_launches``
+    counts them by that keyword's value as well."""
 
-    def __init__(self, name: str, plain, launcher):
+    def __init__(self, name: str, plain, launcher, case: Optional[Tuple[str, str]] = None):
         self.name = name
         self.plain = plain
         self._launcher = launcher
+        self._case = case
         self.launches = 0
+        self.case_launches: Dict[str, int] = {}
 
-    def __call__(self, *tensors: torch.Tensor, **static):
-        if all(t.device.type == "cpu" for t in tensors):
+    def __call__(self, *tensors: Optional[torch.Tensor], **static):
+        given = [t for t in tensors if t is not None]
+        if all(t.device.type == "cpu" for t in given):
             return self.plain(*tensors, **static)
-        check_cuda(self.name, *tensors)
+        check_cuda(self.name, *given)
         lib = build()[self._launcher.SOURCE]
-        with torch.cuda.device(tensors[0].device):
+        with torch.cuda.device(given[0].device):
             out = self._launcher.launch(lib, *tensors, **static)
         self.launches += 1
+        if self._case is not None:
+            key = static.get(*self._case)
+            self.case_launches[key] = self.case_launches.get(key, 0) + 1
         return out
 
 
@@ -175,7 +185,7 @@ packed_reach_chunk_product = KernelWrapper(
 )
 sparse_reach_rows = KernelWrapper("sparse_reach_rows", sparse_reach_rows_ref, _sparse_reach)
 flash_attention = KernelWrapper("flash_attention", flash_attention_ref, _flash)
-ssd_chunk = KernelWrapper("ssd_chunk", ssd_chunk_ref, _ssd)
+ssd_chunk = KernelWrapper("ssd_chunk", ssd_chunk_ref, _ssd, case=("outputs", "both"))
 
 KERNELS = (
     reach_chunk_product,
@@ -189,6 +199,16 @@ KERNELS = (
 
 
 def reset_launches() -> None:
-    """Set every kernel's ``launches`` count to 0."""
+    """Set every kernel's ``launches`` counts to 0."""
     for kernel in KERNELS:
         kernel.launches = 0
+        kernel.case_launches = {}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's ``launches`` by name, and each case count as
+    ``"name/case"`` (K7: ``"ssd_chunk/state"``, ``"ssd_chunk/y"``)."""
+    counts = {k.name: k.launches for k in KERNELS}
+    for k in KERNELS:
+        counts.update({f"{k.name}/{case}": n for case, n in k.case_launches.items()})
+    return counts

@@ -1,17 +1,22 @@
 """K1 launcher: reach chunk products through ``csrc/reach.cu``.
 
 Replaces ``repro/kernels/reach.py::reach_chunk_product``.  One launch covers
-every chunk: a grid of (chunks) × (ℓp / 32 column strips), each block walking
-its chunk's k class ids over a bit-packed strip of the product (see the note
-at the top of the source).  The plain version is
+every chunk.  :func:`plan` picks one of the source's two kernels by the
+table's size: the group kernel, one thread a column walking over a group
+table (:func:`group_table`) held in shared memory, with the widest group
+``g`` of ``GROUPS`` whose table fits; else the strip kernel, a grid of
+(chunks) × (ℓp / 32 column strips) folding row-packed N (see the note at the
+top of the source).  The plain version is
 ``kernels/ref.py::reach_chunk_product_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.matrices import pack_bits_torch
 from .checks import MAX_SMEM_BYTES, check_ids, check_status, check_table, require, stream
@@ -20,8 +25,58 @@ SOURCE = "reach"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "repro_reach_products": (_I, [_P, _P, _P, _I, _I, _I, _P]),
-    "repro_reach_smem_bytes": (ctypes.c_longlong, [_I]),
+    "repro_reach_group": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
 }
+# group widths, widest (fewest lookups a step) first; g = 1 would need as
+# many table bytes as g = 2 (2^g / g entries a state) for twice the lookups
+GROUPS = (4, 2)
+MAX_GROUP_W = 16          # the group kernel holds a column in W ≤ 16 words: ℓp ≤ 512
+STRIP = 32
+
+
+def group_table_bytes(n_classes: int, lp: int, g: int) -> int:
+    """Bytes of :func:`group_table` for ``n_classes`` (ℓp, ℓp) tables."""
+    return n_classes * (lp // g) * (1 << g) * ((lp // 32) | 1) * 4
+
+
+def strip_smem_bytes(lp: int) -> int:
+    """Shared memory of one strip-kernel block: two row-packed N[x] and two
+    bit strips."""
+    W = lp // 32
+    return (2 * lp * W + 2 * STRIP * W) * 4
+
+
+def plan(n_classes: int, lp: int) -> Tuple[str, int]:
+    """Kernel for ``n_classes`` (ℓp, ℓp) tables: ``("group", g)`` with the
+    widest g of ``GROUPS`` whose table fits in one block's shared memory
+    (ℓp ≤ 512), else ``("strip", 0)`` (ℓp ≤ 928); raises beyond that."""
+    if lp // 32 <= MAX_GROUP_W:
+        for g in GROUPS:
+            if group_table_bytes(n_classes, lp, g) <= MAX_SMEM_BYTES:
+                return "group", g
+    require(
+        strip_smem_bytes(lp) <= MAX_SMEM_BYTES,
+        f"reach_chunk_product: ℓp={lp} needs {strip_smem_bytes(lp)} B of shared memory",
+    )
+    return "strip", 0
+
+
+def group_table(N: torch.Tensor, g: int) -> torch.Tensor:
+    """(A+1, ℓp/g, 2^g, W|1) int32 group table of N (A+1, ℓp, ℓp) {0,1}.
+
+    Entry [x][grp][v] is the OR of the columns grp·g + b of N[x] over the set
+    bits b of v, packed over the rows as ``pack_bits`` packs (bit i of word w
+    is row 32·w + i); a word beyond W, when W is even, is zero.
+    """
+    A1, lp, _ = N.shape
+    V = 1 << g
+    v = torch.arange(V, device=N.device)
+    bits = ((v[:, None] >> torch.arange(g, device=N.device)[None, :]) & 1).to(N.dtype)
+    cols = N.transpose(1, 2).reshape(A1, lp // g, g, lp)         # [x][grp][b][row]
+    T = torch.clamp(torch.einsum("vb,xcbi->xcvi", bits, cols), max=1.0)
+    words = pack_bits_torch(T)                                   # (A+1, ℓp/g, 2^g, W)
+    W = lp // 32
+    return F.pad(words, (0, (W | 1) - W))
 
 
 def launch(lib: ctypes.CDLL, N: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -29,13 +84,19 @@ def launch(lib: ctypes.CDLL, N: torch.Tensor, ids: torch.Tensor) -> torch.Tensor
     name = "reach_chunk_product"
     lp = check_table(name, N)
     check_ids(name, ids, N.shape[0])
-    smem = lib.repro_reach_smem_bytes(lp)
-    require(smem <= MAX_SMEM_BYTES, f"{name}: ℓp={lp} needs {smem} B of shared memory")
+    kind, g = plan(N.shape[0], lp)
     C, k = ids.shape
-    nr = pack_bits_torch(N)                           # (A+1, ℓp, W) row-packed
     out = torch.empty((C, lp, lp), dtype=torch.float32, device=N.device)
-    status = lib.repro_reach_products(
-        nr.data_ptr(), ids.data_ptr(), out.data_ptr(), C, k, lp, stream(N)
-    )
+    if kind == "group":
+        T = group_table(N, g).reshape(-1)
+        T = F.pad(T, (0, -T.numel() % 4)).contiguous()           # whole 16-byte copies
+        status = lib.repro_reach_group(
+            T.data_ptr(), T.numel(), ids.data_ptr(), out.data_ptr(), C, k, lp, g, stream(N)
+        )
+    else:
+        nr = pack_bits_torch(N)                                  # (A+1, ℓp, W) row-packed
+        status = lib.repro_reach_products(
+            nr.data_ptr(), ids.data_ptr(), out.data_ptr(), C, k, lp, stream(N)
+        )
     check_status(status, name)
     return out

@@ -124,25 +124,37 @@ def flash_attention_ref(
 
 def ssd_chunk_ref(
     xdt: torch.Tensor, cs: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-    S_prev: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    S_prev: Optional[torch.Tensor], *, outputs: str = "both",
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """SSD intra-chunk output and state contribution per flattened program.
 
     xdt (P, q, hp), cs (P, q, 1) f32 cumulative decay logs, B and C (P, q, n),
     S_prev (P, hp, n) f32 → y = (L∘CBᵀ)·xdt + exp(cs)∘(C·S_prevᵀ) (P, q, hp)
     and S_c = (w∘B)ᵀ·xdt (P, n, hp), all in f32; L_ij = exp(cs_i − cs_j) for
-    i ≥ j, w_j = exp(cs_last − cs_j).
+    i ≥ j, w_j = exp(cs_last − cs_j).  ``outputs`` ``"y"`` or ``"state"``
+    computes only that one (the other comes back as None), with the same
+    operations as ``"both"``; ``"state"`` reads neither C nor S_prev, which
+    may be None there.
     """
+    if outputs not in ("both", "y", "state"):
+        raise ValueError(f"ssd_chunk: outputs must be 'both', 'y' or 'state', got {outputs!r}")
+    if S_prev is None and outputs != "state":
+        raise ValueError(f"ssd_chunk: outputs={outputs!r} needs S_prev")
     q = xdt.shape[1]
     csq = cs[..., 0]
-    iota = torch.arange(q, device=xdt.device)
-    Lmask = torch.where(
-        iota[:, None] >= iota[None, :], torch.exp(csq[:, :, None] - csq[:, None, :]), 0.0
-    )
-    Cf, Bf, xf = C.float(), B.float(), xdt.float()
-    CB = torch.einsum("pin,pjn->pij", Cf, Bf)
-    y_intra = torch.einsum("pij,pjh->pih", Lmask * CB, xf)
-    y_inter = torch.exp(csq)[..., None] * torch.einsum("pin,phn->pih", Cf, S_prev.float())
-    w = torch.exp(csq[:, -1:] - csq)
-    S_c = torch.einsum("pqn,pqh->pnh", w[..., None] * Bf, xf)
-    return y_intra + y_inter, S_c
+    Bf, xf = B.float(), xdt.float()
+    y = S_c = None
+    if outputs != "state":
+        iota = torch.arange(q, device=xdt.device)
+        Lmask = torch.where(
+            iota[:, None] >= iota[None, :], torch.exp(csq[:, :, None] - csq[:, None, :]), 0.0
+        )
+        Cf = C.float()
+        CB = torch.einsum("pin,pjn->pij", Cf, Bf)
+        y_intra = torch.einsum("pij,pjh->pih", Lmask * CB, xf)
+        y_inter = torch.exp(csq)[..., None] * torch.einsum("pin,phn->pih", Cf, S_prev.float())
+        y = y_intra + y_inter
+    if outputs != "y":
+        w = torch.exp(csq[:, -1:] - csq)
+        S_c = torch.einsum("pqn,pqh->pnh", w[..., None] * Bf, xf)
+    return y, S_c

@@ -1,16 +1,19 @@
 """K7 launcher: the SSD intra-chunk kernel through ``csrc/ssd_chunk.cu``.
 
 Replaces ``repro/kernels/ssd_chunk.py::ssd_chunk``.  One launch covers every
-flattened program p = (batch, chunk, head): per program, one block for each
-64-row tile of y and one block for the state contribution S_c (see the note
-at the top of the source).  The plain version is
-``kernels/ref.py::ssd_chunk_ref``.
+flattened program p = (batch, chunk, head) and computes the outputs asked for
+(``outputs``: ``"both"``, ``"state"`` for S_c alone, ``"y"`` for y alone).
+:func:`plan` picks one of the source's two kernels: the tensor-core kernel
+(one block a program and role, the program's operands in shared memory) for
+bf16 operands whose program fits, else the SIMT kernel (f32 operands, and
+bf16 programs too long for the first; see the note at the top of the
+source).  The plain version is ``kernels/ref.py::ssd_chunk_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,10 +22,30 @@ from .checks import MAX_SMEM_BYTES, check_status, require, stream
 SOURCE = "ssd_chunk"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "repro_ssd_chunk": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "repro_ssd_chunk": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "repro_ssd_chunk_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "repro_ssd_chunk_tc_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
 }
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+OUTPUTS = {"y": 1, "state": 2, "both": 3}     # the source's roles
+KERNELS = {"simt": 0, "mma": 1}
+
+
+def plan(lib, xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+         S_prev: Optional[torch.Tensor], outputs: str) -> str:
+    """``"mma"`` (tensor cores) for bf16 operands whose program fits one
+    block's shared memory and whose tensors are 16-byte aligned (its copies
+    move 16 bytes at a time), else ``"simt"``."""
+    _, q, hp = xdt.shape
+    n = B.shape[2]
+    if xdt.dtype == torch.bfloat16:
+        smem = lib.repro_ssd_chunk_tc_smem_bytes(q, hp, n, OUTPUTS[outputs])
+        aligned = all(t.data_ptr() % 16 == 0 for t in (xdt, B, C, S_prev) if t is not None)
+        if 0 < smem <= MAX_SMEM_BYTES and aligned:
+            return "mma"
+    smem = lib.repro_ssd_chunk_smem_bytes(q, hp, n)
+    require(smem <= MAX_SMEM_BYTES, f"ssd_chunk: q={q} needs {smem} B of shared memory")
+    return "simt"
 
 
 def launch(
@@ -31,19 +54,27 @@ def launch(
     cs: torch.Tensor,
     B: torch.Tensor,
     C: torch.Tensor,
-    S_prev: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    S_prev: Optional[torch.Tensor],
+    *,
+    outputs: str = "both",
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """xdt (P, q, hp), cs (P, q, 1) f32, B and C (P, q, n) in xdt's dtype,
-    S_prev (P, hp, n) f32 → (y (P, q, hp) f32, S_c (P, n, hp) f32)."""
+    S_prev (P, hp, n) f32 (None for ``outputs="state"``, which does not read
+    it) → (y (P, q, hp) f32, S_c (P, n, hp) f32), each None where
+    ``outputs`` does not ask for it."""
     name = "ssd_chunk"
+    require(outputs in OUTPUTS, f"{name}: outputs must be one of {sorted(OUTPUTS)}, got {outputs!r}")
     require(
         xdt.dtype in DTYPES and B.dtype == xdt.dtype and C.dtype == xdt.dtype,
         f"{name}: xdt, B, C must all be float32 or all bfloat16, got "
         f"{xdt.dtype}, {B.dtype}, {C.dtype}",
     )
+    want_y, want_s = outputs in ("both", "y"), outputs in ("both", "state")
+    require(S_prev is not None or not want_y, f"{name}: outputs={outputs!r} needs S_prev")
+    require(cs.dtype == torch.float32, f"{name}: cs must be float32, got {cs.dtype}")
     require(
-        cs.dtype == torch.float32 and S_prev.dtype == torch.float32,
-        f"{name}: cs and S_prev must be float32, got {cs.dtype} and {S_prev.dtype}",
+        S_prev is None or S_prev.dtype == torch.float32,
+        f"{name}: S_prev must be float32, got {getattr(S_prev, 'dtype', None)}",
     )
     require(xdt.dim() == 3, f"{name}: xdt must be (P, q, hp), got {tuple(xdt.shape)}")
     P, q, hp = xdt.shape
@@ -51,18 +82,22 @@ def launch(
     n = B.shape[2]
     require(tuple(C.shape) == (P, q, n), f"{name}: C must be ({P}, {q}, {n})")
     require(tuple(cs.shape) == (P, q, 1), f"{name}: cs must be ({P}, {q}, 1)")
-    require(tuple(S_prev.shape) == (P, hp, n), f"{name}: S_prev must be ({P}, {hp}, {n})")
+    require(
+        S_prev is None or tuple(S_prev.shape) == (P, hp, n),
+        f"{name}: S_prev must be ({P}, {hp}, {n})",
+    )
     require(
         hp % 16 == 0 and n % 16 == 0 and 0 < hp <= 128 and 0 < n <= 128,
         f"{name}: hp and n must be multiples of 16 up to 128, got hp={hp}, n={n}",
     )
-    smem = lib.repro_ssd_chunk_smem_bytes(q, hp, n)
-    require(smem <= MAX_SMEM_BYTES, f"{name}: q={q} needs {smem} B of shared memory")
-    y = torch.empty((P, q, hp), dtype=torch.float32, device=xdt.device)
-    S_c = torch.empty((P, n, hp), dtype=torch.float32, device=xdt.device)
+    kernel = plan(lib, xdt, B, C, S_prev, outputs)
+    y = torch.empty((P, q, hp), dtype=torch.float32, device=xdt.device) if want_y else None
+    S_c = torch.empty((P, n, hp), dtype=torch.float32, device=xdt.device) if want_s else None
     status = lib.repro_ssd_chunk(
-        xdt.data_ptr(), cs.data_ptr(), B.data_ptr(), C.data_ptr(), S_prev.data_ptr(),
-        y.data_ptr(), S_c.data_ptr(), DTYPES[xdt.dtype], P, q, hp, n, stream(xdt),
+        xdt.data_ptr(), cs.data_ptr(), B.data_ptr(), C.data_ptr(),
+        S_prev.data_ptr() if S_prev is not None else None,
+        y.data_ptr() if want_y else None, S_c.data_ptr() if want_s else None,
+        DTYPES[xdt.dtype], P, q, hp, n, OUTPUTS[outputs], KERNELS[kernel], stream(xdt),
     )
     check_status(status, name)
     return y, S_c

@@ -5,11 +5,13 @@ The SSD recurrence per head is  ``s_t = a_t · s_{t-1} + dt_t · x_t ⊗ B_t``,
 paper's three-phase schema (``core/scan.py``):
 
   reach  per chunk: the chunk's state contribution S_c — K7
-         (``kernels/ops.ssd_chunk``) with a zero entry state;
+         (``kernels/ops.ssd_chunk``, ``outputs="state"``: neither C nor the
+         entry state is read);
   join   exclusive scan of (decay, state) pairs across chunks
          (``core.scan.exclusive_entries``);
   build  per chunk: the within-chunk quadratic form plus the inter-chunk term
-         ``C_t · (decay · S_prev)`` — K7 again, with the joined entry states.
+         ``C_t · (decay · S_prev)`` — K7 again (``outputs="y"``), with the
+         joined entry states.
 
 So a layer's prefill is two K7 launches.  Decode is the O(1) stepwise
 recurrence against an (heads, head_dim, d_state) state cache plus a
@@ -113,9 +115,9 @@ def ssd_chunked(
     C_f = flat(C.reshape(b, nc, q, g, 1, n).expand(b, nc, q, g, hpg, n).reshape(b, nc, q, nh, n))
     cs_f = flat(cs[..., None])
 
-    # ---- reach: each chunk's state contribution, from a zero entry state
-    zero = torch.zeros((P, hp, n), dtype=torch.float32, device=xdt.device)
-    _, S_c = ops.ssd_chunk(x_f, cs_f, B_f, C_f, zero)
+    # ---- reach: each chunk's state contribution (S_c does not depend on the
+    # entry state, and a launch for S_c alone does not read it)
+    _, S_c = ops.ssd_chunk(x_f, cs_f, B_f, C_f, None, outputs="state")
     S = S_c.reshape(b, nc, nh, n, hp).transpose(-1, -2)             # (b, nc, nh, hp, n)
 
     # ---- join: exclusive scan of (decay, state) across chunks
@@ -130,7 +132,7 @@ def ssd_chunked(
 
     # ---- build: intra-chunk quadratic form + inter-chunk term
     S_prev = entries.transpose(0, 1).reshape(P, hp, n).contiguous()
-    y, _ = ops.ssd_chunk(x_f, cs_f, B_f, C_f, S_prev)
+    y, _ = ops.ssd_chunk(x_f, cs_f, B_f, C_f, S_prev, outputs="y")
     y = y.reshape(b, nc, nh, q, hp).permute(0, 1, 3, 2, 4).reshape(b, l, nh, hp)
     return y, final_state
 

@@ -101,3 +101,65 @@ def test_corpus_texts_are_deterministic_and_cover_edges(key):
     assert got == texts(key)
     assert got[0] == b"" and any(b"~" in t for t in got)
     assert len(got) == len(set(got))
+
+
+# ------------------------------------------- K1's group table, walked in torch
+
+
+def _walk_group_table(T, ids, g, lp):
+    """Chunk products from a column walk over K1's group table, as the group
+    kernel walks it: column j starts as e_j, and a step ORs, over the g-bit
+    groups of the column, the table entry that the group's value selects."""
+    from repro_torch.core.matrices import packed_identity, unpack_bits_torch
+
+    C, k = ids.shape
+    W, V = lp // 32, 1 << g
+    starts = torch.arange(0, lp, g)
+    word, bit = starts // 32, (starts % 32).to(torch.int32)
+    cols = packed_identity(lp).expand(C, lp, W).clone()            # (C, column j, W)
+    chunk = torch.arange(C)[:, None, None]
+    group = torch.arange(lp // g)[None, None, :]
+    for t in range(k):
+        v = (cols[:, :, word] >> bit) & (V - 1)                   # (C, ℓp, ℓp/g)
+        entries = T[ids[:, t]][chunk, group, v.long()][..., :W]    # (C, ℓp, ℓp/g, W)
+        new = torch.zeros_like(cols)
+        for gi in range(entries.shape[2]):
+            new |= entries[:, :, gi]
+        cols = new
+    return unpack_bits_torch(cols, lp).transpose(1, 2).to(torch.float32)
+
+
+_reach_cache: dict = {}
+
+
+@pytest.mark.parametrize("key", CORPUS)
+@pytest.mark.parametrize("g", [4, 2])                  # the group kernel's widths
+def test_group_table_walk_equals_reach_plain_and_pallas(key, g):
+    """K1's group table (``kernels/reach.py::group_table``, built in torch),
+    walked column by column, gives the chunk products of the plain version
+    and of the reference's Pallas reach kernel (interpret mode) on the
+    corpus's tables, PAD steps and all."""
+    import jax.numpy as jnp
+
+    from repro.core.engine import EngineTables as RefTables
+    from repro.kernels import ops as ref_ops
+    from repro_torch.kernels import reach as reach_launcher
+    from repro_torch.kernels.ref import reach_chunk_product_ref
+
+    if key not in _reach_cache:
+        art, _, _ = artifacts(key)
+        N = np.asarray(RefTables.from_matrices(art.matrices, lane_pad=128).N)
+        rng = np.random.Generator(np.random.Philox(zlib.crc32(key.encode())))
+        ids = rng.integers(0, N.shape[0], size=(2, 9)).astype(np.int32)
+        ids[1, 6:] = N.shape[0] - 1                                # a PAD-ended chunk
+        pallas = np.stack([np.asarray(ref_ops.reach_chunk_product(jnp.asarray(N),
+                                                                  jnp.asarray(row)))
+                           for row in ids])
+        _reach_cache[key] = (N, ids, pallas)
+    N, ids, pallas = _reach_cache[key]
+    lp = N.shape[-1]
+    T = reach_launcher.group_table(torch.tensor(N), g)
+    assert T.shape == (N.shape[0], lp // g, 1 << g, (lp // 32) | 1)
+    got = _walk_group_table(T, torch.tensor(ids).long(), g, lp)
+    assert torch.equal(got, reach_chunk_product_ref(torch.tensor(N), torch.tensor(ids)))
+    assert np.array_equal(got.numpy(), pallas)

@@ -28,6 +28,9 @@ from repro_torch.core.matrices import (  # noqa: E402
 )
 from repro_torch.core.segments import compute_segments  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import reach as reach_launcher  # noqa: E402
+from repro_torch.kernels import ssd_chunk as ssd_launcher  # noqa: E402
+from repro_torch.kernels.checks import MAX_SMEM_BYTES  # noqa: E402
 from repro_torch.kernels.ref import build_merge_packed_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -131,6 +134,72 @@ def test_reach_kernel_equals_plain_random_tables(dev, lp, density, k):
     got = ops.reach_chunk_product(N, ids)
     torch.cuda.synchronize()
     assert torch.equal(got, ops.reach_chunk_product.plain(N, ids))
+
+
+def _reach_variants(n_classes, lp):
+    """Every K1 kernel that takes ``n_classes`` (ℓp, ℓp) tables: each group
+    width whose table fits, and the strip kernel."""
+    out = []
+    if lp // 32 <= reach_launcher.MAX_GROUP_W:
+        out += [("group", g) for g in reach_launcher.GROUPS
+                if reach_launcher.group_table_bytes(n_classes, lp, g) <= MAX_SMEM_BYTES]
+    return out + [("strip", 0)]
+
+
+# (ℓp, classes incl. PAD, density): TRAFFIC's and e125's widths, a 512-wide
+# table (one class for g = 4), the strip kernel's widest, and 300 classes
+# (ids above 255)
+REACH_TABLES = [(32, 300, 0.05), (64, 19, 0.03), (288, 4, 0.005), (512, 1, 0.002),
+                (512, 3, 0.002), (928, 3, 0.001)]
+REACH_CASES = [(lp, a, d, variant) for lp, a, d in REACH_TABLES
+               for variant in _reach_variants(a, lp)]
+
+
+@pytest.mark.parametrize("lp,n_classes,density,variant", REACH_CASES)
+@pytest.mark.parametrize("k", [0, 1, 7, 33])
+def test_reach_kernel_every_plan_variant(dev, monkeypatch, lp, n_classes, density, variant, k):
+    """K1 bit for bit in each kernel the plan can choose, forced through the
+    plan: random tables with PAD (the last class) the identity, chunks that
+    end in PAD, ids above 255 where there are that many classes."""
+    monkeypatch.setattr(reach_launcher, "plan", lambda n, l: variant)
+    rng = np.random.default_rng(lp + n_classes + k)
+    N = (rng.random((n_classes, lp, lp)) < density).astype(np.float32)
+    if n_classes > 1:
+        N[-1] = np.eye(lp, dtype=np.float32)                    # PAD = identity
+    N = torch.tensor(N, device=dev)
+    C = 5
+    ids = rng.integers(0, n_classes, size=(C, k))
+    ids[: C // 2, k // 2:] = n_classes - 1                     # PAD-ended chunks
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    got = ops.reach_chunk_product(N, ids)
+    torch.cuda.synchronize()
+    assert ops.reach_chunk_product.launches == 1
+    assert torch.equal(got, ops.reach_chunk_product.plain(N, ids))
+
+
+@pytest.mark.parametrize("which,variant", [("traffic", ("group", 4)), ("traffic", ("strip", 0)),
+                                           ("e125", ("group", 4)), ("e125", ("group", 2)),
+                                           ("e125", ("strip", 0))])
+def test_reach_kernel_long_chunks(dev, monkeypatch, which, variant):
+    """k = 8192 steps (TRAFFIC's chunk length at 8 MiB) on the repository's
+    automata, random class ids, the last chunk ending in PAD."""
+    t = _pattern_table(JOIN_PATTERNS[which], dev)
+    monkeypatch.setattr(reach_launcher, "plan", lambda n, l: variant)
+    rng = np.random.default_rng(8192)
+    ids = rng.integers(0, t.N.shape[0] - 1, size=(3, 8192))
+    ids[-1, 5000:] = t.N.shape[0] - 1
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    got = ops.reach_chunk_product(t.N, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.reach_chunk_product.plain(t.N, ids))
+
+
+def test_reach_plan_at_the_parse_shapes(dev):
+    """The plan's own choice for TRAFFIC and e125: the group kernel, g = 4."""
+    for which in ("traffic", "e125"):
+        t = _pattern_table(JOIN_PATTERNS[which], dev)
+        assert reach_launcher.plan(t.N.shape[0], t.ell_pad) == ("group", 4)
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)
@@ -437,6 +506,56 @@ def test_ssd_chunk_kernel_equals_plain(dev, P, q, hp, n, dtype):
     torch.testing.assert_close(S_c, S_ref, rtol=2e-4, atol=2e-4)
 
 
+SSD_OUTPUTS = ("both", "state", "y")
+
+
+def _assert_ssd_outputs(args, outputs):
+    y, S_c = ops.ssd_chunk(*args, outputs=outputs)
+    torch.cuda.synchronize()
+    y_ref, S_ref = ops.ssd_chunk.plain(*args, outputs=outputs)
+    assert (y is None) == (outputs == "state") and (S_c is None) == (outputs == "y")
+    for got, want in ((y, y_ref), (S_c, S_ref)):
+        if want is not None:
+            assert got.shape == want.shape
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("q", [8, 64, 256])
+@pytest.mark.parametrize("hp", [16, 64, 128])
+@pytest.mark.parametrize("n", [16, 64, 128])
+@pytest.mark.parametrize("outputs", SSD_OUTPUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_every_output_mode(dev, q, hp, n, outputs, dtype):
+    """Each ``outputs`` mode against the plain version, an odd number of
+    programs; bf16 runs on the tensor-core kernel at every one of these
+    shapes but a y launch at q = 256, hp = n = 128, whose program does not
+    fit in shared memory with S_prev's hi / lo copy (the SIMT kernel's)."""
+    rng = np.random.default_rng(q * 3 + hp + n)
+    args = _ssd_inputs(rng, 3, q, hp, n, getattr(torch, dtype), dev)
+    lib = ops.build()[ssd_launcher.SOURCE]
+    too_long = (q, hp, n) == (256, 128, 128) and outputs != "state"
+    want_kernel = "mma" if dtype == "bfloat16" and not too_long else "simt"
+    assert ssd_launcher.plan(lib, args[0], args[2], args[3], args[4], outputs) == want_kernel
+    _assert_ssd_outputs(args, outputs)
+
+
+@pytest.mark.parametrize("outputs", SSD_OUTPUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_at_the_prefill_shape(dev, outputs, dtype):
+    """zamba2-2.7b's prefill: P = 1280 programs, q = 256, hp = n = 64."""
+    args = _ssd_inputs(np.random.default_rng(1280), 1280, 256, 64, 64, getattr(torch, dtype), dev)
+    _assert_ssd_outputs(args, outputs)
+
+
+@pytest.mark.parametrize("outputs", SSD_OUTPUTS)
+def test_ssd_chunk_bf16_on_the_simt_kernel(dev, monkeypatch, outputs):
+    """The SIMT kernel, the plan's choice for bf16 programs too long for the
+    tensor-core kernel, forced through the plan."""
+    monkeypatch.setattr(ssd_launcher, "plan", lambda *a: "simt")
+    args = _ssd_inputs(np.random.default_rng(7), 5, 100, 32, 48, torch.bfloat16, dev)
+    _assert_ssd_outputs(args, outputs)
+
+
 def test_lm_wrappers_count_launches_on_the_card_only(dev):
     rng = np.random.default_rng(2)
     q, k, v = _qkv(rng, 1, 16, 16, 2, 32, torch.float32, torch.device("cpu"))
@@ -448,6 +567,12 @@ def test_lm_wrappers_count_launches_on_the_card_only(dev):
     ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=True, window=4)
     ops.ssd_chunk(*[a.to(dev) for a in args])
     assert ops.flash_attention.launches == 1 and ops.ssd_chunk.launches == 1
+    x, cs, B, C, _ = (a.to(dev) for a in args)
+    _, S_c = ops.ssd_chunk(x, cs, B, C, None, outputs="state")          # S_prev unread
+    torch.testing.assert_close(S_c, ops.ssd_chunk.plain(x, cs, B, C, None, outputs="state")[1],
+                               rtol=2e-4, atol=2e-4)
+    assert ops.ssd_chunk.launches == 2
+    assert ops.ssd_chunk.case_launches == {"both": 1, "state": 1}
 
 
 def test_lm_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -477,6 +602,10 @@ def test_lm_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x24, _, B24, C24, S24 = _ssd_inputs(rng, 2, 32, 24, 16, torch.float32, dev)
     with pytest.raises(ValueError, match="multiples of 16"):
         ops.ssd_chunk(x24, cs, B24, C24, S24)
+    with pytest.raises(ValueError, match="outputs"):
+        ops.ssd_chunk(xdt, cs, B, C, S, outputs="S_c")
+    with pytest.raises(ValueError, match="needs S_prev"):
+        ops.ssd_chunk(xdt, cs, B, C, None, outputs="y")
 
 
 # ------------------------------------------------------------- LM prefill
@@ -507,6 +636,8 @@ def test_prefill_on_the_card_equals_the_plain_versions(dev, arch, dtype):
     n_attn = kinds.count("attn") + (len(kinds) // cfg.shared_attn_every if cfg.shared_attn_every else 0)
     assert ops.flash_attention.launches == n_attn
     assert ops.ssd_chunk.launches == 2 * kinds.count("ssm")
+    counts = ops.launch_counts()
+    assert counts.get("ssd_chunk/state", 0) == counts.get("ssd_chunk/y", 0) == kinds.count("ssm")
     got, want = got.float().cpu(), want.float()
     tol = 1e-4 if dtype == "float32" else 5e-2 * max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= tol

@@ -1,12 +1,15 @@
-"""The pure-Python parts of the K3 and K6 launchers, on the CPU.
+"""The pure-Python parts of the K1, K3, K6 and K7 launchers, on the CPU.
 
-K3's launcher (``repro_torch/kernels/semiring.py``) picks one of three CUDA
-kernels by shape and, for the tiled one, an output tile; K6's launcher
-(``kernels/flash_attention.py``) bounds the grid by query tiles.  Neither
-choice changes a result (the kernels are held against their plain versions
-on the card by ``tests/test_torch_cuda.py``), but a wrong choice sends a
-shape to a kernel that does not take it, so the dispatch is checked here
-with a stand-in for the compiled library that records each call.
+K1's launcher (``repro_torch/kernels/reach.py``) picks the group kernel and
+its group width, or the strip kernel, by the table's size; K3's
+(``kernels/semiring.py``) one of three CUDA kernels by shape and, for the
+tiled one, an output tile; K6's (``kernels/flash_attention.py``) bounds the
+grid by query tiles; K7's (``kernels/ssd_chunk.py``) picks the tensor-core or
+the SIMT kernel and passes the outputs asked for.  No choice changes a
+result (the kernels are held against their plain versions on the card by
+``tests/test_torch_cuda.py``), but a wrong choice sends a shape to a kernel
+that does not take it, so the dispatch is checked here with a stand-in for
+the compiled library that records each call.
 """
 
 import math
@@ -18,7 +21,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import backend  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_launcher  # noqa: E402
+from repro_torch.kernels import reach  # noqa: E402
 from repro_torch.kernels import semiring  # noqa: E402
+from repro_torch.kernels import ssd_chunk as ssd_launcher  # noqa: E402
+from repro_torch.kernels.checks import MAX_SMEM_BYTES  # noqa: E402
 
 
 class _RecordingLib:
@@ -124,3 +130,119 @@ def test_flash_launcher_bounds_the_grid_by_query_tiles(monkeypatch, dtype, tile)
     wide = torch.zeros((40000, 1, 2, 8), dtype=dtype)     # b * h above 65535 is taken
     flash_launcher.launch(lib, wide, wide, wide, causal=True)
     assert lib.calls[-1][0] == "repro_flash_attention"
+
+
+@pytest.mark.parametrize("n_classes,lp,want", [
+    (19, 64, ("group", 4)),       # TRAFFIC: 58 KB of table at g = 4
+    (4, 288, ("group", 4)),       # e125: 166 KB
+    (300, 32, ("group", 4)),      # ids above 255
+    (1, 512, ("group", 4)),       # the widest group-kernel column (W = 16)
+    (3, 512, ("group", 2)),       # g = 4 no longer fits, g = 2 does
+    (4, 928, ("strip", 0)),       # W = 29: beyond the group kernel's registers
+    (40, 288, ("strip", 0)),      # no group width fits 40 classes
+    (1, 928, ("strip", 0)),       # the strip kernel's widest table
+])
+def test_reach_plan_picks_the_kernel_by_table_size(n_classes, lp, want):
+    assert reach.plan(n_classes, lp) == want
+    if want[0] == "group":
+        assert reach.group_table_bytes(n_classes, lp, want[1]) <= MAX_SMEM_BYTES
+        wider = [g for g in reach.GROUPS if g > want[1]]
+        assert all(reach.group_table_bytes(n_classes, lp, g) > MAX_SMEM_BYTES for g in wider)
+    else:
+        assert reach.strip_smem_bytes(lp) <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("lp", [960, 1024])
+def test_reach_plan_raises_beyond_the_strip_kernel(lp):
+    with pytest.raises(ValueError, match="shared memory"):
+        reach.plan(2, lp)
+
+
+def _launch_reach(monkeypatch, n_classes, lp, k=5):
+    lib = _RecordingLib()
+    monkeypatch.setattr(reach, "stream", lambda t: 0)
+    N = torch.eye(lp).expand(n_classes, lp, lp).contiguous()
+    ids = torch.zeros((3, k), dtype=torch.int32)
+    out = reach.launch(lib, N, ids)
+    assert out.shape == (3, lp, lp)
+    (fn, args), = lib.calls
+    return fn, args
+
+
+@pytest.mark.parametrize("n_classes,lp,g", [(19, 64, 4), (4, 288, 4), (3, 512, 2)])
+def test_reach_launcher_sends_a_fitting_table_to_the_group_kernel(monkeypatch, n_classes, lp, g):
+    fn, args = _launch_reach(monkeypatch, n_classes, lp)
+    assert fn == "repro_reach_group"
+    t_words = args[1]
+    assert t_words % 4 == 0 and t_words * 4 <= MAX_SMEM_BYTES
+    assert t_words * 4 >= reach.group_table_bytes(n_classes, lp, g)
+    assert args[4:8] == (3, 5, lp, g)
+
+
+@pytest.mark.parametrize("n_classes,lp", [(40, 288), (2, 928)])
+def test_reach_launcher_sends_other_tables_to_the_strip_kernel(monkeypatch, n_classes, lp):
+    fn, args = _launch_reach(monkeypatch, n_classes, lp)
+    assert fn == "repro_reach_products"
+    assert args[3:6] == (3, 5, lp)
+
+
+def test_reach_launcher_raises_before_any_call_beyond_the_strip_kernel(monkeypatch):
+    lib = _RecordingLib()
+    N = torch.eye(960).expand(2, 960, 960).contiguous()
+    with pytest.raises(ValueError, match="shared memory"):
+        reach.launch(lib, N, torch.zeros((1, 3), dtype=torch.int32))
+    assert lib.calls == []
+
+
+def _ssd_args(dtype, P=3, q=256, hp=64, n=64):
+    return (torch.zeros((P, q, hp), dtype=dtype), torch.zeros((P, q, 1)),
+            torch.zeros((P, q, n), dtype=dtype), torch.zeros((P, q, n), dtype=dtype),
+            torch.zeros((P, hp, n)))
+
+
+@pytest.mark.parametrize("outputs,roles", [("both", 3), ("state", 2), ("y", 1)])
+@pytest.mark.parametrize("dtype,tc_smem,kernel", [
+    (torch.bfloat16, 115712, 1),        # the prefill's program fits: tensor cores
+    (torch.bfloat16, -1, 0),            # it does not: the SIMT kernel
+    (torch.float32, 115712, 0),         # f32 operands: the SIMT kernel
+])
+def test_ssd_launcher_plans_and_passes_the_outputs(monkeypatch, outputs, roles, dtype,
+                                                   tc_smem, kernel):
+    lib = _RecordingLib(repro_ssd_chunk_tc_smem_bytes=tc_smem, repro_ssd_chunk_smem_bytes=60000)
+    monkeypatch.setattr(ssd_launcher, "stream", lambda t: 0)
+    y, S_c = ssd_launcher.launch(lib, *_ssd_args(dtype), outputs=outputs)
+    assert (y is None) == (outputs == "state") and (S_c is None) == (outputs == "y")
+    fn, args = lib.calls[-1]
+    assert fn == "repro_ssd_chunk"
+    assert (args[5] is None) == (outputs == "state") and (args[6] is None) == (outputs == "y")
+    assert args[7:14] == (int(dtype == torch.bfloat16), 3, 256, 64, 64, roles, kernel)
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, 1), (torch.float32, 0)])
+def test_ssd_launcher_passes_no_state_for_a_state_launch(monkeypatch, dtype, kernel):
+    """``outputs="state"`` takes S_prev = None (the source reads none) and
+    passes a null pointer; a y launch without S_prev raises before any call."""
+    lib = _RecordingLib(repro_ssd_chunk_tc_smem_bytes=66560, repro_ssd_chunk_smem_bytes=60000)
+    monkeypatch.setattr(ssd_launcher, "stream", lambda t: 0)
+    x, cs, B, C, _ = _ssd_args(dtype)
+    y, S_c = ssd_launcher.launch(lib, x, cs, B, C, None, outputs="state")
+    assert y is None and S_c.shape == (3, 64, 64)
+    fn, args = lib.calls[-1]
+    assert fn == "repro_ssd_chunk" and args[4] is None and args[5] is None
+    assert args[12:14] == (2, kernel)
+    n_calls = len(lib.calls)
+    for outputs in ("y", "both"):
+        with pytest.raises(ValueError, match="needs S_prev"):
+            ssd_launcher.launch(lib, x, cs, B, C, None, outputs=outputs)
+    assert len(lib.calls) == n_calls
+
+
+def test_ssd_launcher_raises_on_unknown_outputs_and_oversized_programs(monkeypatch):
+    monkeypatch.setattr(ssd_launcher, "stream", lambda t: 0)
+    lib = _RecordingLib(repro_ssd_chunk_tc_smem_bytes=-1,
+                        repro_ssd_chunk_smem_bytes=MAX_SMEM_BYTES + 4)
+    with pytest.raises(ValueError, match="outputs"):
+        ssd_launcher.launch(lib, *_ssd_args(torch.bfloat16), outputs="S_c")
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_launcher.launch(lib, *_ssd_args(torch.bfloat16), outputs="y")
+    assert [fn for fn, _ in lib.calls if fn == "repro_ssd_chunk"] == []

@@ -121,7 +121,10 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     S = torch.zeros((2, 16, 16))
     for got, want in zip(ops.ssd_chunk(x, cs, x, x, S), ssd_chunk_ref(x, cs, x, x, S)):
         assert torch.equal(got, want)
+    _, S_c = ops.ssd_chunk(x, cs, x, x, None, outputs="state")
+    assert torch.equal(S_c, ssd_chunk_ref(x, cs, x, x, S)[1])
     assert [k.launches for k in ops.KERNELS] == [0] * 7
+    assert ops.launch_counts() == {k.name: 0 for k in ops.KERNELS}
     assert {k.plain for k in ops.KERNELS} == {
         reach_chunk_product_ref, build_merge_packed_ref, semiring_matmul_ref,
         packed_reach_chunk_product_ref, sparse_reach_rows_ref, flash_attention_ref,

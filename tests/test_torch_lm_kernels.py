@@ -90,6 +90,32 @@ def test_ssd_chunk_plain_equals_reference_kernel(q, hp, n):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("q,hp,n", [(32, 16, 8), (64, 32, 16), (1, 16, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_plain_single_outputs_equal_both(q, hp, n, dtype):
+    """``outputs="state"`` and ``"y"`` give, bit for bit, the matching half of
+    ``"both"`` and None for the other; a launch for S_c alone does not read
+    C or S_prev (NaN there changes nothing)."""
+    args = [torch.tensor(a) for a in _ssd_inputs(np.random.default_rng(q + hp), 3, q, hp, n)]
+    td = DTYPES[dtype][1]
+    args = [args[0].to(td), args[1], args[2].to(td), args[3].to(td), args[4]]
+    y, S_c = ops.ssd_chunk(*args)
+    y_only, none_s = ops.ssd_chunk(*args, outputs="y")
+    none_y, s_only = ops.ssd_chunk(*args, outputs="state")
+    assert none_s is None and none_y is None
+    assert torch.equal(y_only, y) and torch.equal(s_only, S_c)
+    nan_C, nan_S = torch.full_like(args[3], float("nan")), torch.full_like(args[4], float("nan"))
+    _, s_blind = ops.ssd_chunk(args[0], args[1], args[2], nan_C, nan_S, outputs="state")
+    assert torch.equal(s_blind, S_c)
+    none_y, s_no_prev = ops.ssd_chunk(*args[:4], None, outputs="state")
+    assert none_y is None and torch.equal(s_no_prev, S_c)
+    with pytest.raises(ValueError, match="outputs"):
+        ops.ssd_chunk(*args, outputs="S_c")
+    for outputs in ("y", "both"):
+        with pytest.raises(ValueError, match="needs S_prev"):
+            ops.ssd_chunk(*args[:4], None, outputs=outputs)
+
+
 def test_ssd_chunk_plain_takes_bf16_operands():
     """bf16 xdt / B / C are widened exactly; the result is the f32 one on the
     rounded inputs."""

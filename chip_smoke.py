@@ -8,15 +8,17 @@ or ``repro``).  Phases, each printing one JSON line:
 
   env        PyTorch version, card name, ``nvidia-smi`` name and power limit
   build      nvcc build time of the kernels' six sources (one process each)
-  kernel_build  K1's, K3's, K6's and K7's kernels: registers, shared memory
-             and spills (``-Xptxas -v``) and HGMMA / HMMA counts in their
-             SASS (``cuobjdump -sass``); fails if a tensor-core kernel has none
+  kernel_build  K1's, K3's, K4's / K5's, K6's and K7's kernels: registers,
+             shared memory and spills (``-Xptxas -v``) and HGMMA / HMMA counts
+             in their SASS (``cuobjdump -sass``); fails if a tensor-core
+             kernel has none
   kernel     each of the five kernels against its plain PyTorch version at
              the main path's shapes (``torch.equal``), with kernel, plain and
-             library times; K1 with the kernel its plan chose and, for the
-             group kernel, its shared-memory floor; K5's start rows are the
-             sparse backend's own feasible rows for the text; K3 also at the
-             join's mat-vec shapes (n = 1, m = 1)
+             library times; K1, K4 and K5 with the kernel their plan chose
+             and, for a group-table kernel (K1's group kernel, K4's and K5's
+             walk), its shared-memory floor; K5's start rows are the sparse
+             backend's own feasible rows for the text; K3 also at the join's
+             mat-vec shapes (n = 1, m = 1)
   main_path  the user path, each run counted on its own (every launch count
              set to 0 just before it, read just after): on the ``cuda``
              backend, ``Parser.parse`` of an 8 MiB TRAFFIC log
@@ -304,14 +306,15 @@ def timing_fields(kern_fn, plain_fn, library_fn) -> dict:
     return fields
 
 
-# the redesigned kernels (K1, K3, K6, K7): their ptxas resources and
+# the redesigned kernels (K1, K3, K4 / K5, K6, K7): their ptxas resources and
 # tensor-core instructions are reported, and the latter checked
 KERNEL_FUNCS = ("semiring_mm_tc_kernel", "semiring_matvec_kernel", "semiring_vecmat_kernel",
                 "flash_bf16_kernel", "flash_f32_kernel", "reach_group_kernel",
-                "reach_strip_kernel", "ssd_tc_kernel", "ssd_simt_kernel")
+                "reach_strip_kernel", "packed_walk_kernel", "packed_fold_kernel",
+                "ssd_tc_kernel", "ssd_simt_kernel")
 TENSOR_CORE_SASS = {"semiring_mm_tc_kernel": ("HMMA", "HGMMA"), "flash_bf16_kernel": ("HGMMA",),
                     "flash_f32_kernel": ("HMMA", "HGMMA"), "ssd_tc_kernel": ("HMMA", "HGMMA")}
-REDESIGNED_SOURCES = ("reach", "semiring", "flash_attention", "ssd_chunk")
+REDESIGNED_SOURCES = ("reach", "semiring", "packed_reach", "flash_attention", "ssd_chunk")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -381,7 +384,7 @@ def sass_tensor_ops(source: str):
 
 def kernel_build_report() -> None:
     """ptxas resources and SASS tensor-core counts of the redesigned kernels
-    (K1, K3, K6, K7); fails if a kernel that the design puts on the tensor
+    (K1, K3, K4 / K5, K6, K7); fails if a kernel that the design puts on the tensor
     cores has none."""
     for source in REDESIGNED_SOURCES:
         sass = sass_tensor_ops(source)
@@ -490,27 +493,34 @@ def kernel_cases(parser, text: bytes):
             rec["case"] = case[0]
         else:
             records.append(rec)
-        plan = reach_plan_fields(A1, lp, c * k) if name == "reach_chunk_product" else {}
+        plan = plan_fields(name, A1, lp, rec["shapes"]["rows"], c * k)
         emit("kernel", pattern=parser.config.regex[:24], tolerance=0, **rec, **plan)
         torch.cuda.empty_cache()
     return records
 
 
-def reach_plan_fields(n_classes: int, lp: int, steps: int) -> dict:
-    """K1's plan for the table, and for the group kernel its own floor: at
-    each of the ``steps`` it walks (PAD ones too), every column reads W words
-    from each of ℓp/g table entries, which shared memory serves at 128 bytes
-    a clock on each SM (the card's SM count and maximum SM clock)."""
+def plan_fields(name: str, n_classes: int, lp: int, rows: int, steps: int) -> dict:
+    """K1's, K4's or K5's plan for the table, and for a group-table kernel
+    (K1's group kernel, K4's and K5's walk) its own floor: at each of the
+    ``steps`` it walks (PAD ones too), each of ``rows`` columns (K1) or rows
+    (K4, K5) reads W words from each of ℓp/g table entries, which shared
+    memory serves at 128 bytes a clock on each SM (the card's SM count and
+    maximum SM clock).  Other kernels: no fields."""
     import torch
 
-    from repro_torch.kernels import reach
+    from repro_torch.kernels import packed_reach, reach
 
-    kind, g = reach.plan(n_classes, lp)
+    if name == "reach_chunk_product":
+        kind, g = reach.plan(n_classes, lp)
+    elif name in ("packed_reach_chunk_product", "sparse_reach_rows"):
+        kind, g = packed_reach.plan(n_classes, lp, rows)
+    else:
+        return {}
     fields = {"plan": [kind, g]}
-    if kind == "group":
+    if kind in ("group", "walk"):
         clock_hz = float(nvidia_smi_query("clocks.max.sm").split()[0]) * 1e6
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        n_bytes = steps * lp * (lp // g) * (lp // 32) * 4
+        n_bytes = steps * rows * (lp // g) * (lp // 32) * 4
         fields["smem_floor_ms"] = n_bytes / (128 * sms * clock_hz) * 1e3
     return fields
 

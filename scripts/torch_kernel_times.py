@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1, K3, K6 and K7 of one tree of the PyTorch/CUDA port on one NVIDIA
-GPU, as ``chip_smoke.py`` times them, and read K6's and K7's errors against
-their plain versions.
+"""Time K1, K3, K4, K5, K6 and K7 of one tree of the PyTorch/CUDA port on one
+NVIDIA GPU, as ``chip_smoke.py`` times them, and read K6's and K7's errors
+against their plain versions.
 
-    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k3,k6,k7,join]
+    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k3,k4,k5,k6,k7,join]
 
 ``--tree`` is the root of a checkout of this repository (default: the one
 holding this script).  Its ``src/repro_torch`` is imported and its kernels
@@ -30,6 +30,11 @@ on one card, one after another.  Prints one JSON line per record:
   k1  ``reach_chunk_product`` on chip_smoke.py's TRAFFIC (8 MiB) and e125
       (1 MiB) texts, 1024 chunks: ``ms`` and ``device_ms``, equality with
       the plain version, and the tree's plan where it has one.
+  k4  ``packed_reach_chunk_product`` on the same texts: ``ms`` and
+      ``device_ms``, equality with the plain version, and the tree's plan
+      where it has one (``packed_reach.plan``).
+  k5  ``sparse_reach_rows`` on the same texts, its start rows the sparse
+      backend's own feasible rows (S of them a chunk): the same fields.
   k7  ``ssd_chunk`` at zamba2-2.7b's prefill shape (P = 1280, q = 256,
       hp = n = 64), bf16 and f32: for a tree whose K7 takes ``outputs``,
       each mode and the layer's pair (``"state"`` then ``"y"``); for an
@@ -179,6 +184,40 @@ def k1_records(label: str, regex: str, text: bytes, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def word_records(part: str, label: str, regex: str, text: bytes, dev) -> None:
+    """K4 (``part`` "k4") or K5 ("k5") at chip_smoke.py's shapes for one text."""
+    import torch
+
+    from repro_torch import Parser, ParserConfig
+    from repro_torch.core.backend import SparseBackend
+    from repro_torch.core.matrices import pack_transition_table_torch, sparse_init_rows
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packed_reach as packed_launcher
+
+    parser = Parser(ParserConfig(regex=regex, backend="torch", n_chunks=cs.N_CHUNKS), device=dev)
+    eng = parser.engine
+    t = eng.tables
+    classes = eng.classes_of_text(text)
+    c, k = eng.bucket_shape(len(classes), parser.config.n_chunks)
+    ids = eng.chunks_tensor(eng._pad_to(classes, c, k))
+    args = (pack_transition_table_torch(t.N), ids)
+    kern = ops.packed_reach_chunk_product
+    if part == "k5":
+        sparse = SparseBackend()
+        sparse.bind_tables(t)
+        args += (sparse_init_rows(sparse.feasible_rows(t.N, ids), t.ell_pad).contiguous(),)
+        kern = ops.sparse_reach_rows
+    rows = args[-1].shape[1] if part == "k5" else t.ell_pad
+    equal = torch.equal(kern(*args), kern.plain(*args))
+    plan = getattr(packed_launcher, "plan", None)
+    run = lambda: kern(*args)  # noqa: E731
+    emit(part, text=label, chunks=c, k=k, ell_pad=t.ell_pad, classes=t.N.shape[0], rows=rows,
+         plan=list(plan(t.N.shape[0], t.ell_pad, rows)) if plan else None, equal_plain=equal,
+         ms=cs.time_ms(run), device_ms=cs.device_ms(run))
+    del args, ids
+    torch.cuda.empty_cache()
+
+
 def k7_records(dev, seed: int) -> None:
     import inspect
 
@@ -263,7 +302,7 @@ def join_records(label: str, regex: str, text: bytes, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=REPO)
-    ap.add_argument("--parts", default="k1,k3,k6,k7,join")
+    ap.add_argument("--parts", default="k1,k3,k4,k5,k6,k7,join")
     args = ap.parse_args()
 
     import torch
@@ -284,6 +323,10 @@ def main() -> int:
     if "k1" in parts:
         k1_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
         k1_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
+    for part in ("k4", "k5"):
+        if part in parts:
+            word_records(part, "traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
+            word_records(part, "e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
     if "k7" in parts:
         k7_records(dev, 0)
     if "k3" in parts:

@@ -25,7 +25,24 @@ K6 flash attention and K7 SSD chunk; decode and the RE-constrained
     logits, _ = prefill(init_params(cfg, seed=0), tokens, cfg)   # K6, K7
 """
 
-from .api import ParseResult, Parser, ParserConfig
+from . import api, errors
+from .api import ObsConfig, ParseResult, Parser, ParserConfig, SLOTargets
+from .core.backend import ParserBackend, get_backend, list_backends, register_backend
 from .core.engine import ParserEngine
+from .core.slpf import SLPF, compress
+from .errors import (
+    AdmissionError,
+    BudgetExceeded,
+    ParseError,
+    PathologicalPatternError,
+    SessionNotFound,
+)
 
-__all__ = ["ParseResult", "Parser", "ParserConfig", "ParserEngine"]
+# the reference's exports that are ported (``repro/__init__.py``), and the
+# engine; ``ParseTicket``, ``ParserStream``, ``ParserFleet``, ``analyze`` and
+# ``obs`` wait for their modules (ROADMAP Queue 1 items 8, 9, 10, 7)
+__all__ = sorted([
+    "AdmissionError", "BudgetExceeded", "ObsConfig", "ParseError", "ParseResult", "Parser",
+    "ParserBackend", "ParserConfig", "ParserEngine", "PathologicalPatternError", "SLOTargets",
+    "SLPF", "SessionNotFound", "compress", "get_backend", "list_backends", "register_backend",
+]) + ["api", "errors"]

@@ -255,6 +255,11 @@ class ParseResult:
         """Did the text match the RE (non-empty clean forest)?"""
         return self.forest.accepted
 
+    @property
+    def slpf(self) -> SLPF:
+        """Alias of ``forest`` (the shared linearized parse forest)."""
+        return self.forest
+
     def count_trees(self) -> int:
         return self.forest.count_trees()
 
@@ -415,3 +420,17 @@ class Parser:
         slpfs = self.engine.parse_batch(list(texts), n_chunks=self.config.n_chunks)
         latency = time.perf_counter() - t0
         return [self._wrap(s, latency) for s in slpfs]
+
+    def count_accepting(self, text) -> int:
+        return self.parse(text).count_trees()
+
+    def close(self) -> None:
+        """Release the parser.  The reference flushes its observability sinks
+        here; the port has none until obs is ported (ROADMAP Queue 1 item 7),
+        so there is nothing to flush yet."""
+
+    def __enter__(self) -> "Parser":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

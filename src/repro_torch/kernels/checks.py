@@ -55,9 +55,10 @@ def check_table(name: str, N: torch.Tensor) -> int:
     return N.shape[-1]
 
 
-def check_fold(name: str, lib, Np: torch.Tensor, n_rows: int):
+def check_fold(name: str, Np: torch.Tensor, n_rows: int):
     """Np (A+1, ℓp, W) int32 packed rows with ℓp = 32·W, folding ``n_rows``
-    ≤ ℓp rows within one block's shared memory (ℓp ≤ 960); returns (ℓp, W)."""
+    ≤ ℓp rows; returns (ℓp, W).  Which kernel takes the table, and the
+    shared memory it needs, is ``packed_reach.plan``'s."""
     require(Np.dtype == torch.int32, f"{name}: Np must be int32 words, got {Np.dtype}")
     require(
         Np.dim() == 3 and Np.shape[1] == 32 * Np.shape[2] and Np.shape[2] >= 1,
@@ -65,6 +66,4 @@ def check_fold(name: str, lib, Np: torch.Tensor, n_rows: int):
     )
     lp, W = Np.shape[1], Np.shape[2]
     require(n_rows <= lp, f"{name}: {n_rows} rows exceed ℓp={lp}")
-    smem = lib.repro_packed_fold_smem_bytes(lp, n_rows)
-    require(smem <= MAX_SMEM_BYTES, f"{name}: ℓp={lp} needs {smem} B of shared memory")
     return lp, W

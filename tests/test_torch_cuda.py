@@ -28,6 +28,7 @@ from repro_torch.core.matrices import (  # noqa: E402
 )
 from repro_torch.core.segments import compute_segments  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import packed_reach as packed_launcher  # noqa: E402
 from repro_torch.kernels import reach as reach_launcher  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_launcher  # noqa: E402
 from repro_torch.kernels.checks import MAX_SMEM_BYTES  # noqa: E402
@@ -280,16 +281,22 @@ def _packed_table(rng, n_classes, lp, density, dev):
 
 def _feasible_r0(rng, C, S, lp, dev):
     """R0 (C, S, W): S - 1 random distinct start states per chunk, ascending,
-    and one unused slot."""
+    and one unused slot (S = 1: one start state)."""
     idx = np.full((C, S), SPARSE_EMPTY, dtype=np.int32)
+    n = max(S - 1, 1)
     for c in range(C):
-        idx[c, : S - 1] = np.sort(rng.choice(lp, size=S - 1, replace=False))
+        idx[c, :n] = np.sort(rng.choice(lp, size=n, replace=False))
     return sparse_init_rows(torch.tensor(idx, device=dev), lp).contiguous()
+
+
+# k: the walk's id rounds (32 steps a round at 32 rows or more, 32 / cpw
+# below) end just before, at and after a round's edge
+WORD_STEPS = [0, 1, 9, 31, 32, 33, 40, 65]
 
 
 @pytest.mark.parametrize("lp", [64, 288, 320])
 @pytest.mark.parametrize("density", [0.01, 0.1, 0.5])
-@pytest.mark.parametrize("k", [0, 1, 9, 40])
+@pytest.mark.parametrize("k", WORD_STEPS)
 def test_packed_reach_kernel_equals_plain_random_tables(dev, lp, density, k):
     rng = np.random.default_rng(lp + k)
     Np = _packed_table(rng, 5, lp, density, dev)
@@ -299,9 +306,10 @@ def test_packed_reach_kernel_equals_plain_random_tables(dev, lp, density, k):
     assert torch.equal(got, ops.packed_reach_chunk_product.plain(Np, ids))
 
 
-@pytest.mark.parametrize("lp,S", [(64, 8), (288, 256), (320, 16), (320, 320)])
+@pytest.mark.parametrize("lp,S", [(64, 8), (288, 256), (320, 16), (320, 320), (64, 1), (64, 13),
+                                  (64, 33), (288, 8)])
 @pytest.mark.parametrize("density", [0.01, 0.1, 0.5])
-@pytest.mark.parametrize("k", [0, 1, 9, 40])
+@pytest.mark.parametrize("k", WORD_STEPS)
 def test_sparse_reach_kernel_equals_plain_random_tables(dev, lp, S, density, k):
     rng = np.random.default_rng(lp + S + k)
     Np = _packed_table(rng, 5, lp, density, dev)
@@ -310,6 +318,95 @@ def test_sparse_reach_kernel_equals_plain_random_tables(dev, lp, S, density, k):
     got = ops.sparse_reach_rows(Np, ids, R0)
     torch.cuda.synchronize()
     assert torch.equal(got, ops.sparse_reach_rows.plain(Np, ids, R0))
+
+
+def _word_variants(n_classes, lp, rows):
+    """Every K4 / K5 kernel that takes ``n_classes`` (ℓp, W) tables folding
+    ``rows`` rows a chunk: each group width whose walk table fits, and the
+    fold kernel."""
+    out = []
+    if lp // 32 <= packed_launcher.MAX_GROUP_W:
+        out += [("walk", g) for g in packed_launcher.GROUPS
+                if packed_launcher.walk_table_bytes(n_classes, lp, rows, g) <= MAX_SMEM_BYTES]
+    return out + [("fold", 0)]
+
+
+# (ℓp, classes incl. PAD, rows: None for K4's ℓp identity rows, else K5's S)
+WORD_TABLES = [(64, 19, None), (64, 19, 1), (64, 19, 8), (64, 19, 13), (64, 19, 33),
+               (288, 4, None), (288, 4, 256), (288, 4, 8), (512, 3, None), (512, 2, 8),
+               (32, 300, 1)]
+WORD_CASES = [(lp, a, rows, variant) for lp, a, rows in WORD_TABLES
+              for variant in _word_variants(a, lp, lp if rows is None else rows)]
+
+
+@pytest.mark.parametrize("lp,n_classes,rows,variant", WORD_CASES)
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 65])
+def test_word_reach_kernels_every_plan_variant(dev, monkeypatch, lp, n_classes, rows, variant, k):
+    """K4 (rows None) or K5 bit for bit in each kernel the plan can choose,
+    forced through ``packed_reach.plan``: random tables with PAD (the last
+    class) the identity, a padded bucket (chunks that end in PAD), an all-PAD
+    chunk, 9 chunks (not a multiple of the 4, 2 or 32 chunks a warp packs at
+    S = 8, 13, 1), ids above 255 where there are that many classes."""
+    monkeypatch.setattr(packed_launcher, "plan", lambda n, l, r: variant)
+    rng = np.random.default_rng(lp + n_classes + k + (rows or 0))
+    C = 9
+    Np = _packed_table(rng, n_classes - 1, lp, 4.0 / lp, dev)
+    ids = rng.integers(0, n_classes, size=(C, k))
+    ids[C // 2:, k // 2:] = n_classes - 1                      # a padded bucket's tail
+    ids[-1] = n_classes - 1                                    # an all-PAD chunk
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    if rows is None:
+        got = ops.packed_reach_chunk_product(Np, ids)
+        want = ops.packed_reach_chunk_product.plain(Np, ids)
+        launches = ops.packed_reach_chunk_product.launches
+    else:
+        R0 = _feasible_r0(rng, C, rows, lp, dev)
+        got = ops.sparse_reach_rows(Np, ids, R0)
+        want = ops.sparse_reach_rows.plain(Np, ids, R0)
+        launches = ops.sparse_reach_rows.launches
+    torch.cuda.synchronize()
+    assert launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["traffic", "e125"])
+@pytest.mark.parametrize("kernel", ["packed", "sparse"])
+@pytest.mark.parametrize("variant", [("walk", 4), ("walk", 2), ("fold", 0)])
+def test_word_reach_kernels_long_chunks(dev, monkeypatch, which, kernel, variant):
+    """k = 8192 steps (TRAFFIC's chunk length at 8 MiB) on the repository's
+    automata in every plan variant: 5 chunks (not a multiple of TRAFFIC's 4
+    chunks a warp), random class ids, the last chunk ending in PAD, K5's
+    rows the sparse backend's own feasible rows."""
+    t = _pattern_table(JOIN_PATTERNS[which], dev)
+    monkeypatch.setattr(packed_launcher, "plan", lambda n, l, r: variant)
+    Np = pack_transition_table_torch(t.N)
+    rng = np.random.default_rng(8192)
+    ids = rng.integers(0, t.N.shape[0] - 1, size=(5, 8192))
+    ids[-1, 5000:] = t.N.shape[0] - 1
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    if kernel == "packed":
+        got = ops.packed_reach_chunk_product(Np, ids)
+        want = ops.packed_reach_chunk_product.plain(Np, ids)
+    else:
+        sparse = SparseBackend()
+        sparse.bind_tables(t)
+        R0 = sparse_init_rows(sparse.feasible_rows(t.N, ids), t.ell_pad).contiguous()
+        got = ops.sparse_reach_rows(Np, ids, R0)
+        want = ops.sparse_reach_rows.plain(Np, ids, R0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_word_reach_plan_at_the_parse_shapes(dev):
+    """The plan's own choice for K4 and K5 on TRAFFIC and e125: the walk
+    kernel, g = 4."""
+    for which in ("traffic", "e125"):
+        t = _pattern_table(JOIN_PATTERNS[which], dev)
+        sparse = SparseBackend()
+        sparse.bind_tables(t)
+        for rows in (t.ell_pad, sparse._width):
+            assert packed_launcher.plan(t.N.shape[0], t.ell_pad, rows) == ("walk", 4)
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)

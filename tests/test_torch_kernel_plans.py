@@ -1,7 +1,10 @@
-"""The pure-Python parts of the K1, K3, K6 and K7 launchers, on the CPU.
+"""The pure-Python parts of the K1, K3, K4, K5, K6 and K7 launchers, on the CPU.
 
 K1's launcher (``repro_torch/kernels/reach.py``) picks the group kernel and
-its group width, or the strip kernel, by the table's size; K3's
+its group width, or the strip kernel, by the table's size; K4's and K5's
+(``kernels/packed_reach.py``, ``kernels/sparse_reach.py``) the walk kernel
+and its group width, or the fold kernel, and for the walk how many chunks a
+warp packs; K3's
 (``kernels/semiring.py``) one of three CUDA kernels by shape and, for the
 tiled one, an output tile; K6's (``kernels/flash_attention.py``) bounds the
 grid by query tiles; K7's (``kernels/ssd_chunk.py``) picks the tensor-core or
@@ -21,8 +24,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import backend  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_launcher  # noqa: E402
-from repro_torch.kernels import reach  # noqa: E402
+from repro_torch.kernels import packed_reach, reach  # noqa: E402
 from repro_torch.kernels import semiring  # noqa: E402
+from repro_torch.kernels import sparse_reach as sparse_launcher  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_launcher  # noqa: E402
 from repro_torch.kernels.checks import MAX_SMEM_BYTES  # noqa: E402
 
@@ -191,6 +195,161 @@ def test_reach_launcher_raises_before_any_call_beyond_the_strip_kernel(monkeypat
     N = torch.eye(960).expand(2, 960, 960).contiguous()
     with pytest.raises(ValueError, match="shared memory"):
         reach.launch(lib, N, torch.zeros((1, 3), dtype=torch.int32))
+    assert lib.calls == []
+
+
+# (classes incl. PAD, ℓp, rows a chunk, plan)
+WORD_PLANS = [
+    (19, 64, 64, ("walk", 4)),        # TRAFFIC K4: 58 KB of table at g = 4
+    (19, 64, 8, ("walk", 4)),         # TRAFFIC K5: 4 chunks a warp, class stride padded
+    (4, 288, 288, ("walk", 4)),       # e125 K4: 166 KB
+    (4, 288, 256, ("walk", 4)),       # e125 K5
+    (1, 512, 512, ("walk", 4)),       # the widest walk row (W = 16)
+    (2, 512, 512, ("walk", 2)),       # g = 4 no longer fits, g = 2 does
+    (3, 512, 8, ("walk", 2)),
+    (4, 512, 512, ("fold", 0)),       # no group width fits
+    (2, 544, 544, ("fold", 0)),       # W = 17: beyond the walk's registers
+    (2, 544, 8, ("fold", 0)),
+    (2, 960, 960, ("fold", 0)),       # the fold kernel's widest table
+    (2, 960, 1, ("fold", 0)),
+    (40, 288, 288, ("fold", 0)),
+    (300, 32, 1, ("walk", 4)),        # ids above 255, 32 chunks a warp
+]
+
+
+@pytest.mark.parametrize("n_classes,lp,rows,want", WORD_PLANS)
+def test_word_reach_plan_picks_the_kernel_by_table_size(n_classes, lp, rows, want):
+    assert packed_reach.plan(n_classes, lp, rows) == want
+    if want[0] == "walk":
+        assert packed_reach.walk_table_bytes(n_classes, lp, rows, want[1]) <= MAX_SMEM_BYTES
+        wider = [g for g in packed_reach.GROUPS if g > want[1]]
+        assert all(packed_reach.walk_table_bytes(n_classes, lp, rows, g) > MAX_SMEM_BYTES
+                   for g in wider)
+    else:
+        assert lp // 32 > packed_reach.MAX_GROUP_W or all(
+            packed_reach.walk_table_bytes(n_classes, lp, rows, g) > MAX_SMEM_BYTES
+            for g in packed_reach.GROUPS)
+        assert packed_reach.fold_smem_bytes(lp, rows) <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("lp", [992, 1024])
+def test_word_reach_plan_raises_beyond_the_fold_kernel(lp):
+    with pytest.raises(ValueError, match="shared memory"):
+        packed_reach.plan(2, lp, lp)
+
+
+# rows a chunk → (chunks a warp, warps a chunk)
+LANES = {1: (32, 1), 8: (4, 1), 13: (2, 1), 31: (1, 1), 32: (1, 1), 33: (1, 2), 256: (1, 8)}
+
+
+@pytest.mark.parametrize("rows", sorted(LANES))
+@pytest.mark.parametrize("n_chunks", [1, 5, 7, 64, 1024])
+def test_walk_lane_packing_covers_every_row_once(rows, n_chunks):
+    """The walk kernel's units and lanes, as its source maps them: unit u
+    takes chunks (u // strips)·cpw … + cpw − 1 and strip u % strips; lane l
+    walks row (u % strips)·32 + l of the unit's first chunk when cpw = 1,
+    else row l % rows of chunk l // rows; every (chunk, row) once, no lane
+    past the last chunk or row live."""
+    cpw, strips = packed_reach.lanes(rows)
+    assert (cpw, strips) == LANES[rows]
+    assert cpw * min(rows, 32) <= 32 and strips * 32 >= rows
+    units = -(-n_chunks // cpw) * strips
+    seen = []
+    for u in range(units):
+        c0, strip = u // strips * cpw, u % strips
+        for lane in range(32):
+            slot = 0 if cpw == 1 else lane // rows
+            row = strip * 32 + lane - slot * rows
+            if slot < cpw and c0 + slot < n_chunks and row < rows:
+                seen.append((c0 + slot, row))
+    assert sorted(seen) == [(c, r) for c in range(n_chunks) for r in range(rows)]
+    # ids: lane l loads step l % (32 // cpw) of chunk l // (32 // cpw); every
+    # chunk of the warp gets 32 // cpw ≥ 1 steps a round
+    rpc = 32 // cpw
+    assert rpc >= 1 and {lane // rpc for lane in range(32) if lane // rpc < cpw} == set(range(cpw))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 13, 16, 31])
+@pytest.mark.parametrize("lp,g", [(64, 4), (64, 2), (288, 4), (96, 2)])
+def test_walk_class_stride_spreads_a_warps_classes_over_banks(rows, lp, g):
+    """With cpw chunks a warp, one value v of one group in the (up to) cpw
+    classes of those chunks lies in cpw distinct banks."""
+    cpw, _ = packed_reach.lanes(rows)
+    stride = packed_reach.class_stride(lp, g, rows)
+    words = (lp // g) * (1 << g) * ((lp // 32) | 1)
+    assert words <= stride < words + 32
+    assert len({(d * stride) % 32 for d in range(cpw)}) == cpw
+
+
+def _launch_words(monkeypatch, n_classes, lp, rows, k=5, C=3):
+    lib = _RecordingLib()
+    monkeypatch.setattr(packed_reach, "stream", lambda t: 0)
+    Np = torch.zeros((n_classes, lp, lp // 32), dtype=torch.int32)
+    ids = torch.zeros((C, k), dtype=torch.int32)
+    if rows is None:
+        out = packed_reach.launch(lib, Np, ids)
+        rows = lp
+    else:
+        out = sparse_launcher.launch(lib, Np, ids, torch.zeros((C, rows, lp // 32),
+                                                               dtype=torch.int32))
+    assert out.shape == (C, rows, lp // 32) and out.dtype == torch.int32
+    (fn, args), = lib.calls
+    return fn, args
+
+
+@pytest.mark.parametrize("n_classes,lp,rows,g", [
+    (19, 64, None, 4), (19, 64, 8, 4), (4, 288, None, 4), (4, 288, 256, 4), (2, 512, None, 2),
+    (3, 512, 13, 2), (5, 64, 1, 4),
+])
+def test_word_launchers_send_a_fitting_table_to_the_walk_kernel(monkeypatch, n_classes, lp,
+                                                                rows, g):
+    fn, args = _launch_words(monkeypatch, n_classes, lp, rows)
+    assert fn == "repro_packed_walk"
+    r = lp if rows is None else rows
+    assert (args[2] is None) == (rows is None)                 # K4 folds the identity rows
+    cpw = packed_reach.lanes(r)[0]
+    stride = packed_reach.class_stride(lp, g, r)
+    assert args[4:12] == (n_classes, 3, 5, lp, r, g, cpw, stride)
+    assert n_classes * stride * 4 <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n_classes,lp,rows,fn", [
+    (40, 288, None, "repro_packed_reach_products"), (2, 544, None, "repro_packed_reach_products"),
+    (40, 288, 8, "repro_sparse_reach_rows"), (2, 960, 256, "repro_sparse_reach_rows"),
+])
+def test_word_launchers_send_other_tables_to_the_fold_kernel(monkeypatch, n_classes, lp, rows, fn):
+    got, args = _launch_words(monkeypatch, n_classes, lp, rows)
+    assert got == fn
+    if rows is None:
+        assert args[3:6] == (3, 5, lp)
+    else:
+        assert args[2] is not None and args[4:8] == (3, 5, lp, rows)
+
+
+@pytest.mark.parametrize("variant", [("walk", 4), ("walk", 2), ("fold", 0)])
+@pytest.mark.parametrize("rows", [None, 8])
+def test_word_launchers_follow_a_forced_plan(monkeypatch, variant, rows):
+    """The card tests force each plan variant through ``packed_reach.plan``;
+    both launchers read it from there."""
+    monkeypatch.setattr(packed_reach, "plan", lambda n, l, r: variant)
+    fn, args = _launch_words(monkeypatch, 3, 64, rows)
+    if variant[0] == "walk":
+        assert fn == "repro_packed_walk" and args[9] == variant[1]
+    else:
+        assert fn == ("repro_packed_reach_products" if rows is None else "repro_sparse_reach_rows")
+
+
+@pytest.mark.parametrize("rows", [None, 8])
+def test_word_launchers_raise_before_any_call_beyond_the_fold_kernel(monkeypatch, rows):
+    lib = _RecordingLib()
+    monkeypatch.setattr(packed_reach, "stream", lambda t: 0)
+    Np = torch.zeros((2, 992, 31), dtype=torch.int32)
+    ids = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        if rows is None:
+            packed_reach.launch(lib, Np, ids)
+        else:
+            sparse_launcher.launch(lib, Np, ids, torch.zeros((1, rows, 31), dtype=torch.int32))
     assert lib.calls == []
 
 

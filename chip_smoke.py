@@ -8,15 +8,16 @@ or ``repro``).  Phases, each printing one JSON line:
 
   env        PyTorch version, card name, ``nvidia-smi`` name and power limit
   build      nvcc build time of the kernels' six sources (one process each)
-  kernel_build  K1's, K3's, K4's / K5's, K6's and K7's kernels: registers,
+  kernel_build  the kernels of K1–K7 (K2's walk and row kernels, K7's bf16
+             and f32 tensor-core and SIMT kernels among them): registers,
              shared memory and spills (``-Xptxas -v``) and HGMMA / HMMA counts
              in their SASS (``cuobjdump -sass``); fails if a tensor-core
              kernel has none
   kernel     each of the five kernels against its plain PyTorch version at
              the main path's shapes (``torch.equal``), with kernel, plain and
-             library times; K1, K4 and K5 with the kernel their plan chose
-             and, for a group-table kernel (K1's group kernel, K4's and K5's
-             walk), its shared-memory floor; K5's start rows are the sparse
+             library times; K1, K2, K4 and K5 with the kernel their plan
+             chose and, for a group-table kernel (K1's group kernel, K2's, K4's
+             and K5's walk), its shared-memory floor; K5's start rows are the sparse
              backend's own feasible rows for the text; K3 also at the join's
              mat-vec shapes (n = 1, m = 1)
   main_path  the user path, each run counted on its own (every launch count
@@ -27,8 +28,9 @@ or ``repro``).  Phases, each printing one JSON line:
              and corrupted (K1, K2 and K3 must launch in the TRAFFIC parse, in
              ``parse_batch`` and in the e125 parse); then ``packed`` and
              ``sparse`` with ``kernel=True`` on the same four texts (K4 must
-             launch in every packed run and K5 in every sparse run, K1 in
-             none of them, and their columns must equal the ``cuda`` run's)
+             launch in every packed run and K5 in every sparse run, K2 once in
+             each, K1 in none of them, and their columns must equal the
+             ``cuda`` run's)
   speculation  the sparse runs' ``ParseResult.speculation``: product rows S
              against ℓp, mean and max feasible width
   check      the main path's packed columns equal the ``torch`` backend's on
@@ -306,15 +308,18 @@ def timing_fields(kern_fn, plain_fn, library_fn) -> dict:
     return fields
 
 
-# the redesigned kernels (K1, K3, K4 / K5, K6, K7): their ptxas resources and
+# the redesigned kernels (K1–K7): their ptxas resources and
 # tensor-core instructions are reported, and the latter checked
 KERNEL_FUNCS = ("semiring_mm_tc_kernel", "semiring_matvec_kernel", "semiring_vecmat_kernel",
                 "flash_bf16_kernel", "flash_f32_kernel", "reach_group_kernel",
                 "reach_strip_kernel", "packed_walk_kernel", "packed_fold_kernel",
-                "ssd_tc_kernel", "ssd_simt_kernel")
+                "build_merge_walk_kernel", "build_merge_rows_kernel",
+                "ssd_tc_kernel", "ssd_tf32_kernel", "ssd_simt_kernel")
 TENSOR_CORE_SASS = {"semiring_mm_tc_kernel": ("HMMA", "HGMMA"), "flash_bf16_kernel": ("HGMMA",),
-                    "flash_f32_kernel": ("HMMA", "HGMMA"), "ssd_tc_kernel": ("HMMA", "HGMMA")}
-REDESIGNED_SOURCES = ("reach", "semiring", "packed_reach", "flash_attention", "ssd_chunk")
+                    "flash_f32_kernel": ("HMMA", "HGMMA"), "ssd_tc_kernel": ("HMMA", "HGMMA"),
+                    "ssd_tf32_kernel": ("HMMA",)}
+REDESIGNED_SOURCES = ("reach", "build_merge", "semiring", "packed_reach", "flash_attention",
+                      "ssd_chunk")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -384,8 +389,8 @@ def sass_tensor_ops(source: str):
 
 def kernel_build_report() -> None:
     """ptxas resources and SASS tensor-core counts of the redesigned kernels
-    (K1, K3, K4 / K5, K6, K7); fails if a kernel that the design puts on the tensor
-    cores has none."""
+    (K1–K7); fails if a kernel that the design puts on the tensor cores has
+    none."""
     for source in REDESIGNED_SOURCES:
         sass = sass_tensor_ops(source)
         if sass is not None:
@@ -493,30 +498,37 @@ def kernel_cases(parser, text: bytes):
             rec["case"] = case[0]
         else:
             records.append(rec)
-        plan = plan_fields(name, A1, lp, rec["shapes"]["rows"], c * k)
+        plan = plan_fields(name, A1, lp, rec["shapes"]["rows"], c, k)
         emit("kernel", pattern=parser.config.regex[:24], tolerance=0, **rec, **plan)
         torch.cuda.empty_cache()
     return records
 
 
-def plan_fields(name: str, n_classes: int, lp: int, rows: int, steps: int) -> dict:
-    """K1's, K4's or K5's plan for the table, and for a group-table kernel
-    (K1's group kernel, K4's and K5's walk) its own floor: at each of the
-    ``steps`` it walks (PAD ones too), each of ``rows`` columns (K1) or rows
-    (K4, K5) reads W words from each of ℓp/g table entries, which shared
+def plan_fields(name: str, n_classes: int, lp: int, rows: int, chunks: int, k: int) -> dict:
+    """K1's, K2's, K4's or K5's plan for the table, and for a group-table
+    kernel (K1's group kernel, K2's, K4's and K5's walk) its own floor: at
+    each of the chunks · k steps it walks (PAD ones too; K2 twice, forward
+    and backward), each of ``rows`` columns (K1) or rows (K4, K5), or K2's
+    one frontier, reads W words from each of ℓp/g table entries, which shared
     memory serves at 128 bytes a clock on each SM (the card's SM count and
     maximum SM clock).  Other kernels: no fields."""
     import torch
 
-    from repro_torch.kernels import packed_reach, reach
+    from repro_torch.kernels import build, packed_reach, reach
 
+    steps = chunks * k
     if name == "reach_chunk_product":
         kind, g = reach.plan(n_classes, lp)
+        fields = {"plan": [kind, g]}
     elif name in ("packed_reach_chunk_product", "sparse_reach_rows"):
         kind, g = packed_reach.plan(n_classes, lp, rows)
+        fields = {"plan": [kind, g]}
+    elif name == "build_merge_packed":
+        p = build.plan(n_classes, lp, chunks)
+        kind, g, rows, steps = p.kernel, p.g, 1, 2 * steps
+        fields = {"plan": [p.kernel, p.g, p.lanes, p.round, p.both]}
     else:
         return {}
-    fields = {"plan": [kind, g]}
     if kind in ("group", "walk"):
         clock_hz = float(nvidia_smi_query("clocks.max.sm").split()[0]) * 1e6
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -700,6 +712,11 @@ def ssd_records(args, e, rate, tag):
     P, q, hp = args[0].shape
     n = args[2].shape[2]
     lib = ops.build()[ssd_launcher.SOURCE]
+    # the "state" yardstick: S_c as one einsum, on w o B prepared beforehand
+    xdt, cs = args[0], args[1][..., 0]
+    wB = torch.exp(cs[:, -1:] - cs)[..., None] * args[2].float()
+    xf = xdt.float()
+    state_library = lambda: torch.einsum("pqn,pqh->pnh", wB, xf)  # noqa: E731
     records = []
     for outputs in ("both", "state", "y"):
         got = ops.ssd_chunk(*args, outputs=outputs)
@@ -718,7 +735,8 @@ def ssd_records(args, e, rate, tag):
             "replaces": "src/repro/kernels/ssd_chunk.py:64",
             "launches": None, "max_abs_err": err,
             **timing_fields(lambda o=outputs: ops.ssd_chunk(*args, outputs=o),
-                            lambda o=outputs: ops.ssd_chunk.plain(*args, outputs=o), None),
+                            lambda o=outputs: ops.ssd_chunk.plain(*args, outputs=o),
+                            state_library if outputs == "state" else None),
             "bound_ms": b_ms, "bound_by": b_by,
             "shapes": {"dtype": tag, "P": P, "q": q, "hp": hp, "n": n,
                        "tolerance_rtol_atol": 2e-4},
@@ -728,6 +746,7 @@ def ssd_records(args, e, rate, tag):
         if outputs != "both":
             records.append(rec)
         torch.cuda.empty_cache()
+    del wB, xf
     return records
 
 
@@ -1108,7 +1127,7 @@ def parser_phases(args, dev):
                                        ("e125_corrupted", cfg_e, e125_bad, r_e125_bad)):
             parser = word_parsers[(backend, cfg.regex)]
             r, secs, n = counted(lambda: parser.parse(text))
-            if n[kernel] < 1 or n["reach_chunk_product"] != 0:
+            if n[kernel] < 1 or n["build_merge_packed"] != 1 or n["reach_chunk_product"] != 0:
                 raise AssertionError(f"{backend} {label}: launches {n}")
             if r.ok != want.ok:
                 raise AssertionError(f"{backend} {label}: verdict {r.ok}, cuda says {want.ok}")

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1, K3, K4, K5, K6 and K7 of one tree of the PyTorch/CUDA port on one
-NVIDIA GPU, as ``chip_smoke.py`` times them, and read K6's and K7's errors
-against their plain versions.
+"""Time K1–K7 of one tree of the PyTorch/CUDA port on one NVIDIA GPU, as
+``chip_smoke.py`` times them, and read K6's and K7's errors against their
+plain versions.
 
-    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k3,k4,k5,k6,k7,join]
+    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k2,k3,k4,k5,k6,k7,k7f,join]
 
 ``--tree`` is the root of a checkout of this repository (default: the one
 holding this script).  Its ``src/repro_torch`` is imported and its kernels
@@ -27,6 +27,11 @@ on one card, one after another.  Prints one JSON line per record:
       SDPA's in turns, max |err| and the largest per-row relative error
       (``chip_smoke.row_rel_err``), and that error's largest value over the
       card tests' ring-edge shapes.
+  k2  ``build_merge_packed`` on chip_smoke.py's TRAFFIC (8 MiB) and e125
+      (1 MiB) texts, 1024 chunks, its entries the ``torch`` backend's join
+      of the texts' chunk products: ``ms`` and ``device_ms``, equality with
+      the plain version, and the tree's plan where it has one
+      (``build.plan``).
   k1  ``reach_chunk_product`` on chip_smoke.py's TRAFFIC (8 MiB) and e125
       (1 MiB) texts, 1024 chunks: ``ms`` and ``device_ms``, equality with
       the plain version, and the tree's plan where it has one.
@@ -42,6 +47,7 @@ on one card, one after another.  Prints one JSON line per record:
       launches.  ``ms``, ``device_ms`` and max |err| against the plain
       version with ``within_tolerance`` (rtol = atol = 2e-4): a build with a
       planted fault reports its error rather than stopping.
+  k7f  the same for f32 alone (the f32 consistency prefill's type).
   join  the ``cuda`` backend's join phase (K3's 23 launches and the scan's
       host code) on both texts' chunk products: host-clock seconds of
       JOIN_RUNS joins in a row, the first right after the allocator's cache
@@ -161,6 +167,32 @@ def k6_records(dev, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+def k2_records(label: str, regex: str, text: bytes, dev) -> None:
+    import torch
+
+    from repro_torch import Parser, ParserConfig
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.kernels import build as build_launcher
+    from repro_torch.kernels import ops
+
+    parser = Parser(ParserConfig(regex=regex, backend="torch", n_chunks=cs.N_CHUNKS), device=dev)
+    eng = parser.engine
+    t = eng.tables
+    classes = eng.classes_of_text(text)
+    c, k = eng.bucket_shape(len(classes), parser.config.n_chunks)
+    ids = eng.chunks_tensor(eng._pad_to(classes, c, k))
+    Jf, Jb = TorchBackend().join(ops.reach_chunk_product(t.N, ids), t.I, t.F)
+    args = (t.N, ids, Jf, Jb)
+    equal = torch.equal(ops.build_merge_packed(*args), ops.build_merge_packed.plain(*args))
+    kern = lambda: ops.build_merge_packed(*args)  # noqa: E731
+    plan = getattr(build_launcher, "plan", None)
+    emit("k2", text=label, chunks=c, k=k, ell_pad=t.ell_pad, classes=t.N.shape[0],
+         plan=list(plan(t.N.shape[0], t.ell_pad, c)) if plan else None, equal_plain=equal,
+         ms=cs.time_ms(kern), device_ms=cs.device_ms(kern))
+    del args, ids, Jf, Jb
+    torch.cuda.empty_cache()
+
+
 def k1_records(label: str, regex: str, text: bytes, dev) -> None:
     import torch
 
@@ -218,7 +250,7 @@ def word_records(part: str, label: str, regex: str, text: bytes, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def k7_records(dev, seed: int) -> None:
+def k7_records(dev, seed: int, dtypes) -> None:
     import inspect
 
     import torch
@@ -230,7 +262,7 @@ def k7_records(dev, seed: int) -> None:
     gen.manual_seed(seed)
     P, q, hp, n = 1280, 256, 64, 64
     takes_outputs = "outputs" in inspect.signature(ssd_launcher.launch).parameters
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         tag = str(dtype).split(".")[-1]
         xdt = (torch.randn((P, q, hp), generator=gen, device=dev) * 0.3).to(dtype)
         csum = torch.cumsum(-(torch.rand((P, q, 1), generator=gen, device=dev) * 0.39 + 0.01), 1)
@@ -302,7 +334,7 @@ def join_records(label: str, regex: str, text: bytes, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=REPO)
-    ap.add_argument("--parts", default="k1,k3,k4,k5,k6,k7,join")
+    ap.add_argument("--parts", default="k1,k2,k3,k4,k5,k6,k7,join")
     args = ap.parse_args()
 
     import torch
@@ -327,8 +359,11 @@ def main() -> int:
         if part in parts:
             word_records(part, "traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
             word_records(part, "e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
-    if "k7" in parts:
-        k7_records(dev, 0)
+    if "k2" in parts:
+        k2_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
+        k2_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
+    if "k7" in parts or "k7f" in parts:
+        k7_records(dev, 0, (torch.bfloat16, torch.float32) if "k7" in parts else (torch.float32,))
     if "k3" in parts:
         k3_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
         k3_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)

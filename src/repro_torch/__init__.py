@@ -3,7 +3,8 @@
 The port of ``repro`` (JAX) to an NVIDIA H100, with seven hand-written CUDA
 kernels (``kernels/``).  The parse paths run through K1–K5: the dense
 ``cuda`` backend through K1 reach, K2 build&merge and K3 Boolean matmul, the
-``packed`` and ``sparse`` backends with ``kernel=True`` through K4 / K5; the
+``packed`` and ``sparse`` backends with ``kernel=True`` through K4 / K5 and
+K2; the
 ``torch`` backend runs the same phases as plain tensor code on either device.
 The LM serving path (``models``, ``configs``, ``serve``) runs prefill through
 K6 flash attention and K7 SSD chunk; decode and the RE-constrained

@@ -6,8 +6,9 @@ reference's fields, validation and dict round trip; backend names map as
 ``jnp`` ↔ ``torch``, ``pallas`` ↔ ``cuda`` (``packed``, ``sparse`` and
 ``auto`` keep their names), and the port's default is ``cuda``.
 
-``kernel=True`` selects the kernel path of ``packed`` (K4) and ``sparse``
-(K5); ``cuda`` is always kernels, as ``pallas`` is in the reference.  A
+``kernel=True`` selects the kernel path of ``packed`` (K4, and K2 for
+build&merge) and ``sparse`` (K5 and K2); ``cuda`` is always kernels, as
+``pallas`` is in the reference.  A
 kernel path runs only on the card.  Settings whose subsystem is not ported
 yet are accepted by ``ParserConfig`` (so configs round-trip between the
 packages) and refused by ``Parser`` with ``NotImplementedError`` naming the

@@ -24,10 +24,10 @@ Backends (names map to the reference's: ``torch`` ↔ ``jnp``, ``cuda`` ↔
     combine and act through K3 (``kernels/ops.py``).
   * ``PackedBackend`` — products as (ℓp, W) int32 packed target-set rows and
     every phase as OR-AND word ops (``core/matrices.py``); ``kernel=True``
-    sends reach, and only reach, through kernel K4.
+    sends reach through kernel K4 and build&merge through kernel K2.
   * ``SparseBackend`` — products as (S, 1+W) gathered feasible-start rows,
     the speculation-width reduction; ``kernel=True`` sends the row fold of
-    reach through kernel K5.
+    reach through kernel K5 and build&merge through kernel K2.
 
 A backend built with ``kernel=True`` runs only on the card
 (``needs_cuda``); its phases called on CPU tensors run the kernels' plain
@@ -264,8 +264,11 @@ class PackedBackend(ParserBackend):
     combine and act, the start column and build&merge run as AND / OR /
     shift word ops; the f32 tables are packed inside each phase, so every
     entry point keeps the engine's table layout.  ``kernel=True`` routes
-    reach through kernel K4 (one launch over all B·c chunks); the other
-    phases have no kernel in the reference and stay plain tensor code.
+    reach through kernel K4 and build&merge through kernel K2 (one launch
+    each over all B·c chunks; K2 takes the f32 table and returns the same
+    packed columns as the word loop ``packed_build_merge``, which stays the
+    phase body with ``kernel=False``); compose, the join and the start
+    column have no kernel in the reference and stay plain tensor code.
     """
 
     name = "packed"
@@ -292,6 +295,8 @@ class PackedBackend(ParserBackend):
         return I * packed_matvec_T(P[..., 0, :, :], Jb0)
 
     def build_merge_packed(self, N, chunks, Jf, Jb):
+        if self.kernel:
+            return _flat(ops.build_merge_packed, N, chunks, Jf, Jb)
         return _flat(packed_build_merge, pack_transition_table_torch(N), chunks, Jf, Jb)
 
 
@@ -312,7 +317,8 @@ class SparseBackend(PackedBackend):
     an all-PAD chunk gives the flagged identity.  S is bound once per
     automaton by ``bind_tables`` (or ``bind_shape``).  Entries, the start
     column and build&merge keep the contract's seams; build&merge is the
-    packed one.  ``kernel=True`` sends the row fold through kernel K5.
+    packed one.  ``kernel=True`` sends the row fold through kernel K5 and
+    build&merge, as the packed backend does, through kernel K2.
     """
 
     name = "sparse"

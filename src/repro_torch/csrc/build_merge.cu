@@ -6,33 +6,73 @@
 // aliased (k, lp) f32 M buffer: the forward scan writes M[t] = clamp(N[x_t] f),
 // the backward scan with N^T ANDs beta_{t+1} into M[t] in place.
 //
-// Bound on this card: 2*k mat-vecs of lp^2 per chunk, a chain of dependent
-// steps, against C*k ids in and C*k*W words out.  Per step the work is tiny, so
-// the latency of one step (a few loads, a ballot, a barrier) bounds it, and the
-// chunks running side by side are what fill the card.
+// Bound on this card: per chunk 2k dependent steps, each a mat-vec of lp^2
+// over {0,1}, against C*k ids in and C*k*W words out.  A step is tiny, so the
+// latency of one step bounds a chunk, and the chunks side by side fill the card.
 //
-// Design: one block per (batch row, chunk), one thread per state row (lp <= 1024,
-// lp % 32 == 0).  The frontier lives in shared memory as W = lp/32 words, double
-// buffered, one __syncthreads a step.  Forward: thread i computes
-// (OR_w Nr[x_t][i][w] & v[w]) != 0 from the row-packed table, and the warp's
-// __ballot_sync is word i/32 of the new frontier, which lane 0 also stores as
-// word (t, i/32) of the output.  Backward from J^_{i+1}: lane 0 ANDs the packed
-// beta_{t+1} into the word it wrote, then beta <- clamp(N[x_t]^T beta) from the
-// column-packed table.  So the packed (k, W) columns are the only output, with
-// no (k, lp) f32 buffer, in one launch where Pallas used two.  PAD steps
-// (N = identity) are folded as the reference folds them.
+// Two kernels; the launcher's plan (kernels/build.py) picks one by the size of
+// the tables:
+//
+// build_merge_walk_kernel (the plan's first choice), a group-table frontier
+// walk: the design of K1's group kernel and K4 / K5's walk, applied to one
+// vector in each direction.  For every class x, every g-bit group of states
+// and every value v of the group:
+//   forward  T_f[x][grp][v] = OR of the columns grp*g + b of N[x], b in v
+//   backward T_b[x][grp][v] = OR of the rows    grp*g + b of N[x], b in v
+// each W words, at a stride of W | 1 words (odd, so that the 2^g entries of a
+// group lie in distinct banks).  Each block builds the tables into its shared
+// memory straight from f32 N, so nothing is packed per call: a warp takes one
+// 32 x 32 tile of N[x], whose 32 coalesced rows give the packed columns (each
+// lane's own bits) and, by __ballot_sync, the packed rows; lanes combine them
+// into entries with __shfl_sync.  A forward step is
+//   f <- OR over the groups grp of T_f[x_t][grp][nibble(f, grp)]
+// and output row t is f; a backward step ANDs beta_{t+1} into output row t,
+// then beta <- OR over grp of T_b[x_t][grp][nibble(beta, grp)].  Where both
+// tables fit in shared memory they stay for the whole launch; else T_f is
+// built, every forward pass walked, and T_b rebuilt in its place between the
+// passes (one barrier each side).
+//   L = 8 lanes walk one chunk (a plan parameter; 2, 4 and 8 were measured,
+// and 8 was fastest on both parse shapes): lane `sub` looks up groups sub,
+// sub + L, ... of every word, so a step is (lp/g)/L lookups a lane, then the
+// words are ORed over the L lanes by __shfl_xor_sync, with no block barrier.
+// A warp walks 32/L = 4 chunks side by side (TRAFFIC: 2 lookups of 2 words
+// a lane a step; e125: 9 lookups of 9 words).
+// Class ids and, for the backward pass, the forward rows come in by 4-byte
+// cp.async one round of `rs` steps ahead (up to 128: each round's staging
+// costs microseconds, so the plan takes the longest that fits) into a
+// per-warp ring in shared memory; output rows are
+// written into the ring at each step and go out to device memory at the end
+// of each round, one coalesced run per chunk.  So no step waits on a load from
+// device memory, and none on a barrier.  A block is 1024 threads: all of them
+// build the tables, the first `walk_warps` warps walk.  PAD steps (N = the
+// identity) are walked like any other and write their column.
+//
+// build_merge_rows_kernel (tables that no group width fits): the port's first
+// design.  One block per chunk, one thread per state row (lp <= 1024), the
+// frontier in shared memory as W words, one __syncthreads a step: thread i
+// computes (OR_w Nr[x_t][i][w] & v[w]) != 0 from the row-packed table, the
+// warp's __ballot_sync is word i/32 of the new frontier.  The backward pass
+// does the same over the column-packed table and ANDs into the words the
+// forward pass wrote.
+//
+// Both write the packed (n_chunks, k, W) words of the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void build_merge_kernel(const uint32_t* __restrict__ nr,
-                                   const uint32_t* __restrict__ nc,
-                                   const int32_t* __restrict__ ids,
-                                   const float* __restrict__ entry_f,
-                                   const float* __restrict__ entry_b,
-                                   uint32_t* __restrict__ out, int k, int lp, int W) {
+constexpr unsigned FULL = 0xffffffffu;
+constexpr long long MAX_SMEM = 232448;
+
+// ============================================================ row kernel
+
+__global__ void build_merge_rows_kernel(const uint32_t* __restrict__ nr,
+                                        const uint32_t* __restrict__ nc,
+                                        const int32_t* __restrict__ ids,
+                                        const float* __restrict__ entry_f,
+                                        const float* __restrict__ entry_b,
+                                        uint32_t* __restrict__ out, int k, int lp, int W) {
   extern __shared__ uint32_t sv[];   // [2][W] packed frontier
   const long long chunk = blockIdx.x;
   const int i = threadIdx.x;
@@ -42,7 +82,7 @@ __global__ void build_merge_kernel(const uint32_t* __restrict__ nr,
   const int32_t* cid = ids + chunk * k;
   uint32_t* o = out + chunk * k * W;
 
-  uint32_t word = __ballot_sync(0xffffffffu, entry_f[chunk * lp + i] != 0.f);
+  uint32_t word = __ballot_sync(FULL, entry_f[chunk * lp + i] != 0.f);
   if (lane == 0) sv[warp] = word;
   __syncthreads();
 
@@ -52,7 +92,7 @@ __global__ void build_merge_kernel(const uint32_t* __restrict__ nr,
     const uint32_t* v = sv + cur * W;
     uint32_t acc = 0;
     for (int w = 0; w < W; ++w) acc |= __ldg(row + w) & v[w];
-    word = __ballot_sync(0xffffffffu, acc != 0);
+    word = __ballot_sync(FULL, acc != 0);
     if (lane == 0) {
       sv[(cur ^ 1) * W + warp] = word;
       o[static_cast<long long>(t) * W + warp] = word;
@@ -61,7 +101,7 @@ __global__ void build_merge_kernel(const uint32_t* __restrict__ nr,
     __syncthreads();
   }
 
-  word = __ballot_sync(0xffffffffu, entry_b[chunk * lp + i] != 0.f);
+  word = __ballot_sync(FULL, entry_b[chunk * lp + i] != 0.f);
   if (lane == 0) sv[cur * W + warp] = word;         // beta_k = entry_b
   __syncthreads();
 
@@ -71,19 +111,310 @@ __global__ void build_merge_kernel(const uint32_t* __restrict__ nr,
     const uint32_t* col = nc + cid[t] * NW + static_cast<long long>(i) * W;
     uint32_t acc = 0;
     for (int w = 0; w < W; ++w) acc |= __ldg(col + w) & b[w];
-    word = __ballot_sync(0xffffffffu, acc != 0);
+    word = __ballot_sync(FULL, acc != 0);
     if (lane == 0) sv[(cur ^ 1) * W + warp] = word;
     cur ^= 1;
     __syncthreads();
   }
 }
 
+// =========================================================== walk kernel
+
+constexpr int WALK_THREADS = 1024;
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most the newest committed group is in flight
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The forward table (tf) and / or the backward table (tb) of every class, from
+// f32 N (n_classes, 32 W, 32 W); a null table is not built.  Entry (x, grp, v)
+// word i lies at x * cls_stride + (grp * 2^G + v) * (W | 1) + i; the padding
+// words are never read.  One warp task is one 32 x 32 tile (x, a, b) of N[x],
+// rows 32a.., columns 32b..: lane l reads column 32b + l of its 32 rows.
+template <int W, int G>
+__device__ void build_tables(const float* __restrict__ N, uint32_t* tf, uint32_t* tb,
+                             int n_classes, int cls_stride) {
+  constexpr int WS = W | 1, V = 1 << G, GPW = 32 / G, LP = 32 * W;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int tasks = n_classes * W * W;
+  for (int task = threadIdx.x >> 5; task < tasks; task += warps) {
+    const int x = task / (W * W);
+    const int a = (task / W) % W;
+    const int b = task % W;
+    const float* src = N + (static_cast<long long>(x) * LP + 32 * a) * LP + 32 * b + lane;
+    uint32_t col = 0u;   // word a of packed column 32b + lane: bit r = N[x][32a + r][32b + lane]
+    uint32_t row = 0u;   // word b of packed row 32a + lane: bit c = N[x][32a + lane][32b + c]
+#pragma unroll 1
+    for (int r0 = 0; r0 < 32; r0 += 8) {
+      float v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) v[r] = __ldg(src + static_cast<long long>(r0 + r) * LP);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const bool nz = v[r] != 0.f;
+        col |= static_cast<uint32_t>(nz) << (r0 + r);
+        const uint32_t rw = __ballot_sync(FULL, nz);
+        if (lane == r0 + r) row = rw;
+      }
+    }
+    // entry (gi, v) of the GPW groups of this tile: the OR over the set bits
+    // of v of the g packed columns (forward) or rows (backward) of group gi
+#pragma unroll
+    for (int e0 = 0; e0 < GPW * V; e0 += 32) {
+      const int e = e0 + lane;
+      const int gi = e >> G, v = e & (V - 1);
+      uint32_t ef = 0u, eb = 0u;
+#pragma unroll
+      for (int bit = 0; bit < G; ++bit) {
+        const uint32_t cf = __shfl_sync(FULL, col, gi * G + bit);
+        const uint32_t cb = __shfl_sync(FULL, row, gi * G + bit);
+        if ((v >> bit) & 1) {
+          ef |= cf;
+          eb |= cb;
+        }
+      }
+      if (tf != nullptr) tf[x * cls_stride + ((b * GPW + gi) * V + v) * WS + a] = ef;
+      if (tb != nullptr) tb[x * cls_stride + ((a * GPW + gi) * V + v) * WS + b] = eb;
+    }
+  }
+}
+
+// One pass (forward FWD, else backward) over the chunks c0 .. c0 + 32/L - 1
+// of one unit, by one warp.  s_ids (2, cpw, rs + 1) and s_rows (2, cpw,
+// rs * W + 1) are the warp's ring; ids (n_chunks, k), entry (n_chunks, 32 W),
+// out (n_chunks, k, W).
+template <int W, int G, int L, bool FWD>
+__device__ __forceinline__ void walk_pass(const uint32_t* __restrict__ table,
+                                          const int32_t* __restrict__ ids,
+                                          const float* __restrict__ entry,
+                                          uint32_t* __restrict__ out, int32_t* s_ids,
+                                          uint32_t* s_rows, long long c0, int n_chunks, int k,
+                                          int rs, int cls_stride) {
+  constexpr int WS = W | 1, V = 1 << G, GPW = 32 / G, GROUP = V * WS, GPL = GPW / L;
+  constexpr int CPW = 32 / L;
+  const int lane = threadIdx.x & 31;
+  const int slot = lane / L, sub = lane % L;
+  const long long chunk = c0 + slot;
+  const int ids_stride = rs + 1, rows_stride = rs * W + 1;
+
+  uint32_t f[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    uint32_t word = 0u;
+    if (chunk < n_chunks) {
+      const float* e = entry + chunk * (32 * W) + 32 * w;
+      for (int b = 0; b < 32; ++b) word |= static_cast<uint32_t>(e[b] != 0.f) << b;
+    }
+    f[w] = word;
+  }
+
+  // round r's ids (and, backward, its forward rows) into ring buffer buf
+  auto stage = [&](int r, int buf) {
+    const int t0 = r * rs;
+    const int n = k - t0 < rs ? k - t0 : rs;
+    int32_t* si = s_ids + buf * CPW * ids_stride;
+    uint32_t* sr = s_rows + buf * CPW * rows_stride;
+    for (int sl = 0; sl < CPW; ++sl) {
+      const long long ch = c0 + sl;
+      const bool in = ch < n_chunks;
+      for (int s = lane; s < rs; s += 32) {
+        if (in && s < n)
+          cp_async4(si + sl * ids_stride + s, ids + ch * k + t0 + s);
+        else
+          si[sl * ids_stride + s] = 0;          // a step no lane reads, or a chunk past the end
+      }
+      if (!FWD && in) {
+        const uint32_t* src = out + (ch * k + t0) * W;
+        for (int o = lane; o < n * W; o += 32) cp_async4(sr + sl * rows_stride + o, src + o);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int n_rounds = (k + rs - 1) / rs;
+  stage(FWD ? 0 : n_rounds - 1, 0);
+  for (int it = 0; it < n_rounds; ++it) {
+    const int r = FWD ? it : n_rounds - 1 - it;
+    const int buf = it & 1;
+    if (it + 1 < n_rounds)
+      stage(FWD ? r + 1 : r - 1, buf ^ 1);
+    else
+      cp_async_commit();                        // an empty group: wait_group 1 below still waits for round r
+    cp_async_wait_prev();
+    __syncwarp();
+    const int t0 = r * rs;
+    const int n = k - t0 < rs ? k - t0 : rs;
+    const int32_t* si = s_ids + buf * CPW * ids_stride + slot * ids_stride;
+    uint32_t* rows = s_rows + buf * CPW * rows_stride + slot * rows_stride;
+    int x = si[FWD ? 0 : n - 1];
+    for (int q = 0; q < n; ++q) {
+      const int s = FWD ? q : n - 1 - q;
+      const int xn = q + 1 < n ? si[FWD ? s + 1 : s - 1] : 0;
+      uint32_t* row = rows + s * W;
+      if (!FWD) {
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          if (i % L == sub) row[i] &= f[i];      // output t = fwd[t] & beta_{t+1}
+      }
+      const uint32_t* tx = table + x * cls_stride + sub * GROUP;
+      uint32_t acc[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[i] = 0u;
+      // word w of the frontier is consumed from f[0], the rest shifted down,
+      // so that the loop over words need not be unrolled; it is where a
+      // step's lookups are few enough to issue together (at most 24: at 30
+      // and 32, W = 15 and 16 at g = 2, the unrolled loop spilled)
+#pragma unroll(W * GPL <= 24 ? W : 1)
+      for (int w = 0; w < W; ++w) {
+        const uint32_t word = f[0] >> (sub * G);
+#pragma unroll
+        for (int i = 0; i + 1 < W; ++i) f[i] = f[i + 1];
+        const uint32_t* gb = tx + w * (GPW * GROUP);
+#pragma unroll
+        for (int j = 0; j < GPL; ++j) {
+          const uint32_t* e = gb + j * (L * GROUP) + ((word >> (j * L * G)) & (V - 1)) * WS;
+#pragma unroll
+          for (int i = 0; i < W; ++i) acc[i] |= e[i];
+        }
+      }
+      // the OR over the chunk's L lanes (a butterfly of shuffles: one
+      // redux.sync a word measured 3.5x slower on the H100)
+#pragma unroll
+      for (int m = 1; m < L; m <<= 1)
+#pragma unroll
+        for (int i = 0; i < W; ++i) acc[i] |= __shfl_xor_sync(FULL, acc[i], m);
+#pragma unroll
+      for (int i = 0; i < W; ++i) f[i] = acc[i];
+      if (FWD) {
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          if (i % L == sub) row[i] = f[i];
+      }
+      x = xn;
+    }
+    __syncwarp();
+    // the round's rows of each chunk out to device memory, one coalesced run
+    for (int sl = 0; sl < CPW; ++sl) {
+      const long long ch = c0 + sl;
+      if (ch >= n_chunks) break;
+      const uint32_t* sr = s_rows + buf * CPW * rows_stride + sl * rows_stride;
+      uint32_t* dst = out + (ch * k + t0) * W;
+      for (int o = lane; o < n * W; o += 32) dst[o] = sr[o];
+    }
+    __syncwarp();
+  }
+  cp_async_wait_all();
+  __syncwarp();
+}
+
+// N (n_classes, 32 W, 32 W) f32; ids (n_chunks, k); entries (n_chunks, 32 W)
+// f32; out (n_chunks, k, W).  Shared memory: the table(s), then walk_warps
+// rings of 2 * (32/L) * ((rs + 1) + (rs * W + 1)) words.  At least one block an
+// SM at 1024 threads gives a thread 64 registers (K1's and K4's finding: a
+// frontier's words then stay in them).
+template <int W, int G, int L>
+__global__ void __launch_bounds__(WALK_THREADS, 1)
+build_merge_walk_kernel(const float* __restrict__ N, const int32_t* __restrict__ ids,
+                        const float* __restrict__ entry_f, const float* __restrict__ entry_b,
+                        uint32_t* __restrict__ out, int n_classes, int cls_stride, int n_chunks,
+                        int k, int rs, int both, int walk_warps) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int CPW = 32 / L;
+  const int table_words = n_classes * cls_stride;
+  uint32_t* tf = smem;
+  uint32_t* tb = both ? smem + table_words : smem;
+  const int ring_words = 2 * CPW * ((rs + 1) + (rs * W + 1));
+  const int warp = threadIdx.x >> 5;
+  int32_t* s_ids = reinterpret_cast<int32_t*>(smem + (both ? 2 : 1) * table_words +
+                                              warp * ring_words);
+  uint32_t* s_rows = reinterpret_cast<uint32_t*>(s_ids) + 2 * CPW * (rs + 1);
+
+  const bool walks = warp < walk_warps;
+  const long long total = static_cast<long long>(walk_warps) * gridDim.x;
+  // interleaved: the first warps of every block come first
+  const long long gw = static_cast<long long>(warp) * gridDim.x + blockIdx.x;
+  const long long units = (static_cast<long long>(n_chunks) + CPW - 1) / CPW;
+
+  // both: one pass builds both tables and walks each unit forward, then
+  // backward; else pass 0 builds T_f and walks forward, pass 1 T_b, backward
+  for (int pass = 0; pass < (both ? 1 : 2); ++pass) {
+    if (pass == 1) __syncthreads();             // every forward walk is done with T_f
+    build_tables<W, G>(N, pass == 0 ? tf : nullptr, both || pass == 1 ? tb : nullptr, n_classes,
+                       cls_stride);
+    __syncthreads();
+    if (!walks) continue;
+    for (long long u = gw; u < units; u += total) {
+      if (pass == 0)
+        walk_pass<W, G, L, true>(tf, ids, entry_f, out, s_ids, s_rows, u * CPW, n_chunks, k, rs,
+                                 cls_stride);
+      if (both || pass == 1) {
+        __threadfence_block();                  // the forward rows, read back below
+        walk_pass<W, G, L, false>(tb, ids, entry_b, out, s_ids, s_rows, u * CPW, n_chunks, k,
+                                  rs, cls_stride);
+      }
+    }
+  }
+}
+
+typedef void (*WalkKernel)(const float*, const int32_t*, const float*, const float*, uint32_t*,
+                           int, int, int, int, int, int, int);
+
+// Lanes a chunk (kernels/build.py's LANES): one count, so that one
+// instantiation a width keeps the build short.
+constexpr int WALK_LANES = 8;
+
+template <int W>
+WalkKernel walk_kernel_g(int g) {
+  return g == 4 ? &build_merge_walk_kernel<W, 4, WALK_LANES>
+       : g == 2 ? &build_merge_walk_kernel<W, 2, WALK_LANES>
+                : nullptr;
+}
+
+WalkKernel walk_kernel(int W, int g, int lanes) {
+  if (lanes != WALK_LANES) return nullptr;
+  switch (W) {
+    case 1: return walk_kernel_g<1>(g);
+    case 2: return walk_kernel_g<2>(g);
+    case 3: return walk_kernel_g<3>(g);
+    case 4: return walk_kernel_g<4>(g);
+    case 5: return walk_kernel_g<5>(g);
+    case 6: return walk_kernel_g<6>(g);
+    case 7: return walk_kernel_g<7>(g);
+    case 8: return walk_kernel_g<8>(g);
+    case 9: return walk_kernel_g<9>(g);
+    case 10: return walk_kernel_g<10>(g);
+    case 11: return walk_kernel_g<11>(g);
+    case 12: return walk_kernel_g<12>(g);
+    case 13: return walk_kernel_g<13>(g);
+    case 14: return walk_kernel_g<14>(g);
+    case 15: return walk_kernel_g<15>(g);
+    case 16: return walk_kernel_g<16>(g);
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
-// nr, nc (A+1, lp, W) int32: N packed along its columns (row-packed) and along
-// its rows (column-packed); ids (n_chunks, k) int32 in [0, A]; entry_f, entry_b
-// (n_chunks, lp) f32 {0,1}; out (n_chunks, k, W) int32.  lp % 32 == 0 and
-// lp <= 1024.  Returns the cudaError_t of the launch (0 on success).
+// The row kernel.  nr, nc (A+1, lp, W) int32: N packed along its columns
+// (row-packed) and along its rows (column-packed); ids (n_chunks, k) int32 in
+// [0, A]; entry_f, entry_b (n_chunks, lp) f32 {0,1}; out (n_chunks, k, W)
+// int32.  lp % 32 == 0 and lp <= 1024.  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int repro_build_merge_packed(const uint32_t* nr, const uint32_t* nc,
                                         const int32_t* ids, const float* entry_f,
                                         const float* entry_b, uint32_t* out,
@@ -92,8 +423,54 @@ extern "C" int repro_build_merge_packed(const uint32_t* nr, const uint32_t* nc,
   if (lp <= 0 || lp % 32 != 0 || lp > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = lp / 32;
-  build_merge_kernel<<<static_cast<unsigned>(n_chunks), lp, 2 * W * sizeof(uint32_t),
-                       static_cast<cudaStream_t>(stream)>>>(nr, nc, ids, entry_f,
-                                                            entry_b, out, k, lp, W);
+  build_merge_rows_kernel<<<static_cast<unsigned>(n_chunks), lp, 2 * W * sizeof(uint32_t),
+                            static_cast<cudaStream_t>(stream)>>>(nr, nc, ids, entry_f,
+                                                                 entry_b, out, k, lp, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk kernel.  N (n_classes, lp, lp) f32 {0,1}; ids (n_chunks, k) int32
+// in [0, n_classes); entry_f, entry_b (n_chunks, lp) f32; out (n_chunks, k,
+// W) int32.  g in {2, 4}, lanes = WALK_LANES, lp % 32 == 0, lp <= 512;
+// rs (steps a round) in 1 .. 128; both: 1 if both tables stay
+// in shared memory, 0 to rebuild the backward table between the passes;
+// cls_stride >= (lp/g) * 2^g * (W|1) words a class.  The launcher
+// (kernels/build.py) plans them.  Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int repro_build_merge_walk(const float* N, const int32_t* ids, const float* entry_f,
+                                      const float* entry_b, uint32_t* out, int n_classes,
+                                      int n_chunks, int k, int lp, int g, int lanes, int rs,
+                                      int both, int cls_stride, void* stream) {
+  if (n_chunks <= 0 || k <= 0) return 0;
+  const int W = lp / 32;
+  const WalkKernel fn = lp > 0 && lp % 32 == 0 ? walk_kernel(W, g, lanes) : nullptr;
+  if (fn == nullptr || n_classes < 1 || lanes > 32 / g || rs < 1 || rs > 128 ||
+      cls_stride < (lp / g) * (1 << g) * (W | 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cpw = 32 / lanes;
+  const long long table = (both ? 2LL : 1LL) * n_classes * cls_stride * 4;
+  const long long ring = 4LL * 2 * cpw * ((rs + 1) + (rs * W + 1));
+  if (table + ring > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  // about as many walking warps an SM as there are units for it, as shared
+  // memory allows; one block an SM
+  const long long units = (static_cast<long long>(n_chunks) + cpw - 1) / cpw;
+  long long ww = (units + sms - 1) / sms;
+  const long long fit = (MAX_SMEM - table) / ring;
+  ww = ww < 1 ? 1 : ww > WALK_THREADS / 32 ? WALK_THREADS / 32 : ww;
+  ww = ww > fit ? fit : ww;
+  long long blocks = (units + ww - 1) / ww;
+  if (blocks > sms) blocks = sms;
+  const size_t smem = static_cast<size_t>(table + ww * ring);
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<static_cast<unsigned>(blocks), WALK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      N, ids, entry_f, entry_b, out, n_classes, cls_stride, n_chunks, k, rs, both,
+      static_cast<int>(ww));
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,7 @@
 // (0.032 ms at 3.35 TB/s), one for y ~232 MB (0.069 ms), against at most
 // ~27 GFLOP (0.027 ms at 989 TFLOP/s bf16).  Bytes bound both.
 //
-// Two kernels; the launcher's plan picks one by dtype and shape:
+// Three kernels; the launcher's plan picks one by dtype and shape:
 //
 // ssd_tc_kernel (bf16 operands, the prefill's): one block per program and
 // role.  The block copies the program's C, B and xdt (and cs) into shared
@@ -38,14 +38,33 @@
 //  A y launch whose program does not fit in shared memory with S_prev's
 //  hi / lo copy (q = 256 at hp = n = 128) goes to the SIMT kernel.
 //
-// ssd_simt_kernel (f32 operands, and bf16 shapes that the first does not fit
-// in shared memory): the port's first design.  Per program, one block for
-// each 64-row tile of y walking the column tiles j <= i through shared
-// memory, plus one block for S_c; every product in full f32 on the SIMT
-// units.  f32 operands occur only in the f32 consistency prefill and in
-// tests.
+// ssd_tf32_kernel (f32 operands, the f32 consistency prefill's): the same
+// roles and warp tiles as the first, on mma.sync m16n8k8 in 3xTF32: each f32
+// operand split x = hi + lo (hi = tf32(x), lo = tf32(x - hi)) and a product
+// taken as al bh + ah bl + ah bh with f32 accumulation, which keeps ~2^-21 of
+// each term where one TF32 rounding would cost ~2^-11 (K6's f32 path does the
+// same).  An f32 program is twice a bf16 one's bytes (C, B and xdt alone are
+// 196 KB at q = 256, hp = n = 64), so only C (the y role's rows) and cs stay
+// for the whole block; B and xdt stream through a two-slot ring of j tiles
+// (64, 32 or 16 rows: the longest that leaves room for a second block on the
+// SM, else the longest that fits) by 16-byte cp.async, the next tile in
+// flight while the current one is used.  The y role takes G a strip of up to
+// four (16, 8) tiles at a time, so that each k step's split A fragment of C
+// feeds four independent accumulators.  Fragments are read as f32
+// straight from shared memory with the k order of each product permuted
+// (fragment slot c holds k = 2c, slot c + 4 holds k = 2c + 1): the G = C B^T
+// accumulator is then, register for register, the A fragment of the next
+// product (L o G) xdt, and the row strides (n + 8, hp + 4; n + 4 for the S
+// role's transposed B) put each fragment load's 32 words in distinct banks.
+// The y role runs a warp for each mirrored pair of 16-row tiles (twice as
+// many, each with half of the columns, where hp > 64), up to 512 threads.
 //
-// hp and n are multiples of 16 up to 128 in both.
+// ssd_simt_kernel (the last choice: shapes that neither tensor-core kernel
+// fits): the port's first design.  Per program, one block for each 64-row
+// tile of y walking the column tiles j <= i through shared memory, plus one
+// block for S_c; every product in full f32 on the SIMT units.
+//
+// hp and n are multiples of 16 up to 128 in all three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -633,6 +652,419 @@ int launch_tc_roles(const void* xdt, const float* cs, const void* B, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ================================================ tensor-core f32 kernel (3xTF32)
+
+constexpr int T32_MAX_THREADS = 512;
+constexpr long long SM_SMEM = 233472;       // shared memory of one Hopper SM
+constexpr long long BLOCK_RESERVED = 1024;  // what the runtime keeps of it for each block
+constexpr int T32_S_WARPS = 8;      // warps of the S role
+
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32 (a = ah + al, b = bh + bl; al bl dropped): the small
+// cross terms first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// A fragment (16 x 8) from four f32 values, split into hi / lo
+__device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void split_b(float b0, float b1, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split_tf32(b0, hi[0], lo[0]);
+  split_tf32(b1, hi[1], lo[1]);
+}
+
+// Warps of the y role: one for each mirrored pair of 16-row tiles (i, nrt-1-i),
+// twice over where hp > 64 (each warp then takes half of the n8 column tiles).
+__host__ __device__ inline int t32_y_warps(int q, int hp) {
+  const int nrt = (q + 15) / 16;
+  return (nrt + 1) / 2 * (hp > 64 ? 2 : 1);
+}
+
+__host__ __device__ inline int t32_threads(int q, int hp, int roles) {
+  const int wy = roles & ROLE_Y ? t32_y_warps(q, hp) : 0;
+  const int ws = roles & ROLE_S ? T32_S_WARPS : 0;
+  return 32 * (wy > ws ? wy : ws);
+}
+
+// Shared memory (floats) of one block with j tiles of jt rows.  y: C (qp, n + 8),
+// cs (qp), and two ring slots of B (jt, n + 8) and xdt (jt, hp + 4); S: w (qp)
+// and two slots of B (jt, n + 4) and xdt (jt, hp + 4).  The strides put the
+// rows that one fragment load reads in distinct banks.
+__host__ __device__ inline long long t32_floats(int q, int hp, int n, int roles, int jt) {
+  const long long qp = (q + 15) / 16 * 16;
+  const long long fy = qp * (n + 8) + qp + 2LL * jt * ((n + 8) + (hp + 4));
+  const long long fs = qp + 2LL * jt * ((n + 4) + (hp + 4));
+  const long long a = roles & ROLE_Y ? fy : 0, b = roles & ROLE_S ? fs : 0;
+  return a > b ? a : b;
+}
+
+// The j tile (64, 32 or 16 rows): the longest whose block leaves room for a
+// second block on its SM (a y block at q = 256 is 8 warps, too few alone to
+// keep the tensor cores fed), else the longest that fits; 0 where none fits
+// or the y role would need more than T32_MAX_THREADS threads.
+__host__ __device__ inline int t32_jt(int q, int hp, int n, int roles) {
+  if (t32_threads(q, hp, roles) > T32_MAX_THREADS) return 0;
+  for (int jt = 64; jt >= 16; jt >>= 1)
+    if (4 * t32_floats(q, hp, n, roles, jt) <= SM_SMEM / 2 - BLOCK_RESERVED) return jt;
+  for (int jt = 64; jt >= 16; jt >>= 1)
+    if (4 * t32_floats(q, hp, n, roles, jt) <= MAX_SMEM) return jt;
+  return 0;
+}
+
+// rows [r0, r0 + rows) of a (q, w) f32 matrix into shared memory with row stride
+// S, zero past row q; 16-byte cp.async (not waited for here)
+__device__ __forceinline__ void t32_load_rows(float* dst, int S, const float* src, int r0,
+                                              int rows, int q, int w) {
+  const int cw = w >> 2;
+  for (int e = threadIdx.x; e < rows * cw; e += blockDim.x) {
+    const int r = e / cw, c = (e - r * cw) << 2;
+    const bool in = r0 + r < q;
+    cp_async16z(dst + r * S + c, in ? src + static_cast<long long>(r0 + r) * w + c : src,
+                in ? 16 : 0);
+  }
+}
+
+__device__ void t32_role_y(float* sm, int jt, const float* X, const float* csp, const float* Bp,
+                           const float* Cp, const float* Sp, float* yp, int q, int hp, int n) {
+  const int qp = (q + 15) & ~15;
+  const int SC = n + 8, SB = n + 8, SX = hp + 4;
+  float* sC = sm;
+  float* sCs = sC + qp * SC;
+  float* ring = sCs + qp;
+  const int slot_f = jt * (SB + SX);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+
+  t32_load_rows(sC, SC, Cp, 0, qp, q, n);
+  for (int i = tid; i < qp; i += blockDim.x) sCs[i] = i < q ? csp[i] : 0.f;
+  const int nst = (qp + jt - 1) / jt;
+  auto load_stage = [&](int st) {
+    float* sB = ring + (st & 1) * slot_f;
+    t32_load_rows(sB, SB, Bp, st * jt, jt, q, n);
+    t32_load_rows(sB + jt * SB, SX, X, st * jt, jt, q, hp);
+    cp_async_commit();
+  };
+  load_stage(0);                      // with C
+  if (nst > 1) load_stage(1);
+
+  // this warp: the mirrored pair (pi, nrt-1-pi) of 16-row tiles, n8 column
+  // tiles nt0 .. nt0 + ntw - 1
+  const int nrt = qp >> 4, npairs = (nrt + 1) >> 1;
+  const int csplit = hp > 64 ? 2 : 1;
+  const bool active = warp < npairs * csplit;
+  const int pi = warp % npairs, half = warp / npairs;
+  const int ntw = hp / 8 / csplit;
+  const int nt0 = half * ntw;
+  const int ntiles = nrt - 1 - pi == pi ? 1 : 2;
+  const int it[2] = {pi, nrt - 1 - pi};
+
+  float acc[2][MAX_NT / 2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int t = 0; t < MAX_NT / 2; ++t) acc[u][t][0] = acc[u][t][1] = acc[u][t][2] = acc[u][t][3] = 0.f;
+
+  for (int st = 0; st < nst; ++st) {
+    if (st + 1 < nst)
+      cp_async_wait_group<1>();
+    else
+      cp_async_wait_group<0>();
+    __syncthreads();
+    if (active && st == 0) {
+      // inter-chunk term first: acc = exp(cs_i) * (C S_prev^T) on each tile
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u >= ntiles) break;
+        const int i0 = 16 * it[u];
+        for (int k0 = 0; k0 < n; k0 += 8) {
+          const float2 c0 = *reinterpret_cast<const float2*>(sC + (i0 + g) * SC + k0 + 2 * c);
+          const float2 c1 = *reinterpret_cast<const float2*>(sC + (i0 + g + 8) * SC + k0 + 2 * c);
+          uint32_t ah[4], al[4];
+          split_a(c0.x, c1.x, c0.y, c1.y, ah, al);
+#pragma unroll
+          for (int t = 0; t < MAX_NT / 2; ++t) {
+            if (t >= ntw) break;
+            const int h = 8 * (nt0 + t) + g;
+            const float2 s = __ldg(reinterpret_cast<const float2*>(Sp + h * n + k0 + 2 * c));
+            uint32_t bh[2], bl[2];
+            split_b(s.x, s.y, bh, bl);
+            mma_3xtf32(acc[u][t], ah, al, bh, bl);
+          }
+        }
+        const float e0 = expf(sCs[i0 + g]), e1 = expf(sCs[i0 + g + 8]);
+#pragma unroll
+        for (int t = 0; t < MAX_NT / 2; ++t) {
+          acc[u][t][0] *= e0;
+          acc[u][t][1] *= e0;
+          acc[u][t][2] *= e1;
+          acc[u][t][3] *= e1;
+        }
+      }
+    }
+    const float* sB = ring + (st & 1) * slot_f;
+    const float* sX = sB + jt * SB;
+    if (active) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u >= ntiles) break;
+        const int i0 = 16 * it[u];
+        const int ia = i0 + g, ib = ia + 8;
+        const float ca = sCs[ia], cb = sCs[ib];
+        // the columns of this stage that rows i0 .. i0 + 15 need (j <= i0 + 15;
+        // a multiple of 16), in strips of up to 32: G = C B^T on a strip's
+        // (16, 8) tiles, each k step's A fragment split once for all of them
+        const int jend = min(jt, i0 + 16 - st * jt);
+        for (int jh = 0; jh < jend; jh += 32) {
+          const int nj = min(4, (jend - jh) >> 3);
+          float gs[4][4] = {};
+#pragma unroll 2
+          for (int k0 = 0; k0 < n; k0 += 8) {
+            const float2 c0 = *reinterpret_cast<const float2*>(sC + ia * SC + k0 + 2 * c);
+            const float2 c1 = *reinterpret_cast<const float2*>(sC + ib * SC + k0 + 2 * c);
+            uint32_t ah[4], al[4];
+            split_a(c0.x, c1.x, c0.y, c1.y, ah, al);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              if (jj >= nj) break;
+              const float2 bv =
+                  *reinterpret_cast<const float2*>(sB + (jh + 8 * jj + g) * SB + k0 + 2 * c);
+              uint32_t bh[2], bl[2];
+              split_b(bv.x, bv.y, bh, bl);
+              mma_3xtf32(gs[jj], ah, al, bh, bl);
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            if (jj >= nj) break;
+            // L o G: rows ia (elements 0, 1) and ib (2, 3), columns j0 + 2c, +1
+            const int j0 = st * jt + jh + 8 * jj;
+            float gv[4];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = j0 + 2 * c + e;
+              const bool jin = j < q;
+              const float cj = jin ? sCs[j] : 0.f;
+              gv[e] = (jin && ia < q && ia >= j) ? gs[jj][e] * expf(ca - cj) : 0.f;
+              gv[2 + e] = (jin && ib < q && ib >= j) ? gs[jj][2 + e] * expf(cb - cj) : 0.f;
+            }
+            // as the A fragment of (L o G) xdt, with the k (j) order
+            // permuted: slot c is column 2c, slot c + 4 column 2c + 1
+            uint32_t ah[4], al[4];
+            split_a(gv[0], gv[2], gv[1], gv[3], ah, al);
+            const float* x0 = sX + (jh + 8 * jj + 2 * c) * SX;
+#pragma unroll
+            for (int t = 0; t < MAX_NT / 2; ++t) {
+              if (t >= ntw) break;
+              const int col = 8 * (nt0 + t) + g;
+              uint32_t bh[2], bl[2];
+              split_b(x0[col], x0[SX + col], bh, bl);
+              mma_3xtf32(acc[u][t], ah, al, bh, bl);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (st + 2 < nst) load_stage(st + 2);
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (u >= ntiles) break;
+    const int ia = 16 * it[u] + g;
+#pragma unroll
+    for (int t = 0; t < MAX_NT / 2; ++t) {
+      if (t >= ntw) break;
+      const int col = 8 * (nt0 + t) + 2 * c;
+      if (ia < q)
+        *reinterpret_cast<float2*>(yp + static_cast<long long>(ia) * hp + col) =
+            make_float2(acc[u][t][0], acc[u][t][1]);
+      if (ia + 8 < q)
+        *reinterpret_cast<float2*>(yp + static_cast<long long>(ia + 8) * hp + col) =
+            make_float2(acc[u][t][2], acc[u][t][3]);
+    }
+  }
+}
+
+// NP: the most column-tile pairs (16 columns) one warp owns, so that only
+// 2 NP accumulator tiles are held (the S launch sizes it: 2 at hp = n = 64)
+template <int NP>
+__device__ void t32_role_s(float* sm, int jt, const float* X, const float* csp, const float* Bp,
+                           float* sp, int q, int hp, int n) {
+  const int qp = (q + 15) & ~15;
+  const int SB = n + 4, SX = hp + 4;
+  float* sW = sm;
+  float* ring = sW + qp;
+  const int slot_f = jt * (SB + SX);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const float last = csp[q - 1];
+  for (int i = tid; i < qp; i += blockDim.x) sW[i] = i < q ? expf(last - csp[i]) : 0.f;
+  const int nst = (qp + jt - 1) / jt;
+  auto load_stage = [&](int st) {
+    float* sB = ring + (st & 1) * slot_f;
+    t32_load_rows(sB, SB, Bp, st * jt, jt, q, n);
+    t32_load_rows(sB + jt * SB, SX, X, st * jt, jt, q, hp);
+    cp_async_commit();
+  };
+  load_stage(0);
+  if (nst > 1) load_stage(1);
+
+  // warp -> (16-row tile m of S_c, column-tile pairs p = s, s + ns, ...:
+  // its pair number u is p = s + u * ns, accumulators 2u, 2u + 1)
+  const int nw = blockDim.x >> 5;
+  const int mt = n >> 4, ns = nw / mt, pairs = hp >> 4;
+  const int m = warp % mt, s = warp / mt;
+  const bool active = s < ns;
+  const int r0 = 16 * m + g;
+  float acc[2 * NP][4];
+#pragma unroll
+  for (int t = 0; t < 2 * NP; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  for (int st = 0; st < nst; ++st) {
+    if (st + 1 < nst)
+      cp_async_wait_group<1>();
+    else
+      cp_async_wait_group<0>();
+    __syncthreads();
+    const float* sB = ring + (st & 1) * slot_f;
+    const float* sX = sB + jt * SB;
+    if (active) {
+      for (int jj = 0; jj < jt; jj += 8) {
+        const int j0 = st * jt + jj;
+        if (j0 >= qp) break;
+        // A = (w o B)^T on (16, 8), the k (j) order permuted as in the y role
+        const float w0 = sW[j0 + 2 * c], w1 = sW[j0 + 2 * c + 1];
+        const float* b0 = sB + (jj + 2 * c) * SB + r0;
+        const float* b1 = b0 + SB;
+        uint32_t ah[4], al[4];
+        split_a(w0 * b0[0], w0 * b0[8], w1 * b1[0], w1 * b1[8], ah, al);
+        const float* x0 = sX + (jj + 2 * c) * SX;
+#pragma unroll
+        for (int u = 0; u < NP; ++u) {
+          const int p = s + u * ns;
+          if (p >= pairs) break;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int h = 16 * p + 8 * e + g;
+            uint32_t bh[2], bl[2];
+            split_b(x0[h], x0[SX + h], bh, bl);
+            mma_3xtf32(acc[2 * u + e], ah, al, bh, bl);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (st + 2 < nst) load_stage(st + 2);
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int u = 0; u < NP; ++u) {
+    const int p = s + u * ns;
+    if (p >= pairs) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 16 * p + 8 * e + 2 * c;
+      const float(&a)[4] = acc[2 * u + e];
+      *reinterpret_cast<float2*>(sp + r0 * hp + col) = make_float2(a[0], a[1]);
+      *reinterpret_cast<float2*>(sp + (r0 + 8) * hp + col) = make_float2(a[2], a[3]);
+    }
+  }
+}
+
+// One block per (program, role): ROLES = ROLE_Y, ROLE_S, or ROLE_BOTH with
+// the role from blockIdx.y (0: y, 1: S); NP as t32_role_s takes it.  An S
+// launch of at most two pairs a warp asks for three blocks an SM.
+template <int ROLES, int NP>
+__global__ void __launch_bounds__(ROLES == ROLE_S ? 32 * T32_S_WARPS : T32_MAX_THREADS,
+                                  ROLES == ROLE_S && NP <= 2 ? 3 : 1)
+ssd_tf32_kernel(const float* __restrict__ xdt, const float* __restrict__ cs,
+                const float* __restrict__ B, const float* __restrict__ C,
+                const float* __restrict__ S_prev, float* __restrict__ y,
+                float* __restrict__ S_c, int q, int hp, int n, int jt) {
+  extern __shared__ __align__(16) float t32_smem[];
+  const long long p = blockIdx.x;
+  const int role = ROLES == ROLE_BOTH ? (blockIdx.y == 0 ? ROLE_Y : ROLE_S) : ROLES;
+  if (role == ROLE_Y)
+    t32_role_y(t32_smem, jt, xdt + p * q * hp, cs + p * q, B + p * q * n, C + p * q * n,
+               S_prev + p * hp * n, y + p * q * hp, q, hp, n);
+  else
+    t32_role_s<NP>(t32_smem, jt, xdt + p * q * hp, cs + p * q, B + p * q * n,
+                   S_c + p * n * hp, q, hp, n);
+}
+
+template <int ROLES, int NP>
+int launch_tf32_roles(const void* xdt, const float* cs, const void* B, const void* C,
+                      const float* S_prev, float* y, float* S_c, int P, int q, int hp, int n,
+                      int jt, cudaStream_t stream) {
+  const long long smem = 4 * t32_floats(q, hp, n, ROLES, jt);
+  cudaError_t err = cudaFuncSetAttribute(ssd_tf32_kernel<ROLES, NP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(P, ROLES == ROLE_BOTH ? 2 : 1);
+  ssd_tf32_kernel<ROLES, NP><<<grid, t32_threads(q, hp, ROLES), smem, stream>>>(
+      static_cast<const float*>(xdt), cs, static_cast<const float*>(B),
+      static_cast<const float*>(C), S_prev, y, S_c, q, hp, n, jt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The S launch at (hp, n): T32_S_WARPS warps over n/16 row tiles hold the
+// hp/16 column-tile pairs, at most NP a warp (a power of two up to 8).
+int launch_tf32_state(const void* xdt, const float* cs, const void* B, float* S_c, int P, int q,
+                      int hp, int n, int jt, cudaStream_t stream) {
+  const int ns = T32_S_WARPS / (n >> 4), pairs = hp >> 4;
+  const int need = (pairs + ns - 1) / ns;
+  if (need <= 1)
+    return launch_tf32_roles<ROLE_S, 1>(xdt, cs, B, nullptr, nullptr, nullptr, S_c, P, q, hp, n,
+                                        jt, stream);
+  if (need <= 2)
+    return launch_tf32_roles<ROLE_S, 2>(xdt, cs, B, nullptr, nullptr, nullptr, S_c, P, q, hp, n,
+                                        jt, stream);
+  if (need <= 4)
+    return launch_tf32_roles<ROLE_S, 4>(xdt, cs, B, nullptr, nullptr, nullptr, S_c, P, q, hp, n,
+                                        jt, stream);
+  return launch_tf32_roles<ROLE_S, 8>(xdt, cs, B, nullptr, nullptr, nullptr, S_c, P, q, hp, n,
+                                      jt, stream);
+}
+
 }  // namespace
 
 // Dynamic shared memory of the SIMT kernel at (q, hp, n).
@@ -646,14 +1078,23 @@ extern "C" long long repro_ssd_chunk_tc_smem_bytes(int q, int hp, int n, int rol
   return tc_layout(q, hp, n, roles).total;
 }
 
+// Dynamic shared memory of the f32 tensor-core kernel at (q, hp, n) for the
+// outputs `roles`; -1 where it does not fit (or would need more than 512
+// threads).
+extern "C" long long repro_ssd_chunk_tf32_smem_bytes(int q, int hp, int n, int roles) {
+  const int jt = t32_jt(q, hp, n, roles);
+  return jt > 0 ? 4 * t32_floats(q, hp, n, roles, jt) : -1;
+}
+
 // xdt (P, q, hp), B and C (P, q, n) all f32 (dtype 0) or all bf16 (dtype 1);
 // cs (P, q) f32, S_prev (P, hp, n) f32; outputs y (P, q, hp) and S_c (P, n, hp)
 // f32, written where `roles` asks (1: y, 2: S_c, 3: both; the other output
 // may be null, and a launch for S_c alone reads neither C nor S_prev, which
 // may then be null too).
-// `kernel` 0 is the SIMT kernel, 1 the tensor-core kernel (bf16 only).
-// Contiguous on the device; hp and n multiples of 16 up to 128.  Returns the
-// cudaError_t of the launch (0 on success).
+// `kernel` 0 is the SIMT kernel, 1 the tensor-core kernel (bf16 only), 2
+// the f32 tensor-core kernel (f32 only).  Contiguous on the device; hp and n
+// multiples of 16 up to 128.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int repro_ssd_chunk(const void* xdt, const float* cs, const void* B, const void* C,
                                const float* S_prev, float* y, float* S_c, int dtype, int P,
                                int q, int hp, int n, int roles, int kernel, void* stream_ptr) {
@@ -670,6 +1111,17 @@ extern "C" int repro_ssd_chunk(const void* xdt, const float* cs, const void* B, 
     if (roles == ROLE_S)
       return launch_tc_roles<ROLE_S>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, smem, stream);
     return launch_tc_roles<ROLE_BOTH>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, smem, stream);
+  }
+  if (kernel == 2) {
+    const int jt = t32_jt(q, hp, n, roles);
+    if (dtype != 0 || jt == 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (roles == ROLE_Y)
+      return launch_tf32_roles<ROLE_Y, MAX_NT / 2>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, jt,
+                                                   stream);
+    if (roles == ROLE_S)
+      return launch_tf32_state(xdt, cs, B, S_c, P, q, hp, n, jt, stream);
+    return launch_tf32_roles<ROLE_BOTH, MAX_NT / 2>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n,
+                                                    jt, stream);
   }
   if (dtype == 1)
     return launch_simt<__nv_bfloat16>(xdt, cs, B, C, S_prev, y, S_c, P, q, hp, n, roles, stream);

@@ -1,25 +1,108 @@
 """K2 launcher: fused build&merge through ``csrc/build_merge.cu``.
 
 Replaces ``repro/kernels/build.py::build_merge_chunk``.  One launch covers
-every chunk (one block each, one thread per state row) and emits the clean
-columns already packed, so no (C, k, ℓp) f32 buffer exists.  The plain
-version is ``kernels/ref.py::build_merge_packed_ref``.
+every chunk and emits the clean columns already packed, so no (C, k, ℓp) f32
+buffer exists.  :func:`plan` picks one of the source's two kernels by the
+table's size: the walk kernel, 8 lanes a chunk walking the frontier over
+group tables that each block builds in shared memory from f32 N (nothing is
+packed per call); else the row kernel, one block a chunk and one thread a
+state row over N packed by this launcher (see the note at the top of the
+source).  The plain version is ``kernels/ref.py::build_merge_packed_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..core.matrices import pack_bits_torch
-from .checks import check_ids, check_status, check_table, require, stream
+from .checks import MAX_SMEM_BYTES, check_ids, check_status, check_table, require, stream
+from .reach import GROUPS, MAX_GROUP_W
 
 SOURCE = "build_merge"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "repro_build_merge_packed": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "repro_build_merge_walk": (_I, [_P, _P, _P, _P, _P] + [_I] * 9 + [_P]),
 }
+ROUNDS = (128, 64, 32, 16, 8)   # steps a round of staged ids and rows, longest first
+# lanes a chunk of the walk (the one count its source is built for): a step is
+# then (ℓp/g)/8 lookups a lane and three __shfl_xor_sync rounds; measured on
+# the H100 at 2, 4 and 8 lanes, 8 was fastest on TRAFFIC and e125
+LANES = 8
+SMS = 132                 # streaming multiprocessors of an H100 SXM, for the round
+MAX_LP = 1024             # the row kernel's one thread a state
+
+
+class Plan(NamedTuple):
+    kernel: str           # "walk" or "rows"
+    g: int                # group width (walk)
+    lanes: int            # lanes a chunk (walk)
+    round: int            # steps a round (walk)
+    both: bool            # both tables stay in shared memory; else the backward one is rebuilt
+    cls_stride: int       # words of one class in a table (walk)
+
+
+ROWS = Plan("rows", 0, 0, 0, False, 0)
+
+
+def class_stride(lp: int, g: int, lanes: int) -> int:
+    """Words of one class in a walk table: ℓp/g groups of 2^g entries of
+    W|1 words, padded where a warp walks 32/lanes > 1 chunks (so looks up
+    that many classes at once) to ≡ 32 / 2^⌈log2 cpw⌉ mod 32, so that one
+    entry of the classes of a warp's chunks lies in distinct banks (K4's
+    rule)."""
+    words = (lp // g) * (1 << g) * ((lp // 32) | 1)
+    cpw = 32 // lanes
+    if cpw == 1:
+        return words
+    return words + ((32 >> (cpw - 1).bit_length()) - words) % 32
+
+
+def table_bytes(n_classes: int, lp: int, g: int, lanes: int) -> int:
+    """Shared memory of one walk table (forward or backward)."""
+    return n_classes * class_stride(lp, g, lanes) * 4
+
+
+def ring_bytes(lp: int, lanes: int, rs: int) -> int:
+    """Shared memory of one walking warp's ring: two rounds of ids and rows
+    for each of its 32/lanes chunks, each run padded by a word."""
+    return 4 * 2 * (32 // lanes) * ((rs + 1) + (rs * (lp // 32) + 1))
+
+
+def walk_warps(n_chunks: int) -> int:
+    """Walking warps a block, as the source's launcher counts them: one for
+    each unit of 32/LANES chunks, spread over SMS SMs (one block an SM),
+    1 to 32."""
+    units = -(-n_chunks // (32 // LANES))
+    return min(max(-(-units // SMS), 1), 32)
+
+
+def plan(n_classes: int, lp: int, n_chunks: int) -> Plan:
+    """Kernel for ``n_chunks`` chunks over ``n_classes`` (ℓp, ℓp) tables: the
+    walk kernel (ℓp ≤ 512) at the widest g of ``GROUPS`` whose table fits in
+    one block's shared memory beside the rings of :func:`walk_warps` warps,
+    with the longest round of ``ROUNDS`` that fits, both tables where they
+    fit with it, else one rebuilt between the passes (on the H100 a round's
+    staging costs microseconds, a table's rebuild next to nothing); else the
+    row kernel (ℓp ≤ 1024); raises beyond that."""
+    require(0 < lp <= MAX_LP and lp % 32 == 0,
+            f"build_merge_packed: ℓp={lp} must be a multiple of 32 up to {MAX_LP}")
+    if lp // 32 <= MAX_GROUP_W:
+        ww = walk_warps(n_chunks)
+        for g in GROUPS:
+            table = table_bytes(n_classes, lp, g, LANES)
+            for rs in ROUNDS:
+                for both in (True, False):
+                    if (2 if both else 1) * table + ww * ring_bytes(lp, LANES, rs) <= MAX_SMEM_BYTES:
+                        return Plan("walk", g, LANES, rs, both, class_stride(lp, g, LANES))
+            # not even the shortest round of one warp fits this g: try the next
+            if table + ring_bytes(lp, LANES, ROUNDS[-1]) > MAX_SMEM_BYTES:
+                continue
+            return Plan("walk", g, LANES, ROUNDS[-1], False, class_stride(lp, g, LANES))
+    return ROWS
 
 
 def launch(
@@ -33,7 +116,6 @@ def launch(
     (C, k, ℓp/32) int32 packed clean columns."""
     name = "build_merge_packed"
     lp = check_table(name, N)
-    require(lp <= 1024, f"{name}: ℓp={lp} exceeds one thread per state (1024)")
     check_ids(name, ids, N.shape[0])
     C, k = ids.shape
     for e in (entry_f, entry_b):
@@ -41,12 +123,20 @@ def launch(
             e.dtype == torch.float32 and tuple(e.shape) == (C, lp),
             f"{name}: entries must be float32 ({C}, {lp}), got {e.dtype} {tuple(e.shape)}",
         )
-    nr = pack_bits_torch(N)                           # row-packed
-    nc = pack_bits_torch(N.transpose(-1, -2))         # column-packed
+    p = plan(N.shape[0], lp, C)
     out = torch.empty((C, k, lp // 32), dtype=torch.int32, device=N.device)
-    status = lib.repro_build_merge_packed(
-        nr.data_ptr(), nc.data_ptr(), ids.data_ptr(), entry_f.data_ptr(),
-        entry_b.data_ptr(), out.data_ptr(), C, k, lp, stream(N),
-    )
+    if p.kernel == "walk":
+        status = lib.repro_build_merge_walk(
+            N.data_ptr(), ids.data_ptr(), entry_f.data_ptr(), entry_b.data_ptr(),
+            out.data_ptr(), N.shape[0], C, k, lp, p.g, p.lanes, p.round, int(p.both),
+            p.cls_stride, stream(N),
+        )
+    else:
+        nr = pack_bits_torch(N)                           # row-packed
+        nc = pack_bits_torch(N.transpose(-1, -2))         # column-packed
+        status = lib.repro_build_merge_packed(
+            nr.data_ptr(), nc.data_ptr(), ids.data_ptr(), entry_f.data_ptr(),
+            entry_b.data_ptr(), out.data_ptr(), C, k, lp, stream(N),
+        )
     check_status(status, name)
     return out

@@ -3,11 +3,12 @@
 Replaces ``repro/kernels/ssd_chunk.py::ssd_chunk``.  One launch covers every
 flattened program p = (batch, chunk, head) and computes the outputs asked for
 (``outputs``: ``"both"``, ``"state"`` for S_c alone, ``"y"`` for y alone).
-:func:`plan` picks one of the source's two kernels: the tensor-core kernel
-(one block a program and role, the program's operands in shared memory) for
-bf16 operands whose program fits, else the SIMT kernel (f32 operands, and
-bf16 programs too long for the first; see the note at the top of the
-source).  The plain version is ``kernels/ref.py::ssd_chunk_ref``.
+:func:`plan` picks one of the source's three kernels: for bf16 operands the
+tensor-core kernel (one block a program and role, the program's operands in
+shared memory), for f32 operands the 3xTF32 tensor-core kernel (the same
+roles, B and xdt streamed through a ring of row tiles), each where its
+program fits, else the SIMT kernel (see the note at the top of the source).
+The plain version is ``kernels/ref.py::ssd_chunk_ref``.
 """
 
 from __future__ import annotations
@@ -25,24 +26,29 @@ SIGNATURES = {
     "repro_ssd_chunk": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "repro_ssd_chunk_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "repro_ssd_chunk_tc_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    "repro_ssd_chunk_tf32_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
 }
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 OUTPUTS = {"y": 1, "state": 2, "both": 3}     # the source's roles
-KERNELS = {"simt": 0, "mma": 1}
+KERNELS = {"simt": 0, "mma": 1, "tf32": 2}
+# the tensor-core kernel of each operand type, and the C function that sizes it
+TENSOR_CORE = {torch.bfloat16: ("mma", "repro_ssd_chunk_tc_smem_bytes"),
+               torch.float32: ("tf32", "repro_ssd_chunk_tf32_smem_bytes")}
 
 
 def plan(lib, xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
          S_prev: Optional[torch.Tensor], outputs: str) -> str:
-    """``"mma"`` (tensor cores) for bf16 operands whose program fits one
-    block's shared memory and whose tensors are 16-byte aligned (its copies
-    move 16 bytes at a time), else ``"simt"``."""
+    """The tensor-core kernel of the operands' type (``"mma"`` for bf16,
+    ``"tf32"`` for f32) where its program fits one block's shared memory and
+    the tensors are 16-byte aligned (its copies move 16 bytes at a time),
+    else ``"simt"``."""
     _, q, hp = xdt.shape
     n = B.shape[2]
-    if xdt.dtype == torch.bfloat16:
-        smem = lib.repro_ssd_chunk_tc_smem_bytes(q, hp, n, OUTPUTS[outputs])
-        aligned = all(t.data_ptr() % 16 == 0 for t in (xdt, B, C, S_prev) if t is not None)
-        if 0 < smem <= MAX_SMEM_BYTES and aligned:
-            return "mma"
+    kernel, smem_fn = TENSOR_CORE[xdt.dtype]
+    smem = getattr(lib, smem_fn)(q, hp, n, OUTPUTS[outputs])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (xdt, B, C, S_prev) if t is not None)
+    if 0 < smem <= MAX_SMEM_BYTES and aligned:
+        return kernel
     smem = lib.repro_ssd_chunk_smem_bytes(q, hp, n)
     require(smem <= MAX_SMEM_BYTES, f"ssd_chunk: q={q} needs {smem} B of shared memory")
     return "simt"

@@ -28,6 +28,7 @@ from repro_torch.core.matrices import (  # noqa: E402
 )
 from repro_torch.core.segments import compute_segments  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import build as build_launcher  # noqa: E402
 from repro_torch.kernels import packed_reach as packed_launcher  # noqa: E402
 from repro_torch.kernels import reach as reach_launcher  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_launcher  # noqa: E402
@@ -231,6 +232,79 @@ def test_build_merge_kernel_equals_plain_random_tables(dev, lp, density, k):
     got = ops.build_merge_packed(N, ids, ef, eb)
     torch.cuda.synchronize()
     assert torch.equal(got, build_merge_packed_ref(N, ids, ef, eb))
+
+
+def _build_variants(n_classes, lp):
+    """Every K2 kernel that takes ``n_classes`` (ℓp, ℓp) tables: at each
+    group width, the walk with both tables resident and with the backward one
+    rebuilt, each at the longest round that fits one warp's ring, and at an
+    odd 7-step round (g = 4); then the row kernel."""
+    out = []
+    if lp // 32 <= build_launcher.MAX_GROUP_W:
+        L = build_launcher.LANES
+        for g in build_launcher.GROUPS:
+            table = build_launcher.table_bytes(n_classes, lp, g, L)
+            stride = build_launcher.class_stride(lp, g, L)
+            for both in (True, False):
+                fits = [rs for rs in build_launcher.ROUNDS + (7,) if (2 if both else 1) * table
+                        + build_launcher.ring_bytes(lp, L, rs) <= MAX_SMEM_BYTES]
+                out += [build_launcher.Plan("walk", g, L, rs, both, stride)
+                        for rs in fits[:1] + ([7] if g == 4 and 7 in fits else [])]
+    return out + [build_launcher.ROWS]
+
+
+BUILD_K = (1, 65, 8192)
+# (ℓp, classes incl. PAD): at ℓp = 512 one class and PAD, so that the walk fits
+BUILD_TABLES = ((32, 4), (64, 4), (96, 4), (288, 4), (512, 2), (1024, 4))
+BUILD_CASES = [(lp, a, k, variant) for lp, a in BUILD_TABLES for k in BUILD_K
+               for variant in _build_variants(a, lp)]
+_build_inputs: dict = {}
+
+
+def _build_case(lp, n_classes, k, dev):
+    """Inputs and the plain version's columns for ℓp and k, made once: random
+    classes and PAD (the last, the identity), 9 chunks (not a multiple of the
+    16, 8 or 4 chunks a warp walks), a padded bucket's tail, an all-PAD
+    chunk."""
+    if (lp, k) not in _build_inputs:
+        rng = np.random.default_rng(lp * 7 + k)
+        N = torch.tensor(_random_table(rng, n_classes - 1, lp, 3.0 / lp), device=dev)
+        C = 9
+        ids = rng.integers(0, n_classes, size=(C, k))
+        ids[C // 2:, k // 2:] = n_classes - 1
+        ids[-1] = n_classes - 1
+        ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+        ef = torch.tensor((rng.random((C, lp)) < 0.3).astype(np.float32), device=dev)
+        eb = torch.tensor((rng.random((C, lp)) < 0.3).astype(np.float32), device=dev)
+        args = (N, ids, ef, eb)
+        _build_inputs.clear()                      # one shape's inputs at a time
+        _build_inputs[(lp, k)] = (args, build_merge_packed_ref(*args))
+    return _build_inputs[(lp, k)]
+
+
+@pytest.mark.parametrize("lp,n_classes,k,variant", BUILD_CASES)
+def test_build_merge_kernel_every_plan_variant(dev, monkeypatch, lp, n_classes, k, variant):
+    """K2 bit for bit in each kernel the plan can choose, forced through
+    ``build.plan``, at ℓp from one word to the row kernel's 1024 and k from 1
+    to TRAFFIC's 8192 steps."""
+    args, want = _build_case(lp, n_classes, k, dev)
+    monkeypatch.setattr(build_launcher, "plan", lambda n, l, c: variant)
+    ops.reset_launches()
+    got = ops.build_merge_packed(*args)
+    torch.cuda.synchronize()
+    assert ops.build_merge_packed.launches == 1
+    assert torch.equal(got, want)
+
+
+def test_build_merge_plan_at_the_parse_shapes(dev):
+    """The plan's own choice on TRAFFIC and e125 at 1024 chunks: the walk at
+    g = 4, 8 lanes a chunk, both tables and 128-step rounds (TRAFFIC), the
+    backward table rebuilt and 64-step rounds (e125)."""
+    want = {"traffic": ("walk", 4, 128, True), "e125": ("walk", 4, 64, False)}
+    for which, (kind, g, rs, both) in want.items():
+        t = _pattern_table(JOIN_PATTERNS[which], dev)
+        p = build_launcher.plan(t.N.shape[0], t.ell_pad, 1024)
+        assert (p.kernel, p.g, p.lanes, p.round, p.both) == (kind, g, 8, rs, both)
 
 
 def test_wrappers_count_launches_on_the_card_only(dev):
@@ -479,6 +553,7 @@ def test_packed_and_sparse_kernel_backends_equal_torch_backend(dev, pattern, set
         assert np.array_equal(got.forest.pack(), want.forest.pack())
     kernel = ops.sparse_reach_rows if setting["backend"] == "sparse" else ops.packed_reach_chunk_product
     assert kernel.launches >= 1 and ops.reach_chunk_product.launches == 0
+    assert ops.build_merge_packed.launches == kernel.launches       # build&merge through K2
     assert p_kern.backend_name == setting["backend"]
 
 
@@ -626,12 +701,13 @@ def test_ssd_chunk_every_output_mode(dev, q, hp, n, outputs, dtype):
     """Each ``outputs`` mode against the plain version, an odd number of
     programs; bf16 runs on the tensor-core kernel at every one of these
     shapes but a y launch at q = 256, hp = n = 128, whose program does not
-    fit in shared memory with S_prev's hi / lo copy (the SIMT kernel's)."""
+    fit in shared memory with S_prev's hi / lo copy (the SIMT kernel's); f32
+    on the 3xTF32 tensor-core kernel at every one."""
     rng = np.random.default_rng(q * 3 + hp + n)
     args = _ssd_inputs(rng, 3, q, hp, n, getattr(torch, dtype), dev)
     lib = ops.build()[ssd_launcher.SOURCE]
     too_long = (q, hp, n) == (256, 128, 128) and outputs != "state"
-    want_kernel = "mma" if dtype == "bfloat16" and not too_long else "simt"
+    want_kernel = "tf32" if dtype == "float32" else "simt" if too_long else "mma"
     assert ssd_launcher.plan(lib, args[0], args[2], args[3], args[4], outputs) == want_kernel
     _assert_ssd_outputs(args, outputs)
 
@@ -641,6 +717,18 @@ def test_ssd_chunk_every_output_mode(dev, q, hp, n, outputs, dtype):
 def test_ssd_chunk_at_the_prefill_shape(dev, outputs, dtype):
     """zamba2-2.7b's prefill: P = 1280 programs, q = 256, hp = n = 64."""
     args = _ssd_inputs(np.random.default_rng(1280), 1280, 256, 64, 64, getattr(torch, dtype), dev)
+    _assert_ssd_outputs(args, outputs)
+
+
+@pytest.mark.parametrize("kernel", ["tf32", "simt"])
+@pytest.mark.parametrize("outputs", SSD_OUTPUTS)
+@pytest.mark.parametrize("P,hp,n", [(1280, 64, 64), (7, 128, 128)])
+def test_ssd_chunk_f32_on_each_kernel(dev, monkeypatch, kernel, outputs, P, hp, n):
+    """f32 programs of q = 256 on the 3xTF32 tensor-core kernel (the plan's
+    choice) and on the SIMT kernel, forced through the plan: zamba2-2.7b's
+    prefill shape (P = 1280, hp = n = 64) and the widest head and state."""
+    monkeypatch.setattr(ssd_launcher, "plan", lambda *a: kernel)
+    args = _ssd_inputs(np.random.default_rng(P + hp), P, 256, hp, n, torch.float32, dev)
     _assert_ssd_outputs(args, outputs)
 
 

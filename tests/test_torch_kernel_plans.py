@@ -1,7 +1,10 @@
-"""The pure-Python parts of the K1, K3, K4, K5, K6 and K7 launchers, on the CPU.
+"""The pure-Python parts of the K1–K7 launchers, on the CPU.
 
 K1's launcher (``repro_torch/kernels/reach.py``) picks the group kernel and
-its group width, or the strip kernel, by the table's size; K4's and K5's
+its group width, or the strip kernel, by the table's size; K2's
+(``kernels/build.py``) the walk kernel with its group width, lanes a chunk,
+round and table layout, or the row kernel, and a torch emulation of the
+walk's tables and steps is held against the plain version; K4's and K5's
 (``kernels/packed_reach.py``, ``kernels/sparse_reach.py``) the walk kernel
 and its group width, or the fold kernel, and for the walk how many chunks a
 warp packs; K3's
@@ -23,12 +26,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import backend  # noqa: E402
+from repro_torch.core.matrices import pack_bits_torch  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_launcher  # noqa: E402
 from repro_torch.kernels import packed_reach, reach  # noqa: E402
 from repro_torch.kernels import semiring  # noqa: E402
 from repro_torch.kernels import sparse_reach as sparse_launcher  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_launcher  # noqa: E402
 from repro_torch.kernels.checks import MAX_SMEM_BYTES  # noqa: E402
+from repro_torch.kernels.ref import build_merge_packed_ref  # noqa: E402
 
 
 class _RecordingLib:
@@ -353,6 +359,233 @@ def test_word_launchers_raise_before_any_call_beyond_the_fold_kernel(monkeypatch
     assert lib.calls == []
 
 
+# (classes incl. PAD, ℓp, chunks) → K2's plan
+BUILD_PLANS = [
+    ((19, 64, 1024), build.Plan("walk", 4, 8, 128, True, 776)),    # TRAFFIC: both tables, 2 warps
+    ((4, 288, 1024), build.Plan("walk", 4, 8, 64, False, 10376)),  # e125: 166 KB, rebuilt
+    ((6, 288, 1024), build.Plan("walk", 2, 8, 128, False, 5192)),  # g = 4 no longer fits alone
+    ((4, 96, 9), build.Plan("walk", 4, 8, 128, True, 1160)),
+    ((2, 32, 1), build.Plan("walk", 4, 8, 128, True, 136)),
+    ((300, 32, 1), build.Plan("walk", 4, 8, 128, False, 136)),     # ids above 255, rebuilt
+    ((19, 64, 32768), build.Plan("walk", 4, 8, 32, True, 776)),    # 32 warps: shorter rounds
+    ((1, 512, 1024), build.Plan("walk", 4, 8, 64, False, 34824)),  # the widest walk (W = 16)
+    ((3, 512, 9), build.Plan("walk", 2, 8, 32, False, 17416)),
+    ((4, 512, 9), build.ROWS),                                     # no group width fits
+    ((12, 288, 1024), build.ROWS),
+    ((2, 544, 4), build.ROWS),                                     # W = 17: beyond the walk's registers
+    ((1, 1024, 4), build.ROWS),                                    # the row kernel's widest table
+]
+
+
+@pytest.mark.parametrize("args,want", BUILD_PLANS)
+def test_build_plan_picks_kernel_g_and_lanes_by_table_size(args, want):
+    n_classes, lp, C = args
+    got = build.plan(n_classes, lp, C)
+    assert got == want
+    ww = build.walk_warps(C)
+    if got.kernel == "walk":
+        need = (2 if got.both else 1) * build.table_bytes(n_classes, lp, got.g, got.lanes)
+        assert need + ww * build.ring_bytes(lp, got.lanes, got.round) <= MAX_SMEM_BYTES
+        longer = [rs for rs in build.ROUNDS if rs > got.round]
+        assert all(build.table_bytes(n_classes, lp, got.g, got.lanes)
+                   + ww * build.ring_bytes(lp, got.lanes, rs) > MAX_SMEM_BYTES for rs in longer)
+        if not got.both:                       # both tables would not fit with this round
+            assert need * 2 + ww * build.ring_bytes(lp, got.lanes, got.round) > MAX_SMEM_BYTES
+    else:
+        assert lp // 32 > build.MAX_GROUP_W or all(
+            build.table_bytes(n_classes, lp, g, build.LANES)
+            + build.ring_bytes(lp, build.LANES, build.ROUNDS[-1]) > MAX_SMEM_BYTES
+            for g in build.GROUPS)
+
+
+@pytest.mark.parametrize("lp", [1056, 2048, 48, 0])
+def test_build_plan_raises_beyond_the_row_kernel(lp):
+    with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+        build.plan(2, lp, 4)
+
+
+@pytest.mark.parametrize("n_chunks,want", [(1, 1), (528, 1), (529, 2), (1024, 2), (8192, 16),
+                                           (16896, 32), (10 ** 6, 32)])
+def test_build_walk_warps_spread_the_units_over_the_sms(n_chunks, want):
+    """A unit is 4 chunks (8 lanes each); one block an SM walks as many
+    units as the 132 SMs leave it, up to 32 warps."""
+    assert build.walk_warps(n_chunks) == want
+
+
+def _launch_build(monkeypatch, n_classes, lp, C=3, k=5):
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "stream", lambda t: 0)
+    N = torch.eye(lp).expand(n_classes, lp, lp).contiguous()
+    ids = torch.zeros((C, k), dtype=torch.int32)
+    e = torch.zeros((C, lp))
+    out = build.launch(lib, N, ids, e, e)
+    assert out.shape == (C, k, lp // 32) and out.dtype == torch.int32
+    (fn, args), = lib.calls
+    return fn, args
+
+
+@pytest.mark.parametrize("n_classes,lp", [(19, 64), (4, 288), (6, 288), (3, 512), (2, 32)])
+def test_build_launcher_sends_a_fitting_table_to_the_walk_kernel(monkeypatch, n_classes, lp):
+    fn, args = _launch_build(monkeypatch, n_classes, lp)
+    p = build.plan(n_classes, lp, 3)
+    assert fn == "repro_build_merge_walk"
+    assert args[5:14] == (n_classes, 3, 5, lp, p.g, p.lanes, p.round, int(p.both), p.cls_stride)
+
+
+@pytest.mark.parametrize("n_classes,lp", [(4, 512), (2, 544), (1, 1024)])
+def test_build_launcher_sends_other_tables_to_the_row_kernel(monkeypatch, n_classes, lp):
+    fn, args = _launch_build(monkeypatch, n_classes, lp)
+    assert fn == "repro_build_merge_packed" and args[6:9] == (3, 5, lp)
+
+
+@pytest.mark.parametrize("variant", [
+    build.Plan("walk", 4, 8, 128, True, 776), build.Plan("walk", 2, 8, 16, False, 200),
+    build.Plan("walk", 4, 8, 7, False, 776), build.ROWS,
+])
+def test_build_launcher_follows_a_forced_plan(monkeypatch, variant):
+    """The card tests force each plan variant through ``build.plan``."""
+    monkeypatch.setattr(build, "plan", lambda n, l, c: variant)
+    fn, args = _launch_build(monkeypatch, 3, 64)
+    if variant.kernel == "walk":
+        assert fn == "repro_build_merge_walk"
+        assert args[9:14] == (variant.g, variant.lanes, variant.round, int(variant.both),
+                              variant.cls_stride)
+    else:
+        assert fn == "repro_build_merge_packed"
+
+
+def test_build_launcher_raises_before_any_call_beyond_the_row_kernel(monkeypatch):
+    lib = _RecordingLib()
+    N = torch.eye(1056).expand(2, 1056, 1056).contiguous()
+    e = torch.zeros((1, 1056))
+    with pytest.raises(ValueError, match="up to 1024"):
+        build.launch(lib, N, torch.zeros((1, 3), dtype=torch.int32), e, e)
+    assert lib.calls == []
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_chunks", [1, 5, 7, 64, 1024, 5000])
+@pytest.mark.parametrize("g", build.GROUPS)
+def test_build_walk_lane_and_chunk_packing_covers_every_chunk_once(lanes, n_chunks, g):
+    """The walk kernel's units, warps and lanes as its launcher and source map
+    them (132 SMs, one block an SM, ``walk_warps`` warps a block walking):
+    unit u takes chunks u·cpw … u·cpw + cpw − 1, lane l walks chunk l // L of
+    its warp's unit with sub-lane l % L, and sub-lane s looks up groups s,
+    s + L, … of every word.  Every chunk is walked once, by L lanes that
+    together look up every group of a word once (the source is built for
+    L = 8; the mapping holds for any power of two up to 32/g)."""
+    sms, cpw = 132, 32 // lanes
+    units = -(-n_chunks // cpw)
+    ww = min(max(-(-units // sms), 1), 32)
+    blocks = min(-(-units // ww), sms)
+    seen = []
+    for block in range(blocks):
+        for warp in range(ww):
+            for u in range(warp * blocks + block, units, ww * blocks):
+                for lane in range(32):
+                    slot, sub = lane // lanes, lane % lanes
+                    if u * cpw + slot < n_chunks:
+                        seen.append((u * cpw + slot, sub))
+    assert sorted(seen) == [(c, s) for c in range(n_chunks) for s in range(lanes)]
+    gpw, gpl = 32 // g, 32 // g // lanes
+    assert sorted(j * lanes + s for s in range(lanes) for j in range(gpl)) == list(range(gpw))
+
+
+def _u32_to_i32(words: torch.Tensor) -> torch.Tensor:
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def _walk_tables(N: torch.Tensor, g: int, lanes: int):
+    """The walk kernel's forward and backward tables as flat int64 word arrays,
+    built as its ``build_tables`` builds them: per 32 x 32 tile (x, a, b) of
+    N[x], the packed columns (lane l: bit r = N[x][32a + r][32b + l]) and rows
+    (lane l: bit c = N[x][32a + l][32b + c]), combined into the entries of
+    each g-group at x · stride + (grp · 2^g + v) · (W | 1) + word."""
+    A1, lp, _ = N.shape
+    W, V, gpw = lp // 32, 1 << g, 32 // g
+    WS = W | 1
+    stride = build.class_stride(lp, g, lanes)
+    tf = torch.zeros(A1 * stride, dtype=torch.int64)
+    tb = torch.zeros(A1 * stride, dtype=torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64)
+    bits = torch.tensor([[(v >> b) & 1 for b in range(g)] for v in range(V)], dtype=torch.bool)
+    for x in range(A1):
+        for a in range(W):
+            for b in range(W):
+                tile = (N[x, 32 * a:32 * a + 32, 32 * b:32 * b + 32] != 0).long()   # [r, c]
+                col = (tile << shifts[:, None]).sum(0)          # lane l: column 32b + l
+                row = (tile << shifts[None, :]).sum(1)          # lane l: row 32a + l
+                for words, table, blk, word in ((col, tf, b, a), (row, tb, a, b)):
+                    grp = words.view(gpw, g)
+                    ent = torch.zeros((gpw, V), dtype=torch.int64)
+                    for bit in range(g):
+                        ent |= torch.where(bits[None, :, bit], grp[:, bit:bit + 1], 0)
+                    gi = torch.arange(gpw)[:, None]
+                    v = torch.arange(V)[None, :]
+                    table[x * stride + ((blk * gpw + gi) * V + v) * WS + word] = ent
+    return tf, tb, stride
+
+
+def _walk_step(table, stride, x, f, lp, g, lanes):
+    """One step of every chunk: each of the L sub-lanes looks up groups s,
+    s + L, … of every word of f (C, W) int64, then the lanes' words are ORed
+    (the kernel's __shfl_xor_sync rounds)."""
+    W, V, gpw = lp // 32, 1 << g, 32 // g
+    WS, GROUP = W | 1, V * (W | 1)
+    i = torch.arange(W)
+    new = torch.zeros_like(f)
+    for sub in range(lanes):
+        for w in range(W):
+            word = f[:, w] >> (sub * g)
+            for j in range(gpw // lanes):
+                nib = (word >> (j * lanes * g)) & (V - 1)
+                base = x * stride + sub * GROUP + w * gpw * GROUP + j * lanes * GROUP + nib * WS
+                new |= table[base[:, None] + i[None, :]]
+    return new
+
+
+def emulate_walk(N, ids, ef, eb, g, lanes):
+    """The walk kernel's arithmetic in torch: (C, k, W) int32 packed columns."""
+    lp = N.shape[-1]
+    tf, tb, stride = _walk_tables(N, g, lanes)
+    C, k = ids.shape
+    ids = ids.long()
+    out = torch.zeros((C, k, lp // 32), dtype=torch.int64)
+    f = pack_bits_torch(ef).long() & 0xFFFFFFFF
+    for t in range(k):
+        f = _walk_step(tf, stride, ids[:, t], f, lp, g, lanes)
+        out[:, t] = f
+    beta = pack_bits_torch(eb).long() & 0xFFFFFFFF
+    for t in range(k - 1, -1, -1):
+        out[:, t] &= beta
+        beta = _walk_step(tb, stride, ids[:, t], beta, lp, g, lanes)
+    return _u32_to_i32(out)
+
+
+@pytest.mark.parametrize("lp", [32, 64, 96, 288])
+@pytest.mark.parametrize("g", build.GROUPS)
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_build_walk_emulation_equals_plain(lp, g, lanes):
+    """The group-table frontier walk, forward and backward with the AND, bit
+    for bit against ``build_merge_packed_ref``: random tables with PAD (the
+    last class) the identity, a padded bucket (chunks ending in PAD) and an
+    all-PAD chunk."""
+    assert lanes <= 32 // g                # any such L; the source is built for 8
+    rng = np.random.default_rng(lp + 7 * g + lanes)
+    A1, C, k = 4, 5, 9
+    N = (rng.random((A1, lp, lp)) < 3.0 / lp).astype(np.float32)
+    N[-1] = np.eye(lp, dtype=np.float32)
+    ids = rng.integers(0, A1, size=(C, k))
+    ids[2:, k // 2:] = A1 - 1
+    ids[-1] = A1 - 1
+    N, ids = torch.tensor(N), torch.tensor(ids, dtype=torch.int32)
+    ef = torch.tensor((rng.random((C, lp)) < 0.4).astype(np.float32))
+    eb = torch.tensor((rng.random((C, lp)) < 0.4).astype(np.float32))
+    want = build_merge_packed_ref(N, ids, ef, eb)
+    assert want.any()                                 # not an empty forest
+    assert torch.equal(emulate_walk(N, ids, ef, eb, g, lanes), want)
+
+
 def _ssd_args(dtype, P=3, q=256, hp=64, n=64):
     return (torch.zeros((P, q, hp), dtype=dtype), torch.zeros((P, q, 1)),
             torch.zeros((P, q, n), dtype=dtype), torch.zeros((P, q, n), dtype=dtype),
@@ -375,6 +608,28 @@ def test_ssd_launcher_plans_and_passes_the_outputs(monkeypatch, outputs, roles, 
     assert fn == "repro_ssd_chunk"
     assert (args[5] is None) == (outputs == "state") and (args[6] is None) == (outputs == "y")
     assert args[7:14] == (int(dtype == torch.bfloat16), 3, 256, 64, 64, roles, kernel)
+
+
+@pytest.mark.parametrize("outputs,roles", [("both", 3), ("state", 2), ("y", 1)])
+@pytest.mark.parametrize("tf32_smem,aligned,kernel", [
+    (152576, True, 2),       # the f32 prefill's program fits: the 3xTF32 tensor-core kernel
+    (-1, True, 0),           # it does not: the SIMT kernel
+    (152576, False, 0),      # a tensor not 16-byte aligned: the SIMT kernel
+])
+def test_ssd_launcher_sends_f32_programs_to_the_tf32_kernel(monkeypatch, outputs, roles,
+                                                           tf32_smem, aligned, kernel):
+    lib = _RecordingLib(repro_ssd_chunk_tf32_smem_bytes=tf32_smem,
+                        repro_ssd_chunk_tc_smem_bytes=115712, repro_ssd_chunk_smem_bytes=60000)
+    monkeypatch.setattr(ssd_launcher, "stream", lambda t: 0)
+    x, cs, B, C, S = _ssd_args(torch.float32)
+    if not aligned:
+        B = torch.zeros(3 * 256 * 64 + 1)[1:].view(3, 256, 64)
+    y, S_c = ssd_launcher.launch(lib, x, cs, B, C, S, outputs=outputs)
+    sized = [args for fn, args in lib.calls if fn == "repro_ssd_chunk_tf32_smem_bytes"]
+    assert sized == [(256, 64, 64, roles)]
+    fn, args = lib.calls[-1]
+    assert fn == "repro_ssd_chunk" and args[7] == 0 and args[12:14] == (roles, kernel)
+    assert ssd_launcher.KERNELS["tf32"] == 2
 
 
 @pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, 1), (torch.float32, 0)])

@@ -38,6 +38,33 @@ or ``repro``).  Phases, each printing one JSON line:
   phases     reach / join / build&merge / host assembly times and MB/s of the
              ``cuda``, ``packed`` and ``sparse`` kernel paths on both texts,
              each one's packed columns held against the ``torch`` backend's
+  stream     ``Parser.open_stream()`` with ``max_seal_len`` 65536: the TRAFFIC
+             log in 128 appends of 64 KiB on ``cuda`` and on ``sparse``
+             (``kernel=True``), and the e125 text in 16 on ``cuda``; each
+             append is followed by ``accepted``.  Then an ``edit`` of 1 KiB,
+             a ``delete`` of 4 KiB and an ``insert`` of 1 KiB at offsets
+             drawn from ``--seed``, and a corrupting edit and its undo.
+             ``result()`` after the appends and after each splice, and
+             ``accepted`` after each, equal a cold ``Parser.parse`` of the
+             text; the corrupting edit turns ``accepted`` False and its undo
+             True.  The run must launch its reach kernel and K2 (on ``cuda``
+             K3 too), and K2 at most once per distinct leaf length a
+             ``result()``.  Prints append MB/s and p50 / p99 seconds, each
+             splice's ``edit`` + ``accepted`` and ``result()`` seconds, the
+             run's launches, ``cache_nbytes``, ``n_sealed_chunks`` and
+             ``tree_height``
+  stream_service  4 TRAFFIC sessions on ``cuda``, 16 appends of 64 KiB each
+             in turn, drained step by step: every step makes ONE K1 launch
+             for all the sessions it serves (counted), and each session's
+             ``result()`` equals a cold parse; prints ``stats()["stream"]``
+  services   ``submit`` of the ``parse_batch`` texts with ``deadline_s=30``
+             equals ``parse_batch``; a 1e-9 s deadline on a bucket with
+             observed latency raises ``AdmissionError``; prints the
+             ``stats()`` keys, per-bucket p50 / p99 and the counters
+  obs_trace  one TRAFFIC parse on ``cuda`` with tracing on into a JSONL span
+             log: ``validate_span_tree`` passes, the columns equal the
+             untraced parse's, and each phase span's seconds print beside
+             the ``phases`` line's host-clock seconds
 
 and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
 2560, vocab 32000) with random weights from ``--seed``:
@@ -106,6 +133,9 @@ E125_RE = "(a|b)*a(a|b){125}"
 TRAFFIC_BYTES = 8 << 20
 E125_BYTES = 1 << 20
 N_CHUNKS = 1024
+# the streams' appends and seal cap
+STREAM_PIECE = 64 << 10
+STREAM_SEAL = 65536
 # a timing is the median of TIMING_BATCHES event-timed batches, each of as many
 # calls as fill about BATCH_MS (at least one)
 TIMING_BATCHES = 5
@@ -587,6 +617,7 @@ def phase_times(parser, want, text: bytes, label: str) -> None:
          bytes=len(text), bucket=[c, k], product_bytes=product_bytes, **secs, total_s=total,
          mb_per_s=len(text) / total / 1e6, packed_cols_equal_torch_backend=True)
     torch.cuda.empty_cache()
+    return secs
 
 
 def counted(fn):
@@ -1177,17 +1208,308 @@ def parser_phases(args, dev):
         raise AssertionError("card result != CPU result")
     emit("check", columns_equal_torch_backend=True, trees_small=trees, cpu_equal=True)
 
-    del r_traffic, r_bad, r_e125, r_e125_bad
+    del r_bad, r_e125_bad
+    cuda_secs = {}
     for label, text, want, cfg, p_cuda in (("TRAFFIC", traffic, want_traffic, cfg_t, p_traffic),
                                           ("e125", e125, want_e125, cfg_e, p_e125)):
         for parser in (p_cuda, word_parsers[("packed", cfg.regex)],
                        word_parsers[("sparse", cfg.regex)]):
-            phase_times(parser, want, text, label)
+            secs = phase_times(parser, want, text, label)
+            if parser is p_cuda:
+                cuda_secs[label] = secs
 
     emit("kernels_e125", kernels=e125_records)
-    del word_parsers, p_traffic, p_e125, p_traffic_t, p_e125_t
+    del word_parsers, p_traffic_t, p_e125_t, want_traffic, want_e125
+    torch.cuda.empty_cache()
+
+    # ---------------- streaming, the services and tracing on the same texts
+    t0 = time.perf_counter()
+    colds = ColdParses({TRAFFIC_RE: p_traffic, E125_RE: p_e125})
+    colds.seed(TRAFFIC_RE, traffic, r_traffic)
+    colds.seed(E125_RE, e125, r_e125)
+    del r_e125
+    stream_phase(args, dev, colds, traffic, e125, cfg_t, cfg_e)
+    stream_service_phase(args, dev, colds, cfg_t)
+    services_phase(p_traffic, batch, r_batch)
+    obs_trace_phase(dev, cfg_t, traffic, r_traffic, cuda_secs["TRAFFIC"])
+    emit("stream_phases_total", seconds=time.perf_counter() - t0)
+    del colds, r_traffic, r_batch, p_traffic, p_e125
     torch.cuda.empty_cache()
     return records
+
+
+# ------------------------------------------------ streaming, services, tracing
+
+
+class ColdParses:
+    """Cold ``Parser.parse`` forest columns of a text on the ``cuda``
+    backend, each text parsed once: what every stream result is held
+    against."""
+
+    def __init__(self, parsers):
+        self.parsers = parsers
+        self._cols = {}
+
+    def seed(self, regex, text, result):
+        self._cols[(regex, text)] = (result.ok, result.forest.columns)
+
+    def __call__(self, regex, text):
+        if (regex, text) not in self._cols:
+            self.seed(regex, text, self.parsers[regex].parse(text))
+        return self._cols[(regex, text)]
+
+
+def next_line(text: bytes, pos: int) -> int:
+    """The first line start at or after ``pos``."""
+    return pos if pos == 0 or text[pos - 1:pos] == b"\n" else text.index(b"\n", pos) + 1
+
+
+SPLICES = ("edit", "delete", "insert", "corrupt")
+
+
+def splice(kind: str, text: bytes, which: str, rng, seed: int):
+    """One of the stream phase's splices of the current ``text`` at an
+    offset drawn from ``rng``: (lo, hi, replacement).  ``edit`` swaps 1 KiB
+    for 1 KiB, ``delete`` cuts 4 KiB, ``insert`` adds 1 KiB, and
+    ``corrupt`` writes one byte outside the language.  TRAFFIC's splices cut
+    and paste whole log lines, so the text stays valid; e125's stay clear of
+    the last 126 characters."""
+    lo = int(rng.integers(8192, len(text) - 16384))
+    if kind == "corrupt":
+        return lo, lo + 1, b"~"
+    if which == "traffic":
+        lo = next_line(text, lo)
+        size = {"edit": 1024, "delete": 4096, "insert": 0}[kind]
+        hi = next_line(text, lo + size) if size else lo
+        repl = b"" if kind == "delete" else traffic_log(1024, seed + 100 + SPLICES.index(kind))
+    else:
+        hi = lo + {"edit": 1024, "delete": 4096, "insert": 0}[kind]
+        repl = b"" if kind == "delete" else e125_text(
+            1024 + 126, seed + 100 + SPLICES.index(kind))[:1024]
+    return lo, hi, repl
+
+
+def _add_counts(total, counts):
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+
+
+def stream_run(label, parser, colds, text: bytes, which: str, seed: int, n_pieces: int):
+    """``text`` appended to ``parser.open_stream()`` in ``n_pieces`` pieces
+    (each append followed by ``accepted``, which absorbs it), then spliced;
+    after the appends and after each splice ``accepted`` and ``result()``
+    equal a cold parse of the text.  Every stream call is counted; the cold
+    parses are not."""
+    import statistics
+
+    import numpy as np
+
+    regex = parser.config.regex
+    reach_kernel = {"cuda": "reach_chunk_product", "packed": "packed_reach_chunk_product",
+                    "sparse": "sparse_reach_rows"}[parser.backend_name]
+    launches = {}
+    piece = len(text) // n_pieces
+    append_s = []
+    k2_per_result = []
+
+    def leaf_lengths(stream_parser):
+        lens = [len(c) for c in stream_parser._chunk_classes()]
+        return len(set(lens)), len({stream_parser._bucket_len(n) for n in lens})
+
+    def check_result(st, sp, current):
+        r, secs, n = counted(st.result)
+        _add_counts(launches, n)
+        distinct, padded = leaf_lengths(sp)
+        if n["build_merge_packed"] > distinct:
+            raise AssertionError(f"{label}: {n['build_merge_packed']} K2 launches for "
+                                 f"{distinct} distinct leaf lengths")
+        k2_per_result.append([n["build_merge_packed"], distinct, padded])
+        ok, cols = colds(regex, current)
+        if r.ok != ok or not np.array_equal(r.forest.columns, cols):
+            raise AssertionError(f"{label}: result() != a cold Parser.parse")
+        return secs
+
+    with parser.open_stream() as st:
+        sp = parser.stream_service._session(st.sid).parser
+        for i in range(n_pieces):
+            chunk = text[i * piece:(i + 1) * piece if i + 1 < n_pieces else len(text)]
+            ok, secs, n = counted(lambda: (st.append(chunk), st.accepted)[1])
+            _add_counts(launches, n)
+            append_s.append(secs)
+        if not ok:
+            raise AssertionError(f"{label}: the appended text is not accepted")
+        # one cap-length piece's reach and one compose of two products,
+        # CUDA events around eager calls (as ``time_ms``): an append's parts
+        eng = parser.engine
+        grid = eng.chunks_tensor(eng._pad_to(eng.classes_of_text(text[:STREAM_SEAL]), 1,
+                                             STREAM_SEAL))
+        product = eng.phases.reach(eng.tables.N, grid)[0]
+        part_ms = {"reach_piece_ms": time_ms(lambda: eng.phases.reach(eng.tables.N, grid)),
+                   "compose_ms": time_ms(lambda: eng.phases.compose(product, product))}
+        del grid, product
+        result_s = [check_result(st, sp, text)]
+        current = text
+        splice_s = {}
+        rng = np.random.default_rng(seed)
+        for kind in SPLICES:
+            lo, hi, repl = splice(kind, current, which, rng, seed)
+            old = current[lo:hi]
+            (_, ok), secs, n = counted(lambda: (st.edit(lo, hi, repl), st.accepted))
+            _add_counts(launches, n)
+            current = current[:lo] + repl + current[hi:]
+            splice_s[kind] = {"lo": lo, "removed": hi - lo, "inserted": len(repl),
+                              "edit_accepted_s": secs}
+            if kind == "corrupt":
+                if ok:
+                    raise AssertionError(f"{label}: a corrupting edit left it accepted")
+                (_, ok), secs, n = counted(lambda: (st.edit(lo, lo + 1, old), st.accepted))
+                _add_counts(launches, n)
+                current = current[:lo] + old + current[lo + 1:]
+                splice_s["undo"] = {"edit_accepted_s": secs}
+                if not ok:
+                    raise AssertionError(f"{label}: undoing the corrupting edit left it rejected")
+                continue
+            if ok != colds(regex, current)[0]:
+                raise AssertionError(f"{label}: accepted after {kind} != a cold parse's")
+            splice_s[kind]["result_s"] = check_result(st, sp, current)
+        state = {"cache_nbytes": sp.cache_nbytes, "n_sealed_chunks": sp.n_sealed_chunks,
+                 "tree_height": sp.tree_height, "rebuilds": sp.rebuilds}
+    need = [reach_kernel, "build_merge_packed"] + (
+        ["semiring_matmul"] if parser.backend_name == "cuda" else [])
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"{label}: a kernel of the stream path never launched: {launches}")
+    emit("stream", run=label, backend=parser.backend_name, kernel=parser.config.kernel,
+         bytes=len(text), pieces=n_pieces, piece_bytes=piece,
+         max_seal_len=parser.config.max_seal_len,
+         append_mb_per_s=len(text) / sum(append_s) / 1e6,
+         append_p50_s=statistics.median(append_s),
+         append_p99_s=float(np.percentile(append_s, 99, method="higher")),
+         append_max_s=max(append_s), **part_ms, result_s=result_s[0], splices=splice_s,
+         k2_launches_distinct_padded=k2_per_result, launches=launches, **state,
+         results_equal_cold_parse=True)
+
+
+def stream_phase(args, dev, colds, traffic: bytes, e125: bytes, cfg_t, cfg_e) -> None:
+    """TRAFFIC on ``cuda`` and on ``sparse`` (``kernel=True``) in 128 pieces,
+    and 1 MiB of e125 on ``cuda`` in 16, each with ``max_seal_len`` 65536."""
+    from repro_torch import Parser
+
+    for label, cfg, text, which, n_pieces in (
+            ("traffic_cuda", cfg_t, traffic, "traffic", 128),
+            ("traffic_sparse", cfg_t.replace(backend="sparse", kernel=True), traffic,
+             "traffic", 128),
+            ("e125_cuda", cfg_e, e125, "e125", 16)):
+        parser = Parser(cfg.replace(max_seal_len=STREAM_SEAL), device=dev)
+        stream_run(label, parser, colds, text, which, args.seed, n_pieces)
+        del parser
+
+
+def stream_service_phase(args, dev, colds, cfg_t) -> None:
+    """4 TRAFFIC sessions on ``cuda``, each given 16 pieces of 64 KiB in
+    turn, then drained step by step: every step that serves several
+    sessions makes ONE K1 launch; each session's result equals a cold parse."""
+    import numpy as np
+    import torch
+
+    from repro_torch import Parser
+    from repro_torch.kernels import ops
+
+    parser = Parser(cfg_t.replace(max_seal_len=STREAM_SEAL), device=dev)
+    texts = [traffic_log(16 * STREAM_PIECE, args.seed + 10 + i) for i in range(4)]
+    streams = [parser.open_stream() for _ in texts]
+    svc = parser.stream_service
+    sessions = [svc._session(st.sid).parser for st in streams]
+    for i in range(16):
+        for st, text in zip(streams, texts):
+            st.append(text[i * STREAM_PIECE:(i + 1) * STREAM_PIECE])
+    steps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        before = [sp.n for sp in sessions]
+        _, secs, n = counted(svc.step)
+        served = sum(sp.n != b for sp, b in zip(sessions, before))
+        if served == 0:
+            break
+        if n["reach_chunk_product"] != 1:
+            raise AssertionError(f"a step serving {served} sessions made "
+                                 f"{n['reach_chunk_product']} K1 launches")
+        steps.append([served, secs])
+    drain_s = time.perf_counter() - t0
+    if max(s for s, _ in steps) < 2:
+        raise AssertionError("no step served several sessions")
+    for st, text in zip(streams, texts):
+        r = st.result()
+        ok, cols = colds(TRAFFIC_RE, text)
+        if r.ok != ok or not np.array_equal(r.forest.columns, cols):
+            raise AssertionError("a session's result() != a cold Parser.parse")
+    stats = parser.stats()["stream"]
+    stats["buckets"] = {str(k): v for k, v in stats["buckets"].items()}
+    emit("stream_service", sessions=len(streams), bytes_each=len(texts[0]),
+         steps=len(steps), sessions_per_step=[s for s, _ in steps],
+         step_p50_s=float(np.median([t for _, t in steps])),
+         drain_s=drain_s, drain_mb_per_s=sum(map(len, texts)) / drain_s / 1e6,
+         k1_launches_per_step=1, results_equal_cold_parse=True, stats=stats)
+    for st in streams:
+        st.close()
+
+
+def services_phase(p_traffic, batch, r_batch) -> None:
+    """``submit`` of the ``parse_batch`` texts with a 30 s deadline equals
+    ``parse_batch``; a 1e-9 s deadline on a bucket with observed latency is
+    refused with ``AdmissionError``; ``stats()`` printed."""
+    import numpy as np
+
+    from repro_torch import AdmissionError
+
+    tickets = [p_traffic.submit(text, deadline_s=30.0) for text in batch]
+    results = [t.result() for t in tickets]
+    for got, want in zip(results, r_batch):
+        if got.ok != want.ok or not np.array_equal(got.forest.columns, want.forest.columns):
+            raise AssertionError("submit(...).result() != parse_batch")
+    try:
+        p_traffic.submit(batch[3], deadline_s=1e-9)
+    except AdmissionError as e:
+        refused = {"bucket": list(e.bucket), "predicted_s": e.predicted_s}
+    else:
+        raise AssertionError("a 1e-9 s deadline on an observed bucket was admitted")
+    stats = p_traffic.stats()
+    buckets = {f"{c}x{k}": {"p50_s": b["p50_latency_s"], "p99_s": b["p99_latency_s"],
+                            "served": b["served"]}
+               for (c, k), b in stats["parse"]["buckets"].items()}
+    counters = {name: {",".join(f"{k}={v}" for k, v in sorted(s["labels"].items())): s["value"]
+                       for s in series}
+                for name, series in stats["metrics"].items() if series[0]["kind"] == "counter"}
+    emit("services", submitted=len(tickets), results_equal_parse_batch=True,
+         admission_refused=refused, stats_keys=sorted(stats), parse_buckets=buckets,
+         counters=counters)
+
+
+def obs_trace_phase(dev, cfg_t, traffic: bytes, r_traffic, host_secs) -> None:
+    """One traced TRAFFIC parse on ``cuda`` into a JSONL span log: the span
+    tree validates, the columns equal the untraced parse's, and each phase
+    span's time is printed beside the ``phases`` line's host-clock times."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import ObsConfig, Parser
+    from repro_torch.obs import read_spans_jsonl, validate_span_tree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "spans.jsonl"
+        parser = Parser(cfg_t.replace(obs=ObsConfig(enabled=True, span_log=str(log))),
+                        device=dev)
+        r = parser.parse(traffic)
+        parser.close()
+        spans = read_spans_jsonl(log)
+    tree = validate_span_tree(spans, r.trace_id)
+    if not np.array_equal(r.forest.columns, r_traffic.forest.columns):
+        raise AssertionError("traced columns != the untraced parse's")
+    span_s = {s["name"]: s["duration_s"] for s in tree["children"]}
+    emit("obs_trace", trace_id=r.trace_id, root=tree["root"]["name"],
+         root_s=tree["root"]["duration_s"], span_s=span_s,
+         phases_line_s=host_secs, span_tree_valid=True, columns_equal_untraced=True)
 
 
 if __name__ == "__main__":

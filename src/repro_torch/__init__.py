@@ -15,6 +15,10 @@ K6 flash attention and K7 SSD chunk; decode and the RE-constrained
     p = repro_torch.Parser("(a|b|ab)+")                     # on the card
     r = p.parse("abab")                                     # ParseResult
     r.ok, r.count_trees(), r.matches(1), r.trees(limit=4)
+    t = p.submit("ab", deadline_s=0.5)                      # ParseTicket
+    with p.open_stream() as s:                              # ParserStream
+        s.append("ab"); s.edit(0, 1, "b"); s.result()
+    p.stats()                                               # services, metrics, SLO
 
     cpu = repro_torch.Parser(
         repro_torch.ParserConfig(regex="(a|b|ab)+", backend="torch"), device="cpu"
@@ -26,11 +30,12 @@ K6 flash attention and K7 SSD chunk; decode and the RE-constrained
     logits, _ = prefill(init_params(cfg, seed=0), tokens, cfg)   # K6, K7
 """
 
-from . import api, errors
-from .api import ObsConfig, ParseResult, Parser, ParserConfig, SLOTargets
+from . import api, errors, obs
+from .api import ParseResult, ParseTicket, Parser, ParserConfig, ParserStream, SLOTargets
 from .core.backend import ParserBackend, get_backend, list_backends, register_backend
 from .core.engine import ParserEngine
 from .core.slpf import SLPF, compress
+from .obs import ObsConfig
 from .errors import (
     AdmissionError,
     BudgetExceeded,
@@ -40,10 +45,11 @@ from .errors import (
 )
 
 # the reference's exports that are ported (``repro/__init__.py``), and the
-# engine; ``ParseTicket``, ``ParserStream``, ``ParserFleet``, ``analyze`` and
-# ``obs`` wait for their modules (ROADMAP Queue 1 items 8, 9, 10, 7)
+# engine; ``ParserFleet`` and ``analyze`` wait for their modules (ROADMAP
+# Queue 1 items 9 and 10)
 __all__ = sorted([
-    "AdmissionError", "BudgetExceeded", "ObsConfig", "ParseError", "ParseResult", "Parser",
-    "ParserBackend", "ParserConfig", "ParserEngine", "PathologicalPatternError", "SLOTargets",
-    "SLPF", "SessionNotFound", "compress", "get_backend", "list_backends", "register_backend",
-]) + ["api", "errors"]
+    "AdmissionError", "BudgetExceeded", "ObsConfig", "ParseError", "ParseResult",
+    "ParseTicket", "Parser", "ParserBackend", "ParserConfig", "ParserEngine", "ParserStream",
+    "PathologicalPatternError", "SLOTargets", "SLPF", "SessionNotFound", "compress",
+    "get_backend", "list_backends", "register_backend",
+]) + ["api", "errors", "obs"]

@@ -1,19 +1,34 @@
-"""The public parse API of the port: ``ParserConfig``, ``Parser``, ``ParseResult``.
+"""The public parse API of the port: one facade, one config, one result type.
 
-It mirrors ``repro/api.py`` on the direct engine route: ``Parser.parse`` and
-``parse_batch`` run the engine synchronously.  ``ParserConfig`` has the
-reference's fields, validation and dict round trip; backend names map as
-``jnp`` ↔ ``torch``, ``pallas`` ↔ ``cuda`` (``packed``, ``sparse`` and
-``auto`` keep their names), and the port's default is ``cuda``.
+It mirrors ``repro/api.py``:
+
+  ``ParserConfig``   the reference's fields, validation and dict round trip;
+                     backend names map as ``jnp`` ↔ ``torch``, ``pallas`` ↔
+                     ``cuda`` (``packed``, ``sparse`` and ``auto`` keep their
+                     names), and the port's default is ``cuda``.
+  ``Parser``         owns the engine, a lazy ``ParseService`` (batched
+                     one-shot requests with deadline-aware admission) and a
+                     lazy ``StreamService`` (streaming sessions), both over
+                     the same engine: ``parse`` / ``parse_batch`` /
+                     ``submit`` → ``ParseTicket`` / ``open_stream`` →
+                     ``ParserStream``, and ``stats()`` over both services,
+                     the metrics registry and the SLO targets.
+  ``ParseResult``    the forest with ``ok``, ``matches``, ``children``,
+                     ``trees`` and timing / backend / bucket / trace metadata.
+
+``Parser.parse`` goes through admission as ``submit`` does; with tracing on
+(``ParserConfig(obs=ObsConfig(enabled=True))``) it takes the engine's
+phase-split route, one ``parse.request`` span with a span per phase.
 
 ``kernel=True`` selects the kernel path of ``packed`` (K4, and K2 for
 build&merge) and ``sparse`` (K5 and K2); ``cuda`` is always kernels, as
-``pallas`` is in the reference.  A
-kernel path runs only on the card.  Settings whose subsystem is not ported
-yet are accepted by ``ParserConfig`` (so configs round-trip between the
-packages) and refused by ``Parser`` with ``NotImplementedError`` naming the
-ROADMAP item.  ``analyze="warn"`` is accepted but does not analyze the
-pattern yet.
+``pallas`` is in the reference.  A kernel path runs only on the card.
+Settings whose subsystem is not ported yet are accepted by ``ParserConfig``
+(so configs round-trip between the packages) and refused by ``Parser`` with
+``NotImplementedError`` naming the ROADMAP item: ``backend="auto"`` and
+``analyze="strict"`` (item 10, static analysis) and ``mesh`` (item 11).
+``analyze="warn"`` is accepted but does not analyze the pattern yet, so
+``stats()["analysis"]`` is None; ``stats()["hlo"]`` is None too (item 12).
 """
 
 from __future__ import annotations
@@ -28,6 +43,10 @@ from .core.matrices import ParserMatrices, build_matrices, feasible_start_widths
 from .core.numbering import CLOSE, OP_GROUP, OPEN
 from .core.segments import SegmentTable, compute_segments
 from .core.slpf import SLPF
+from .errors import ParseError
+from .obs import ObsConfig, ObsHandle
+from .serve.parse_service import BucketStats, ParseRequest, ParseService
+from .serve.stream_service import StreamService
 
 _HOST_MESH_AXES = ("pod", "data")
 # every backend name a config may carry; only the registered ones
@@ -48,7 +67,13 @@ def _is_pow2(x: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SLOTargets:
-    """Per-bucket latency objectives (the reference's; not served yet)."""
+    """Latency objectives applied per device-program bucket.
+
+    ``p50_s``/``p99_s`` are the per-bucket targets ``Parser.stats()`` grades
+    observed latency against; ``default_deadline_s`` is the admission
+    deadline ``submit``/``append`` use when the caller passes none (None ⇒
+    no implicit deadline — everything admits).
+    """
 
     p50_s: Optional[float] = None
     p99_s: Optional[float] = None
@@ -63,23 +88,6 @@ class SLOTargets:
             raise ValueError(
                 f"SLOTargets.p50_s ({self.p50_s}) must not exceed p99_s ({self.p99_s})"
             )
-
-
-@dataclasses.dataclass(frozen=True)
-class ObsConfig:
-    """Observability knobs (the reference's; tracing is not ported yet)."""
-
-    enabled: bool = False
-    span_log: Optional[str] = None
-    profiler: bool = False
-    hlo: bool = True
-    max_spans: int = 4096
-
-    def __post_init__(self):
-        if self.max_spans < 1:
-            raise ValueError(f"max_spans must be >= 1, got {self.max_spans}")
-        if self.span_log is not None and not isinstance(self.span_log, str):
-            raise ValueError("span_log must be a path string or None")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,10 +233,6 @@ class ParserConfig:
             return f"backend={self.backend!r}: ROADMAP {_UNPORTED_BACKENDS[self.backend]}"
         if self.mesh is not None:
             return "mesh: ROADMAP Queue 1 item 11 (mesh distribution)"
-        if self.slo is not None:
-            return "slo: ROADMAP Queue 1 item 8 (streaming and services)"
-        if self.obs is not None and self.obs.enabled:
-            return "obs tracing: ROADMAP Queue 1 item 7 (observability)"
         if self.analyze == "strict":
             return 'analyze="strict": ROADMAP Queue 1 item 10 (static analysis)'
         return None
@@ -250,6 +254,9 @@ class ParseResult:
     # feasible start states per real chunk (mean/max) against the carried
     # product rows S and the paper's ℓp
     speculation: Optional[Dict[str, Any]] = None
+    # the request's trace ID when the parser's tracer is enabled — the key
+    # into the span log (obs/export.py validate_span_tree); else None
+    trace_id: Optional[str] = None
 
     @property
     def ok(self) -> bool:
@@ -299,6 +306,163 @@ class ParseResult:
         return [self.forest.lst_string(p) for p in self.forest.iter_trees(limit=limit)]
 
 
+# ------------------------------------------------------------------ tickets
+
+
+class ParseTicket:
+    """Asynchronous handle for one submitted parse (``Parser.submit``).
+
+    The request is already past deadline-aware admission; ``done()`` is a
+    free check, ``result()`` drives the service until THIS request is
+    served (batching with whatever else is queued) and returns the
+    ``ParseResult``, ``cancel()`` drops it if no batch has picked it up.
+    """
+
+    def __init__(
+        self,
+        parser: "Parser",
+        service: ParseService,
+        request: ParseRequest,
+        deadline_s: Optional[float] = None,
+    ):
+        self._parser = parser
+        self._service = service
+        self._request = request
+        self._result: Optional[ParseResult] = None
+        self._cancelled = False
+        self.deadline_s = deadline_s   # the admitted remaining budget
+
+    @property
+    def rid(self) -> int:
+        return self._request.rid
+
+    def done(self) -> bool:
+        return self._request.done
+
+    def cancel(self) -> bool:
+        """Drop the request if it has not been served; True on success."""
+        if self._request.done:
+            return False
+        self._cancelled = self._service.cancel(self._request.rid)
+        return self._cancelled
+
+    def result(self) -> ParseResult:
+        """Serve (if needed) and return the result; raises on a cancelled
+        ticket."""
+        if self._result is not None:
+            return self._result
+        if self._cancelled:
+            raise ParseError(f"parse request {self._request.rid} was cancelled")
+        while not self._request.done:
+            if not self._service.step():
+                raise ParseError(
+                    f"parse request {self._request.rid} is no longer queued"
+                )
+        self._service.reap(self._request)
+        req = self._request
+        if req.trace_id is not None:
+            # the root span closes here — collection ends the request's
+            # lifetime; queue-wait/compute children were emitted at pickup
+            # against the pre-minted root id
+            self._parser.engine.obs.emit(
+                "parse.request",
+                t_start_s=req.submitted_at,
+                duration_s=req.latency_s,
+                trace_id=req.trace_id,
+                span_id=req.root_span_id,
+                bucket=list(req.bucket) if req.bucket else None,
+                n_chars=len(req.classes) if req.classes is not None else 0,
+            )
+        self._result = self._parser._wrap(
+            req.slpf,
+            bucket=req.bucket,
+            latency_s=req.latency_s,
+            trace_id=req.trace_id,
+        )
+        return self._result
+
+
+# ------------------------------------------------------------------ streams
+
+
+class ParserStream:
+    """One streaming session of ``Parser.open_stream`` (context manager).
+
+    Appends go through the shared ``StreamService`` — concurrent sessions
+    batch their tail pieces into one reach launch — with the same
+    deadline-aware admission as ``submit``.  ``result()`` materializes the
+    current prefix's ``ParseResult``; ``accepted`` is the streaming
+    acceptance state.
+    """
+
+    def __init__(self, parser: "Parser", service: StreamService, sid: int):
+        self._parser = parser
+        self._service = service
+        self._sid = sid
+        self._closed = False
+
+    @property
+    def sid(self) -> int:
+        return self._sid
+
+    @property
+    def n(self) -> int:
+        """Characters absorbed into the prefix so far (queued appends not
+        yet drained are excluded)."""
+        return self._service._session(self._sid).parser.n
+
+    @property
+    def n_sealed_chunks(self) -> int:
+        """Sealed chunk products resident in this stream's prefix cache."""
+        return self._service._session(self._sid).parser.n_sealed_chunks
+
+    def append(self, text, *, deadline_s: Optional[float] = None) -> int:
+        """Queue text onto this stream; returns chars queued (admission may
+        raise ``AdmissionError``/``BudgetExceeded``)."""
+        if deadline_s is None:
+            deadline_s = self._parser._default_deadline_s()
+        return self._service.append(self._sid, text, deadline_s=deadline_s)
+
+    @property
+    def accepted(self) -> bool:
+        """Is the current prefix a valid text (drains this session only)?"""
+        return self._service.accepted(self._sid)
+
+    def edit(self, lo: int, hi: int, replacement) -> int:
+        """Splice the prefix: replace characters ``[lo, hi)`` with
+        ``replacement``; returns the new prefix length.  Re-reaches only the
+        spliced chunks and re-composes one leaf-to-root path; the result is
+        bit-identical to a cold parse of the edited text.  Drains this
+        session's queued appends first."""
+        return self._service.edit(self._sid, lo, hi, replacement)
+
+    def delete(self, lo: int, hi: int) -> int:
+        """Remove characters ``[lo, hi)`` — ``edit`` with an empty
+        replacement."""
+        return self._service.edit(self._sid, lo, hi, "")
+
+    def insert(self, pos: int, text) -> int:
+        """Insert ``text`` before position ``pos`` — a zero-width ``edit``."""
+        return self._service.edit(self._sid, pos, pos, text)
+
+    def result(self) -> ParseResult:
+        """ParseResult of the full current prefix (drains this session)."""
+        t0 = time.perf_counter()
+        slpf = self._service.slpf(self._sid)
+        return self._parser._wrap(slpf, latency_s=time.perf_counter() - t0)
+
+    def close(self) -> None:
+        if not self._closed:
+            self._service.close(self._sid)
+            self._closed = True
+
+    def __enter__(self) -> "ParserStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 # ------------------------------------------------------------------- facade
 
 
@@ -308,7 +472,9 @@ class Parser:
         p = repro_torch.Parser("(a|b|ab)+")                    # the card
         p = repro_torch.Parser(cfg, device="cpu")              # backend="torch"
 
-    ``device=None`` means the card, and raises when there is none.
+    ``device=None`` means the card, and raises when there is none.  Owns
+    the engine, a lazy ``ParseService`` and a lazy ``StreamService``, all
+    recording into one ``ObsHandle`` (``self.obs``).
     """
 
     def __init__(
@@ -334,12 +500,21 @@ class Parser:
         if matrices is None:
             matrices = build_matrices(compute_segments(config.regex))
         self.matrices = matrices
+        # one ObsHandle for the whole parser: the engine carries it, and
+        # every layer over the engine (services, streams) records into it
+        self.obs = ObsHandle.from_config(config.obs)
         self.engine = ParserEngine(
             matrices,
             backend=config.build_backend(),
             min_chunk_len=config.min_chunk_len,
             device=device,
+            obs=self.obs,
         )
+        self._parse_service: Optional[ParseService] = None
+        self._stream_service: Optional[StreamService] = None
+        self._artifacts = None
+        # per-bucket observed speculation widths (sparse backend only)
+        self._spec_buckets: Dict[Tuple[int, int], Dict[str, Any]] = {}
 
     @classmethod
     def from_matrices(
@@ -370,25 +545,47 @@ class Parser:
         return self.engine.table
 
     @property
+    def artifacts(self):
+        """Full ``ParallelArtifacts`` (NFA/DFA/ME-DFA…) for introspection,
+        built lazily (``core/reference.py``) — parsing never needs the
+        exponential DFA, only the matrices."""
+        if self._artifacts is None:
+            from .core.reference import ParallelArtifacts
+
+            self._artifacts = ParallelArtifacts.generate(self.matrices.table)
+        return self._artifacts
+
+    @property
     def groups(self) -> List[int]:
         """Numbered group ids extractable via ``ParseResult.matches``."""
         return sorted(
             {s.num for s in self.table.numbered.symbols if s.kind == OPEN and s.op == OP_GROUP}
         )
 
-    def _speculation(self, slpf: SLPF, bucket: Tuple[int, int]) -> Optional[Dict[str, Any]]:
+    def _default_deadline_s(self) -> Optional[float]:
+        slo = self.config.slo
+        return slo.default_deadline_s if slo is not None else None
+
+    def _speculation(
+        self, slpf: SLPF, bucket: Optional[Tuple[int, int]]
+    ) -> Optional[Dict[str, Any]]:
         """Observed speculation width of one parse (sparse backend only):
         the feasible-start-set size of each chunk of this text's bucket,
-        recomputed on the host; all-PAD padding chunks are left out."""
+        recomputed on the host; all-PAD padding chunks are left out.  Also
+        folded into the per-bucket aggregates of ``stats()`` and the
+        ``speculation_width`` histogram."""
         if self.backend_name != "sparse":
             return None
         eng = self.engine
-        chunks = eng._pad_to(slpf.classes, *bucket)
+        c, k = bucket if bucket is not None else eng.bucket_shape(
+            len(slpf.classes), self.config.n_chunks
+        )
+        chunks = eng._pad_to(slpf.classes, c, k)
         widths = feasible_start_widths(
             eng.tables.N.cpu().numpy(), chunks, depth=self.config.feasible_depth
         )
         real = widths[widths >= 0]
-        return {
+        spec = {
             "width_mean": float(real.mean()) if real.size else 0.0,
             "width_max": int(real.max()) if real.size else 0,
             "n_chunks_real": int(real.size),
@@ -396,9 +593,23 @@ class Parser:
             "ell_pad": int(eng.tables.ell_pad),
             "depth": self.config.feasible_depth,
         }
+        agg = self._spec_buckets.setdefault(
+            (c, k), {"parses": 0, "width_mean": 0.0, "width_max": 0}
+        )
+        agg["parses"] += 1
+        agg["width_mean"] += (spec["width_mean"] - agg["width_mean"]) / agg["parses"]
+        agg["width_max"] = max(agg["width_max"], spec["width_max"])
+        self.obs.metrics.histogram("speculation_width").observe(spec["width_max"])
+        return spec
 
-    def _wrap(self, slpf: SLPF, latency_s: float) -> ParseResult:
-        bucket = self.engine.bucket_shape(len(slpf.classes), self.config.n_chunks)
+    def _wrap(
+        self,
+        slpf: SLPF,
+        *,
+        bucket: Optional[Tuple[int, int]] = None,
+        latency_s: Optional[float] = None,
+        trace_id: Optional[str] = None,
+    ) -> ParseResult:
         return ParseResult(
             forest=slpf,
             backend=self.backend_name,
@@ -406,29 +617,187 @@ class Parser:
             latency_s=latency_s,
             n_chunks=self.config.n_chunks,
             speculation=self._speculation(slpf, bucket),
+            trace_id=trace_id,
         )
 
-    def parse(self, text) -> ParseResult:
-        """Parse one text synchronously."""
-        t0 = time.perf_counter()
-        slpf = self.engine.parse(text, n_chunks=self.config.n_chunks)
-        return self._wrap(slpf, time.perf_counter() - t0)
+    @property
+    def parse_service(self) -> ParseService:
+        """The batched request service (built lazily, facade-owned)."""
+        if self._parse_service is None:
+            c = self.config
+            self._parse_service = ParseService._internal(
+                self.engine,
+                max_batch=c.max_batch,
+                n_chunks=c.n_chunks,
+                max_pending=c.max_pending,
+            )
+            # the facade's traffic is one tenant; its weight only matters
+            # when sharing a queue (tests / embedders may add more)
+            self._parse_service.register_tenant("default", weight=c.weight)
+            self._parse_service.set_pattern_guard("ok", c.analyze)
+        return self._parse_service
 
-    def parse_batch(self, texts: Sequence) -> List[ParseResult]:
-        """Parse many texts (bucket-batched); results in input order.
-        ``latency_s`` is the whole batch's time."""
+    @property
+    def stream_service(self) -> StreamService:
+        """The streaming session service (built lazily, facade-owned)."""
+        if self._stream_service is None:
+            c = self.config
+            self._stream_service = StreamService._internal(
+                self.engine,
+                max_batch=c.max_batch,
+                first_seal_len=c.first_seal_len,
+                max_seal_len=c.max_seal_len,
+                cache_budget_bytes=c.cache_budget_bytes,
+                max_pending_chars=c.max_pending_chars,
+            )
+            self._stream_service.set_pattern_guard("ok", c.analyze)
+        return self._stream_service
+
+    # ---------------------------------------------------------------- parse
+
+    def submit(self, text, *, deadline_s: Optional[float] = None) -> ParseTicket:
+        """Deadline-aware asynchronous submission; returns a ``ParseTicket``.
+
+        Admission runs now: a bucket whose observed p99 exceeds the
+        remaining ``deadline_s`` raises ``AdmissionError`` before any
+        queueing; ``max_pending`` overflow raises ``BudgetExceeded``.  No
+        deadline (and no config default) admits unconditionally.
+        """
+        if deadline_s is None:
+            deadline_s = self._default_deadline_s()
+        svc = self.parse_service
+        req = svc.submit_request(text, deadline_s=deadline_s)
+        return ParseTicket(self, svc, req, deadline_s=deadline_s)
+
+    def parse(self, text, *, deadline_s: Optional[float] = None) -> ParseResult:
+        """Parse one text synchronously through the same admission path as
+        ``submit`` (stats and SLO grades observe it).
+
+        With tracing on the call runs queue-free through the engine's
+        phase-split route (the same bits as the fused core), so the span log
+        carries one ``parse.request`` root with a span per phase.
+        """
+        if not self.obs.enabled:
+            return self.submit(text, deadline_s=deadline_s).result()
+        if deadline_s is None:
+            deadline_s = self._default_deadline_s()
+        svc = self.parse_service
+        classes = self.engine.classes_of_text(text)
+        bucket = self.engine.bucket_shape(len(classes), self.config.n_chunks)
+        svc._admit(bucket, deadline_s)
+        stats = svc._buckets.setdefault(bucket, BucketStats())
+        obs = self.obs
+        trace_id = obs.new_trace_id()
         t0 = time.perf_counter()
-        slpfs = self.engine.parse_batch(list(texts), n_chunks=self.config.n_chunks)
+        with obs.span(
+            "parse.request",
+            trace_id=trace_id,
+            bucket=list(bucket),
+            backend=self.backend_name,
+            n_chars=len(classes),
+        ):
+            slpf = self.engine.parse_traced(classes, n_chunks=self.config.n_chunks)
         latency = time.perf_counter() - t0
-        return [self._wrap(s, latency) for s in slpfs]
+        # admission and the SLO grades learn this route too; it never
+        # queues, so the whole latency is compute
+        stats.record(latency, queue_s=0.0, compute_s=latency)
+        m = obs.metrics
+        m.counter("requests_total", service="parse").inc()
+        m.counter("served_total", service="parse").inc()
+        m.counter("chars_total", service="parse").inc(len(classes))
+        return self._wrap(slpf, bucket=bucket, latency_s=latency, trace_id=trace_id)
+
+    def parse_batch(
+        self, texts: Sequence, *, deadline_s: Optional[float] = None
+    ) -> List[ParseResult]:
+        """Parse many texts through the bucket-batched service; results in
+        input order.  Admission is all-or-nothing: if any text is rejected,
+        the already-queued ones are cancelled before the error propagates."""
+        tickets: List[ParseTicket] = []
+        try:
+            for t in texts:
+                tickets.append(self.submit(t, deadline_s=deadline_s))
+        except Exception:
+            for ticket in tickets:
+                ticket.cancel()
+            raise
+        return [t.result() for t in tickets]
+
+    def open_stream(self, *, weight: Optional[float] = None) -> ParserStream:
+        """Open a streaming session over the shared prefix-cache service;
+        close it with ``.close()`` / ``with``.  ``weight`` sets its
+        weighted-fair share of the batched absorption (default: the
+        config's ``weight``)."""
+        w = self.config.weight if weight is None else weight
+        return ParserStream(self, self.stream_service, self.stream_service.open(weight=w))
 
     def count_accepting(self, text) -> int:
         return self.parse(text).count_trees()
 
+    # ---------------------------------------------------------------- stats
+
+    def _slo_grade(self, buckets: Mapping) -> Dict[Any, Dict[str, Any]]:
+        slo = self.config.slo
+        out: Dict[Any, Dict[str, Any]] = {}
+        for bucket, b in buckets.items():
+            grade: Dict[str, Any] = {
+                "p50_s": b["p50_latency_s"],
+                "p99_s": b["p99_latency_s"],
+                "queue_depth": b["queue_depth"],
+            }
+            if slo is not None and slo.p50_s is not None:
+                grade["p50_ok"] = b["p50_latency_s"] <= slo.p50_s
+            if slo is not None and slo.p99_s is not None:
+                grade["p99_ok"] = b["p99_latency_s"] <= slo.p99_s
+            out[bucket] = grade
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        """One view over both services, the metrics registry and the SLO
+        targets, with the reference's keys.
+
+        ``parse``/``stream`` are the raw service stats (None until the
+        service is first used); ``metrics`` is the registry snapshot;
+        ``slo`` grades every observed bucket against the config targets
+        (``p50_ok``/``p99_ok`` appear only when targets are set);
+        ``speculation`` (sparse backend only, else None) reports the carried
+        product rows S against ℓp and the per-bucket observed widths.
+        ``analysis`` is None until the static analyzer is ported (ROADMAP
+        Queue 1 item 10) and ``hlo`` is None until the counterpart of the
+        reference's HLO cost model is (item 12).
+        """
+        slo = self.config.slo
+        ps = self._parse_service.stats if self._parse_service is not None else None
+        ss = self._stream_service.stats if self._stream_service is not None else None
+        if self.backend_name == "sparse":
+            speculation: Optional[Dict[str, Any]] = {
+                "product_rows": int(self.engine.backend._width),
+                "ell_pad": int(self.engine.tables.ell_pad),
+                "depth": self.config.feasible_depth,
+                "buckets": {b: dict(v) for b, v in self._spec_buckets.items()},
+            }
+        else:
+            speculation = None
+        return {
+            "backend": self.backend_name,
+            "compile_count": self.compile_count,
+            "pending": (ps["pending"] if ps else 0) + (ss["pending"] if ss else 0),
+            "parse": ps,
+            "stream": ss,
+            "metrics": self.obs.metrics.snapshot(),
+            "hlo": None,
+            "analysis": None,
+            "speculation": speculation,
+            "slo": {
+                "targets": dataclasses.asdict(slo) if slo is not None else None,
+                "parse_buckets": self._slo_grade(ps["buckets"] if ps else {}),
+                "stream_buckets": self._slo_grade(ss["buckets"] if ss else {}),
+            },
+        }
+
     def close(self) -> None:
-        """Release the parser.  The reference flushes its observability sinks
-        here; the port has none until obs is ported (ROADMAP Queue 1 item 7),
-        so there is nothing to flush yet."""
+        """Flush observability sinks (the JSONL span log, if configured)."""
+        self.obs.close()
 
     def __enter__(self) -> "Parser":
         return self

@@ -9,15 +9,20 @@ The reference's layers (``repro/core/engine.py``), in PyTorch:
   core      ``make_parse_core`` — reach → join (+ the text-start column) →
             build&merge, one call over a (c, k) or (B, c, k) chunk grid.
   phases    ``PhasePrograms`` — the same phases as separate callables whose
-            boundaries (products, entries, packed columns) are tensors.
+            boundaries (products, entries, packed columns) are tensors; the
+            seam the streaming layer (``core/stream.py``) caches across
+            calls, and the traced route (``parse_traced``) times.
   engine    ``ParserEngine`` — texts → classes → chunk grids bucketed to
             power-of-two chunk lengths, grouped into power-of-two batches,
             one core call per bucket, SLPF assembly on the host.
 
 Texts pad with the PAD class, a semantic no-op, so bucket padding never
 changes a result.  PyTorch runs eagerly: there is no trace to count, and
-``compile_count`` counts the distinct (B, c, k) shapes run, which is the
-number of programs the reference compiles for the same traffic.
+``compile_count`` counts the distinct shapes run — each (B, c, k) batch of
+the fused core and each input shape of a phase callable — which is the
+number of programs the reference compiles for the same traffic.  Each new
+one also counts into the ``compiled_programs_total`` metric of the engine's
+``obs`` handle (``obs/``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs import ObsHandle
 from .backend import ParserBackend, get_backend, next_pow2, pack_columns_u32
 from .matrices import ParserMatrices, build_matrices
 from .segments import SegmentTable
@@ -123,14 +129,36 @@ class PhasePrograms:
       build_merge  (N, chunks, Jf, Jb)          → (…, k, W) packed columns
 
     Products are backend-owned; entries are f32 and columns int32 words.
+    No phase writes into its inputs, so callers may cache products and share
+    them (the streaming snapshots do).  ``on_shape(key)`` is told the phase
+    and input shapes of every call — where the reference traces one program
+    per input shape.
     """
 
-    def __init__(self, backend: ParserBackend):
+    def __init__(self, backend: ParserBackend, on_shape: Optional[Callable] = None):
+        note = on_shape or (lambda key: None)
+
+        def reach(N, chunks):
+            note(("reach", tuple(chunks.shape)))
+            return backend.reach(N, chunks)
+
+        def compose(later, earlier):
+            note(("compose", tuple(later.shape), tuple(earlier.shape)))
+            return backend.compose(later, earlier)
+
+        def join(P, I, F):
+            note(("join", tuple(P.shape)))
+            return join_with_col0(backend, P, I, F)
+
+        def build_merge(N, chunks, Jf, Jb):
+            note(("build_merge", tuple(chunks.shape)))
+            return backend.build_merge_packed(N, chunks, Jf, Jb)
+
         self.backend = backend
-        self.reach: Callable = backend.reach
-        self.compose: Callable = backend.compose
-        self.join: Callable = lambda P, I, F: join_with_col0(backend, P, I, F)
-        self.build_merge: Callable = backend.build_merge_packed
+        self.reach: Callable = reach
+        self.compose: Callable = compose
+        self.join: Callable = join
+        self.build_merge: Callable = build_merge
 
 
 def resolve_device(device) -> torch.device:
@@ -158,7 +186,11 @@ def unpack_columns(packed: np.ndarray, n: int) -> np.ndarray:
 
 
 class ParserEngine:
-    """Single-device engine: backend-pluggable, shape-bucketed, batched."""
+    """Single-device engine: backend-pluggable, shape-bucketed, batched.
+
+    ``obs`` is the observability handle every layer over this engine
+    records into (streams, both services, the facade); the default is a
+    disabled tracer with a live metrics registry."""
 
     def __init__(
         self,
@@ -167,6 +199,7 @@ class ParserEngine:
         backend: Union[str, ParserBackend] = "cuda",
         min_chunk_len: int = 8,
         device=None,
+        obs: Optional[ObsHandle] = None,
     ):
         if isinstance(matrices_or_table, SegmentTable):
             matrices = build_matrices(matrices_or_table)
@@ -188,15 +221,26 @@ class ParserEngine:
         # shapes here, before any phase runs
         self.backend.bind_tables(self.tables)
         self.min_chunk_len = max(1, min_chunk_len)
-        self.phases = PhasePrograms(self.backend)
-        self._core = make_parse_core(self.backend)
+        self.obs = obs if obs is not None else ObsHandle()
         self._seen_batch_shapes: set = set()
+        self._seen_phase_shapes: set = set()
+        self.phases = PhasePrograms(self.backend, on_shape=self._note_phase_shape)
+        self._core = make_parse_core(self.backend)
 
     @property
     def compile_count(self) -> int:
-        """Distinct (B, c, k) batch shapes run so far (one per bucket and
-        batch-slot count — the reference's compiled-program count)."""
-        return len(self._seen_batch_shapes)
+        """Distinct shapes run so far: (B, c, k) batches of the fused core
+        (one per bucket and batch-slot count) plus phase-program input
+        shapes — the reference's compiled-program count."""
+        return len(self._seen_batch_shapes) + len(self._seen_phase_shapes)
+
+    def _bump_compiles(self) -> None:
+        self.obs.metrics.counter("compiled_programs_total").inc()
+
+    def _note_phase_shape(self, key) -> None:
+        if key not in self._seen_phase_shapes:
+            self._seen_phase_shapes.add(key)
+            self._bump_compiles()
 
     def classes_of_text(self, text) -> np.ndarray:
         if isinstance(text, (bytes, str)):
@@ -209,6 +253,14 @@ class ParserEngine:
         c = max(1, n_chunks)
         k = next_pow2(max(self.min_chunk_len, -(-n // c)))
         return c, k
+
+    def pad_chunks(self, classes: np.ndarray, n_chunks: int) -> np.ndarray:
+        """Pad with the identity PAD class to ``n_chunks`` equal chunks of
+        ⌈n / n_chunks⌉ (unbucketed)."""
+        n = len(classes)
+        c = max(1, n_chunks)
+        k = max(1, -(-n // c))
+        return self._pad_to(classes, c, k)
 
     def _pad_to(self, classes: np.ndarray, c: int, k: int) -> np.ndarray:
         padded = np.full(c * k, self.tables.pad_class, dtype=np.int32)
@@ -242,10 +294,18 @@ class ParserEngine:
         for i, cls in enumerate(classes_list):
             groups.setdefault(self.bucket_shape(len(cls), n_chunks), []).append(i)
 
+        m = self.obs.metrics
         results: List[Optional[SLPF]] = [None] * len(texts)
         for (c, k), idxs in sorted(groups.items()):
             B = next_pow2(len(idxs))
-            self._seen_batch_shapes.add((B, c, k))
+            # program-cache accounting: a (B, c, k) shape seen before reuses
+            # its program; a new one is the reference's re-jit event
+            if (B, c, k) in self._seen_batch_shapes:
+                m.counter("bucket_cache_hits_total").inc()
+            else:
+                self._seen_batch_shapes.add((B, c, k))
+                m.counter("bucket_cache_misses_total").inc()
+                self._bump_compiles()
             batch = np.full((B, c, k), self.tables.pad_class, dtype=np.int32)
             for row, i in enumerate(idxs):
                 batch[row] = self._pad_to(classes_list[i], c, k)
@@ -265,3 +325,70 @@ class ParserEngine:
         ).view(np.uint32)
         columns = unpack_columns(packed, self.tables.ell)
         return SLPF(table=self.table, columns=columns, classes=classes)
+
+    # -------------------------------------------------------- observability
+
+    def parse_traced(self, text, n_chunks: int = 8) -> SLPF:
+        """Parse one text with per-phase spans (the observability route).
+
+        Runs the phase programs — the same bodies the fused core composes,
+        so the same bits — with each phase in its own span:
+        ``phase.reach``, ``phase.join``, ``phase.build_merge`` and
+        ``phase.host_build``.  Each device span synchronizes the engine's
+        device before it closes, so it times the phase and not its launches.
+        """
+        obs = self.obs
+        classes = self.classes_of_text(text)
+        c, k = self.bucket_shape(len(classes), n_chunks)
+        chunks = self.chunks_tensor(self._pad_to(classes, c, k))
+        t = self.tables
+        with obs.span("phase.reach", bucket=[c, k], n_chars=len(classes)):
+            P = self.phases.reach(t.N, chunks)
+            self._sync()
+        with obs.span("phase.join", n_products=c):
+            Jf, Jb, col0p = self.phases.join(P, t.I, t.F)
+            self._sync()
+        with obs.span("phase.build_merge", bucket=[c, k]):
+            cols = self.phases.build_merge(t.N, chunks, Jf, Jb)
+            self._sync()
+        with obs.span("phase.host_build", n_chars=len(classes)):
+            slpf = self._assemble(col0p.cpu().numpy(), cols.cpu().numpy(), classes)
+        return slpf
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def count_accepting(self, text, n_chunks: int = 8) -> int:
+        return self.parse(text, n_chunks).count_trees()
+
+
+def _resolve_engine(
+    matrices_or_engine,
+    backend: Union[str, ParserBackend, None],
+    mesh=None,
+    mesh_rules=None,
+    device=None,
+) -> ParserEngine:
+    """Shared constructor contract of everything layered on the engine
+    (``ParseService``, ``StreamingParser``, ``StreamService``): accept
+    matrices / a segment table and build an engine (backend ``cuda`` on the
+    card unless told otherwise), or accept a prebuilt ``ParserEngine`` — in
+    which case ``backend=`` / ``device=`` must not also be passed.  ``mesh``
+    is refused: mesh distribution is not ported (ROADMAP Queue 1 item 11)."""
+    if mesh is not None or mesh_rules is not None:
+        raise NotImplementedError(
+            "not ported yet: mesh: ROADMAP Queue 1 item 11 (mesh distribution)"
+        )
+    if isinstance(matrices_or_engine, ParserEngine):
+        if backend is not None or device is not None:
+            raise ValueError(
+                "pass backend=/device= only when building the engine here; "
+                "a prebuilt ParserEngine already owns its backend and device"
+            )
+        return matrices_or_engine
+    return ParserEngine(
+        matrices_or_engine,
+        backend=backend if backend is not None else "cuda",
+        device=device,
+    )

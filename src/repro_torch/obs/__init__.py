@@ -1,0 +1,160 @@
+"""Observability: tracing spans, a metrics registry, exporters.
+
+The port's copy of ``repro/obs``.  Every ``ParserEngine`` carries an
+``ObsHandle`` — a (tracer, metrics registry) pair — and every layer built
+over that engine (phase spans, ``StreamingParser``, both services, the
+``Parser`` facade) records into it through two narrow seams:
+
+    with engine.obs.span("phase.reach", bucket=[c, k]):
+        ...launch + torch.cuda.synchronize...
+    engine.obs.metrics.counter("stream_evictions_total").inc()
+
+The handle is always present (a disabled tracer + live registry by default),
+so instrumentation is unconditional and near-free when tracing is off;
+``ParserConfig(obs=ObsConfig(enabled=True, span_log=...))`` switches a
+parser's handle to a recording tracer with a JSONL sink and, with
+``profiler=True``, ``torch.profiler.record_function`` ranges.
+
+Submodules:
+
+  trace.py     ``Span``/``Tracer`` — monotonic spans, trace IDs, the span
+               taxonomy (request / queue-wait / compute / phase spans).
+  metrics.py   ``MetricsRegistry`` — cataloged counters/gauges/bounded
+               histograms; process-wide ``aggregate_snapshot``.
+  export.py    JSONL span logs, Prometheus text, and the shared
+               ``BENCH_<name>.json`` schema.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from .export import (
+    BENCH_SCHEMA_KEYS,
+    SpanJsonlWriter,
+    prometheus_text,
+    read_spans_jsonl,
+    validate_bench_report,
+    validate_span_dict,
+    validate_span_tree,
+    write_bench_json,
+    write_spans_jsonl,
+)
+from .metrics import (
+    METRIC_CATALOG,
+    MetricsRegistry,
+    aggregate_snapshot,
+    validate_metric_names,
+)
+from .trace import NULL_TRACER, SPAN_SCHEMA_KEYS, Span, Tracer, new_trace_id
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Declarative observability knobs (a ``ParserConfig`` field).
+
+    ``enabled`` switches tracing on (metrics are ALWAYS collected — they are
+    O(1) host mutations); ``span_log`` adds a JSONL sink for finished spans;
+    ``profiler`` wraps every span in a ``torch.profiler.record_function`` so
+    phase names appear on profiler timelines; ``max_spans`` bounds the
+    tracer's in-memory ring buffer.  ``hlo`` keeps the reference's field and
+    default so configs round-trip; the port has no static cost to attach
+    yet (``Parser.stats()["hlo"]`` is None, ROADMAP Queue 1 item 12).
+    """
+
+    enabled: bool = False
+    span_log: Optional[str] = None
+    profiler: bool = False
+    hlo: bool = True
+    max_spans: int = 4096
+
+    def __post_init__(self):
+        if self.max_spans < 1:
+            raise ValueError(f"max_spans must be >= 1, got {self.max_spans}")
+        if self.span_log is not None and not isinstance(self.span_log, str):
+            raise ValueError("span_log must be a path string or None")
+
+
+class ObsHandle:
+    """The (tracer, registry) pair every engine carries.
+
+    Construction is cheap; the default handle has a disabled tracer, so
+    un-configured engines pay one predicate per would-be span.
+    """
+
+    def __init__(
+        self,
+        *,
+        tracer: Optional[Tracer] = None,
+        registry: Optional[MetricsRegistry] = None,
+        config: Optional[ObsConfig] = None,
+    ):
+        self.config = config if config is not None else ObsConfig()
+        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._span_sink: Optional[SpanJsonlWriter] = None
+
+    @classmethod
+    def from_config(cls, cfg: Optional[ObsConfig]) -> "ObsHandle":
+        if cfg is None:
+            cfg = ObsConfig()
+        tracer = Tracer(
+            enabled=cfg.enabled, max_spans=cfg.max_spans, profiler=cfg.profiler
+        )
+        handle = cls(tracer=tracer, config=cfg)
+        if cfg.enabled and cfg.span_log:
+            handle._span_sink = SpanJsonlWriter(cfg.span_log)
+            tracer.add_sink(handle._span_sink)
+        if cfg.enabled:
+            spans = handle.registry.counter("spans_recorded_total")
+            tracer.add_sink(lambda _sp: spans.inc())
+        return handle
+
+    # ---------------------------------------------------------- delegation
+
+    @property
+    def enabled(self) -> bool:
+        return self.tracer.enabled
+
+    @property
+    def metrics(self) -> MetricsRegistry:
+        return self.registry
+
+    def span(self, name: str, **kw):
+        return self.tracer.span(name, **kw)
+
+    def emit(self, name: str, **kw):
+        return self.tracer.emit(name, **kw)
+
+    def new_trace_id(self) -> Optional[str]:
+        return self.tracer.new_trace_id()
+
+    def close(self) -> None:
+        """Flush and close the JSONL sink, if any."""
+        if self._span_sink is not None:
+            self._span_sink.close()
+
+
+__all__ = [
+    "BENCH_SCHEMA_KEYS",
+    "METRIC_CATALOG",
+    "MetricsRegistry",
+    "NULL_TRACER",
+    "ObsConfig",
+    "ObsHandle",
+    "SPAN_SCHEMA_KEYS",
+    "Span",
+    "SpanJsonlWriter",
+    "Tracer",
+    "aggregate_snapshot",
+    "new_trace_id",
+    "prometheus_text",
+    "read_spans_jsonl",
+    "validate_bench_report",
+    "validate_metric_names",
+    "validate_span_dict",
+    "validate_span_tree",
+    "write_bench_json",
+    "write_spans_jsonl",
+]

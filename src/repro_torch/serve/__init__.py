@@ -1,1 +1,3 @@
-"""LM serving: the RE-constrained decode engine and the continuous batcher."""
+"""Serving: the LM path's RE-constrained decode engine and continuous batcher
+(``engine``, ``scheduler``), and the parser's request and stream services
+(``parse_service``, ``stream_service``)."""

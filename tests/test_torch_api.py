@@ -210,8 +210,7 @@ def test_served_settings_equal_reference_parser(setting, key):
 
 
 @pytest.mark.parametrize("setting", [
-    {"backend": "auto"}, {"mesh": "host"},
-    {"slo": {"p99_s": 0.1}}, {"obs": {"enabled": True}}, {"analyze": "strict"},
+    {"backend": "auto"}, {"mesh": "host"}, {"analyze": "strict"},
 ])
 def test_unported_settings_raise_not_implemented(setting):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -221,7 +220,9 @@ def test_unported_settings_raise_not_implemented(setting):
 def test_ported_settings_are_accepted():
     for cfg in (ParserConfig(regex="a|b", backend="torch", analyze="warn"),
                 ParserConfig(regex="a|b", backend="torch", analyze="off",
-                             obs={"enabled": False})):
+                             obs={"enabled": False}),
+                ParserConfig(regex="a|b", backend="torch", slo={"p99_s": 0.1}),
+                ParserConfig(regex="a|b", backend="torch", obs={"enabled": True})):
         assert Parser(cfg, device="cpu").parse("a").ok
 
 
@@ -243,6 +244,7 @@ def test_port_imports_neither_jax_nor_repro():
         f"sys.path.insert(0, {str(src)!r})\n"
         "import repro_torch, torch\n"
         "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
+        "import repro_torch.core.serial, repro_torch.core.reference, repro_torch.core.stream\n"
         "from repro_torch.configs import get_smoke\n"
         "from repro_torch.models import model as m\n"
         "cfg = get_smoke('zamba2-2.7b')\n"

@@ -1,7 +1,9 @@
 """repro_torch's CUDA kernels on the card: each kernel against its plain
 PyTorch version, the ``cuda``, ``packed`` and ``sparse`` kernel backends
-against the ``torch`` backend, and the LM prefill through K6 and K7 against
-the same model on its plain versions.
+against the ``torch`` backend (parses, and streams with splices), the
+grouped build&merge of a stream's ``result()`` against per-leaf launches,
+one reach launch a stream-service step, and the LM prefill through K6 and
+K7 against the same model on its plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports no JAX, so it runs on a host that has only PyTorch:
@@ -836,3 +838,87 @@ def test_prefill_on_the_card_equals_the_plain_versions(dev, arch, dtype):
 
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+# ------------------------------------------------ streams and services on the card
+
+STREAM_SETTINGS = [{"backend": "cuda"}, {"backend": "packed", "kernel": True},
+                   {"backend": "sparse", "kernel": True}]
+STREAM_REACH = {"cuda": "reach_chunk_product", "packed": "packed_reach_chunk_product",
+                "sparse": "sparse_reach_rows"}
+
+
+def _log_text(n_bytes, seed):
+    rng = np.random.default_rng(seed)
+    lines = []
+    while sum(map(len, lines)) < n_bytes:
+        path = "".join(rng.choice(list("abc0/"), int(rng.integers(0, 9))))
+        lines.append(f"GET /{path} {int(rng.integers(100, 999))} ok\n")
+    return "".join(lines)
+
+
+@pytest.mark.parametrize("setting", STREAM_SETTINGS)
+def test_stream_on_the_card_equals_torch_backend(dev, setting):
+    """A few KiB streamed in pieces, then spliced, on each kernel backend:
+    ``result()`` equals a cold parse on the ``torch`` backend after the
+    appends and after every splice, and the reach kernel and K2 launch."""
+    pattern = r"((GET|POST) /([a-c0-9]|/)* ([0-9]{3}) ok\n)+"
+    cfg = ParserConfig(regex=pattern, n_chunks=16, first_seal_len=8, max_seal_len=512,
+                       **setting)
+    p = Parser(cfg, device=dev)
+    cold = Parser(ParserConfig(regex=pattern, backend="torch", n_chunks=16), device=dev)
+    text = _log_text(6000, 5)
+    ops.reset_launches()
+    with p.open_stream() as st:
+        for i in range(0, len(text), 700):
+            st.append(text[i:i + 700])
+        assert np.array_equal(st.result().forest.pack(), cold.parse(text).forest.pack())
+        for lo, hi, repl in ((100, 180, "GET /a0 200 ok\n"), (2000, 2600, ""),
+                             (3000, 3000, "GET /bb 404 ok\n"), (51, 52, "~")):
+            st.edit(lo, hi, repl)
+            text = text[:lo] + repl + text[hi:]
+            got = st.result()
+            want = cold.parse(text)
+            assert st.accepted == want.ok
+            assert np.array_equal(got.forest.pack(), want.forest.pack()), (lo, hi)
+        assert not st.accepted
+    counts = ops.launch_counts()
+    assert counts[STREAM_REACH[setting["backend"]]] > 0 and counts["build_merge_packed"] > 0
+    if setting["backend"] == "cuda":
+        assert counts["semiring_matmul"] > 0
+
+
+@pytest.mark.parametrize("setting", STREAM_SETTINGS)
+def test_grouped_build_merge_on_the_card_equals_per_leaf(dev, setting):
+    from repro_torch.core.stream import StreamingParser
+
+    pattern = "(a|b|ab)+"
+    p = Parser(ParserConfig(regex=pattern, **setting), device=dev)
+    sp = StreamingParser(p.engine, first_seal_len=4, max_seal_len=64)
+    sp.append("ab" * 300 + "b")
+    chunks = sp._chunk_classes()
+    Jf, Jb, _, _ = sp._joined()
+    ops.reset_launches()
+    grouped = sp._build_merge_grouped(chunks, Jf, Jb)
+    lengths = {sp._bucket_len(len(c)) for c in chunks}
+    assert ops.launch_counts()["build_merge_packed"] == len(lengths)
+    eng = p.engine
+    for i, ch in enumerate(chunks):
+        k = sp._bucket_len(len(ch))
+        one = eng.phases.build_merge(eng.tables.N, eng.chunks_tensor(eng._pad_to(ch, 1, k)),
+                                     Jf[i][None].contiguous(), Jb[i][None].contiguous())
+        assert np.array_equal(grouped[i], one[0, : len(ch)].cpu().numpy()), i
+
+
+def test_stream_service_step_is_one_reach_launch(dev):
+    p = Parser(ParserConfig(regex="(a|b|ab)+", first_seal_len=8, max_batch=8), device=dev)
+    streams = [p.open_stream() for _ in range(4)]
+    svc = p.stream_service
+    for st in streams:
+        st.append("abab")
+    ops.reset_launches()
+    assert svc.step() is True and svc.step() is False
+    assert ops.launch_counts()["reach_chunk_product"] == 1
+    cold = Parser(ParserConfig(regex="(a|b|ab)+", backend="torch"), device=dev)
+    for st in streams:
+        assert np.array_equal(st.result().forest.pack(), cold.parse("abab").forest.pack())

@@ -20,8 +20,8 @@ import repro_torch  # noqa: E402
 from repro_torch import Parser, ParserConfig  # noqa: E402
 
 # the reference's exports whose modules are not ported yet (ROADMAP Queue 1
-# items 8, 9, 10, 7)
-UNPORTED = {"ParseTicket", "ParserStream", "ParserFleet", "analyze", "obs"}
+# items 9 and 10)
+UNPORTED = {"ParserFleet", "analyze"}
 ERRORS = ["ParseError", "AdmissionError", "SessionNotFound", "BudgetExceeded",
           "PathologicalPatternError"]
 

@@ -65,6 +65,28 @@ or ``repro``).  Phases, each printing one JSON line:
              log: ``validate_span_tree`` passes, the columns equal the
              untraced parse's, and each phase span's seconds print beside
              the ``phases`` line's host-clock seconds
+  fleet      ``ParserFleet`` on the card: 256 tenants in 5 automaton buckets
+             (192 on the 8 patterns (a|b)*a(a|b){k}, 4 texts of 4 KiB each;
+             48 on TRAFFIC, 16 each on ``cuda``, ``packed`` and ``sparse``
+             with ``kernel=True``, 4 logs of 64 KiB each; 16 on e125, one
+             text of 64 KiB each: 16 MiB).  ``parse_batch`` (cold, counted)
+             and a ``FleetParseService`` drain of the same requests through
+             ``submit`` (warm); every tenant's result equals a solo
+             ``Parser`` on its backend; each bucket dispatch makes one reach
+             launch (K1, K4 or K5) and one K2 launch, and the a/b dispatch's
+             K3 launches are the same for 1 tenant as for 192.  Prints sweep
+             seconds, texts/s and MB/s of the fleet and of the per-tenant
+             solo loop (and per bucket), the table cache's hits and misses,
+             buckets, ``compile_count``, and each dispatch's grids; then K1,
+             K2, K4 and K5 over the tenant stacks against their plain
+             versions (``kernel`` lines, ``case`` "fleet", K1's strip and K2's
+             row fallbacks on e125's ℓp-512 bucket)
+  analysis   for TRAFFIC and e125: the static ``AnalysisReport``, the
+             ``backend="auto"`` choice on the card (a parser built with it
+             runs that path), whether the cost model's ranking agrees with
+             the measured ``Parser.parse`` MB/s of the three kernel paths,
+             and the phase-program lint's findings on those paths at the
+             main path's buckets (printed, never exempted)
 
 and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
 2560, vocab 32000) with random weights from ``--seed``:
@@ -1132,6 +1154,8 @@ def parser_phases(args, dev):
                "seconds": t_e125, "mb_per_s": len(e125) / t_e125 / 1e6,
                "launches": n_e125},
          e125_corrupted={"ok": r_e125_bad.ok, "launches": n_e125_bad})
+    parse_mb_per_s = {("TRAFFIC", "cuda"): len(traffic) / t_traffic / 1e6,
+                      ("e125", "cuda"): len(e125) / t_e125 / 1e6}
     dense = ("reach_chunk_product", "build_merge_packed", "semiring_matmul")
     for path, launches in [("TRAFFIC parse", n_traffic), ("parse_batch", n_batch),
                            ("e125 parse", n_e125)]:
@@ -1168,6 +1192,8 @@ def parser_phases(args, dev):
                            "seconds": secs, "mb_per_s": len(text) / secs / 1e6,
                            "launches": n}
             word_launches[(backend, label)] = n
+            if "corrupted" not in label:
+                parse_mb_per_s[(label.replace("traffic", "TRAFFIC"), backend)] = len(text) / secs / 1e6
             if backend == "sparse" and "corrupted" not in label:
                 speculation[label] = r.speculation
             del r
@@ -1235,6 +1261,12 @@ def parser_phases(args, dev):
     emit("stream_phases_total", seconds=time.perf_counter() - t0)
     del colds, r_traffic, r_batch, p_traffic, p_e125
     torch.cuda.empty_cache()
+
+    # ------------------------------------- the fleet and the static analysis
+    t0 = time.perf_counter()
+    records += fleet_phase(args, dev)
+    analysis_phase(dev, parse_mb_per_s)
+    emit("fleet_analysis_total", seconds=time.perf_counter() - t0)
     return records
 
 
@@ -1510,6 +1542,420 @@ def obs_trace_phase(dev, cfg_t, traffic: bytes, r_traffic, host_secs) -> None:
     emit("obs_trace", trace_id=r.trace_id, root=tree["root"]["name"],
          root_s=tree["root"]["duration_s"], span_s=span_s,
          phases_line_s=host_secs, span_tree_valid=True, columns_equal_untraced=True)
+
+
+# ------------------------------------------------------ the fleet, the analysis
+
+FLEET_AB_PATTERNS = [f"(a|b)*a(a|b){{{k}}}" for k in range(1, 9)]
+FLEET_AB, FLEET_AB_TEXTS, FLEET_AB_BYTES = 192, 4, 4 << 10
+FLEET_TRAFFIC, FLEET_TRAFFIC_TEXTS, FLEET_BYTES = 48, 4, 64 << 10
+FLEET_E125 = 16
+FLEET_MAX_BATCH = 1024      # a bucket's requests in one dispatch
+
+
+def fleet_tenants(seed: int):
+    """The log-routing fleet: {tenant: (ParserConfig, [texts])}, 256 tenants
+    in 5 automaton buckets: 192 on the 8 patterns (a|b)*a(a|b){k} (cuda, 4
+    texts of 4 KiB of random a/b each), 48 on TRAFFIC (16 each on cuda,
+    packed and sparse with kernel=True, 4 logs of 64 KiB each) and 16 on
+    e125 (cuda, one text of 64 KiB each); about 16 MiB a sweep.  Chunks of
+    about 1024 characters."""
+    import numpy as np
+
+    from repro_torch import ParserConfig
+
+    rng = np.random.Generator(np.random.Philox(seed))
+    ab = np.frombuffer(b"ab", dtype=np.uint8)
+    tenants = {}
+    for i in range(FLEET_AB):
+        cfg = ParserConfig(regex=FLEET_AB_PATTERNS[i % 8], backend="cuda",
+                           n_chunks=FLEET_AB_BYTES // 1024)
+        tenants[f"ab{i:03d}"] = (cfg, [ab[rng.integers(0, 2, FLEET_AB_BYTES)].tobytes()
+                                      for _ in range(FLEET_AB_TEXTS)])
+    for j in range(FLEET_TRAFFIC):
+        backend = ("cuda", "packed", "sparse")[j * 3 // FLEET_TRAFFIC]
+        cfg = ParserConfig(regex=TRAFFIC_RE, backend=backend, kernel=backend != "cuda",
+                           n_chunks=FLEET_BYTES // 1024)
+        tenants[f"traffic-{backend}{j:02d}"] = (
+            cfg, [traffic_log(FLEET_BYTES, seed + 100 + 8 * j + b)
+                  for b in range(FLEET_TRAFFIC_TEXTS)])
+    for j in range(FLEET_E125):
+        cfg = ParserConfig(regex=E125_RE, backend="cuda", n_chunks=FLEET_BYTES // 1024)
+        tenants[f"e125-{j:02d}"] = (cfg, [e125_text(FLEET_BYTES, seed + 1000 + j)])
+    return tenants
+
+
+class DispatchLog:
+    """Launch counts of each bucket dispatch of a fleet: ``run_bucket``
+    wrapped, the counts read before and after each (synchronized)."""
+
+    KERNELS = ("reach_chunk_product", "packed_reach_chunk_product", "sparse_reach_rows",
+               "build_merge_packed", "semiring_matmul")
+
+    def __init__(self, engine):
+        import torch
+
+        from repro_torch.core.backend import next_pow2
+        from repro_torch.kernels import build, ops, packed_reach, reach
+
+        self.records = []
+        run = engine.run_bucket
+
+        def grids(bucket, items):
+            """The bucket's reach and K2 launch grids (x, y = tenants, threads)."""
+            (key, A1, lp), (c, _) = bucket
+            per = {}
+            for tid, _ in items:
+                per[tid] = per.get(tid, 0) + 1
+            T = next_pow2(len(per))
+            C = T * next_pow2(max(per.values())) * c
+            backend = engine.runner(bucket[0]).backend
+            if key.startswith("cuda"):
+                reach_grid, reach_kind = reach.grid(A1, lp, C, T), reach.plan(A1, lp)[0]
+            else:
+                rows = backend._width if key.startswith("sparse") else lp
+                reach_grid = packed_reach.grid(A1, lp, rows, C, T)
+                reach_kind = packed_reach.plan(A1, lp, rows)[0]
+            return {"chunks": C, "reach": list(reach_grid), "reach_kernel": reach_kind,
+                    "build_merge": list(build.grid(A1, lp, C, T)),
+                    "build_merge_kernel": build.plan(A1, lp, C).kernel}
+
+        def run_bucket(bucket, items):
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            out = run(bucket, items)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = ops.launch_counts()
+            self.records.append({
+                "bucket": "|".join(map(str, bucket[0])), "c_k": list(bucket[1]),
+                "tenants": len({tid for tid, _ in items}), "texts": len(items),
+                "seconds": seconds, "launches": {k: after[k] - before[k] for k in self.KERNELS},
+                "grids": grids(bucket, items)})
+            return out
+
+        engine.run_bucket = run_bucket
+
+    def check(self, label: str) -> None:
+        """One reach launch (K1, K4 or K5) and one K2 launch a dispatch."""
+        for rec in self.records:
+            n = rec["launches"]
+            reach = n["reach_chunk_product"] + n["packed_reach_chunk_product"] + n["sparse_reach_rows"]
+            if reach != 1 or n["build_merge_packed"] != 1:
+                raise AssertionError(f"{label}: a bucket dispatch launched {n}")
+
+
+def fleet_kernel_records(fleet, tenants, counts):
+    """K1, K2, K4 and K5 over a bucket's tenant stack, at the fleet run's
+    shapes, against their plain versions (``torch.equal``): K1 and K2 on the
+    192-tenant a/b bucket (their group kernel and walk, ``case`` "fleet")
+    and on e125's (ℓp 512: K1's strip and K2's row fallback,
+    "fleet_strip", "fleet_rows"), K4 and K5 on TRAFFIC's packed and sparse
+    buckets; one record a launch kind, with the warm run's launches of that
+    kind (``counts``) and the launch's grid.  Bounds count each tenant's real
+    steps at its own ℓ (K5 at its mean feasible width)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.matrices import (
+        feasible_start_widths,
+        pack_transition_table_torch,
+        sparse_init_rows,
+    )
+    from repro_torch.kernels import build, ops, packed_reach, reach
+
+    engine = fleet.engine
+
+    def bucket_inputs(prefix):
+        tids = [t for t in tenants if t.startswith(prefix)]
+        ts = engine.tenant(tids[0])
+        runner = engine.runner(ts.bucket_key)
+        per = {t: [engine.tenant(t).classes_of_text(x) for x in tenants[t][1]] for t in tids}
+        c, k = ts.text_bucket(len(next(iter(per.values()))[0]))
+        rows, grid = runner.host_batch(c, k, per)
+        N, I, F = runner.operands(rows)
+        ids = torch.from_numpy(grid.reshape(-1, k)).to(N.device)
+        real = (grid != runner.pad_class).reshape(len(rows), -1).sum(axis=1)
+        ells = [engine.tenant(t).tables.ell for t in tids]
+        return runner, tids, grid, N, I, F, ids, real, ells
+
+    records = []
+
+    def once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    def record(name, kern, args, n_ops, n_bytes, grid_xyz, runner, extra, case="fleet"):
+        got, k_ms = once(lambda: kern(*args))
+        want, p_ms = once(lambda: kern.plain(*args))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} ({case}): kernel != plain version")
+        del got, want
+        # a call slower than SLOW_CALL_MS is timed by its one call here (it
+        # has no launch gap for device_ms to remove)
+        if k_ms >= SLOW_CALL_MS:
+            fields = {"plain_ms": p_ms, "ms": k_ms, "library_ms": None, "device_ms": k_ms,
+                      "library_device_ms": None}
+        else:
+            fields = timing_fields(lambda: kern(*args), (lambda: None) if p_ms >= SLOW_CALL_MS
+                                   else (lambda: kern.plain(*args)), None)
+            if p_ms >= SLOW_CALL_MS:
+                fields["plain_ms"] = p_ms
+        b_ms, b_by = bound_ms(n_ops, n_bytes)
+        rec = {"name": name, "case": case, "route": "cuda", "source": extra["source"],
+               "replaces": extra["replaces"], "launches": counts.get((name, case), 0),
+               "max_abs_err": 0.0,
+               **fields, "bound_ms": b_ms, "bound_by": b_by,
+               "shapes": {"bucket": "|".join(map(str, runner.key)),
+                          "tenants": int(args[0].shape[0]), "chunks": int(args[1].shape[0]),
+                          "k": int(args[1].shape[1]),
+                          "operands": [list(x.shape) for x in args]},
+               "grid": list(grid_xyz)}
+        emit("kernel", pattern="fleet", tolerance=0, **rec)
+        records.append(rec)
+        torch.cuda.empty_cache()
+
+    runner, tids, grid, N, I, F, ids, real, ells = bucket_inputs("ab")
+    T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
+    C, k = ids.shape
+    ops3 = sum(2.0 * s * e ** 3 for s, e in zip(real, ells))
+    record("reach_chunk_product", ops.reach_chunk_product, (N, ids), ops3,
+           4.0 * (C * k + T * A1 * lp * lp + C * lp * lp), reach.grid(A1, lp, C, T), runner,
+           {"source": "src/repro_torch/csrc/reach.cu", "replaces": "src/repro/kernels/reach.py:49"})
+    P = ops.reach_chunk_product.plain(N, ids).reshape(grid.shape[:3] + (lp, lp))
+    Jf, Jb = TorchBackend().join(P, I[:, None], F[:, None])
+    Jf, Jb = Jf.reshape(C, lp).contiguous(), Jb.reshape(C, lp).contiguous()
+    del P
+    record("build_merge_packed", ops.build_merge_packed, (N, ids, Jf, Jb),
+           sum(4.0 * s * e ** 2 for s, e in zip(real, ells)),
+           4.0 * (C * k + T * A1 * lp * lp + 2 * C * lp + C * k * lp // 32),
+           build.grid(A1, lp, C, T), runner,
+           {"source": "src/repro_torch/csrc/build_merge.cu", "replaces": "src/repro/kernels/build.py:60"})
+    del Jf, Jb
+
+    # e125's bucket: ℓp 257 → 512, where no group table fits: K1's strip and
+    # K2's row fallbacks over the tenant stack
+    runner, tids, grid, N, I, F, ids, real, ells = bucket_inputs("e125")
+    T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
+    C, k = ids.shape
+    record("reach_chunk_product", ops.reach_chunk_product, (N, ids),
+           sum(2.0 * s * e ** 3 for s, e in zip(real, ells)),
+           4.0 * (C * k + T * A1 * lp * lp + C * lp * lp), reach.grid(A1, lp, C, T), runner,
+           {"source": "src/repro_torch/csrc/reach.cu", "replaces": "src/repro/kernels/reach.py:49"},
+           case="fleet_strip")
+    P = ops.reach_chunk_product(N, ids).reshape(grid.shape[:3] + (lp, lp))
+    Jf, Jb = TorchBackend().join(P, I[:, None], F[:, None])
+    Jf, Jb = Jf.reshape(C, lp).contiguous(), Jb.reshape(C, lp).contiguous()
+    del P
+    record("build_merge_packed", ops.build_merge_packed, (N, ids, Jf, Jb),
+           sum(4.0 * s * e ** 2 for s, e in zip(real, ells)),
+           4.0 * (C * k + T * A1 * lp * lp + 2 * C * lp + C * k * lp // 32),
+           build.grid(A1, lp, C, T), runner,
+           {"source": "src/repro_torch/csrc/build_merge.cu", "replaces": "src/repro/kernels/build.py:60"},
+           case="fleet_rows")
+    del Jf, Jb
+
+    runner, tids, grid, N, I, F, ids, real, ells = bucket_inputs("traffic-packed")
+    T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
+    C, k = ids.shape
+    W = lp // 32
+    Np = pack_transition_table_torch(N)
+    record("packed_reach_chunk_product", ops.packed_reach_chunk_product, (Np, ids),
+           sum(2.0 * s * e ** 3 for s, e in zip(real, ells)),
+           4.0 * (C * k + T * A1 * lp * W + C * lp * W), packed_reach.grid(A1, lp, lp, C, T),
+           runner, {"source": "src/repro_torch/csrc/packed_reach.cu",
+                    "replaces": "src/repro/kernels/packed_reach.py:74"})
+
+    runner, tids, grid, N, I, F, ids, real, ells = bucket_inputs("traffic-sparse")
+    sparse = runner.backend
+    S = sparse._width
+    R0 = sparse_init_rows(sparse.feasible_rows(N, torch.from_numpy(grid).to(N.device)),
+                          lp).reshape(C, S, W).contiguous()
+    Np = pack_transition_table_torch(N)
+    Nh = N.cpu().numpy()
+    w_ops = 0.0
+    for t, (s, e) in enumerate(zip(real, ells)):
+        w = feasible_start_widths(Nh[t], grid[t].reshape(-1, k))
+        w_ops += 2.0 * s * float(w[w >= 0].mean() if (w >= 0).any() else 0.0) * e ** 2
+    record("sparse_reach_rows", ops.sparse_reach_rows, (Np, ids, R0), w_ops,
+           4.0 * (C * k + T * A1 * lp * W + 2 * C * S * W), packed_reach.grid(A1, lp, S, C, T),
+           runner, {"source": "src/repro_torch/csrc/packed_reach.cu",
+                    "replaces": "src/repro/kernels/sparse_reach.py:71"})
+    return records
+
+
+def fleet_phase(args, dev):
+    """The multi-tenant fleet on the card (``ParserFleet``): 256 tenants in
+    5 automaton buckets, every tenant's results held against a solo
+    ``Parser`` on its backend bit for bit, one reach launch and one K2
+    launch a bucket dispatch, the join's K3 launches independent of the
+    tenant count, fleet and solo-loop throughput side by side; returns the
+    tenant-axis kernel records."""
+    import numpy as np
+    import torch
+
+    from repro_torch import Parser, ParserFleet
+    from repro_torch.core.fleet import clear_table_cache
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    tenants = fleet_tenants(args.seed + 7)
+    items = [(tid, text) for tid, (_, texts) in tenants.items() for text in texts]
+    n_bytes = sum(len(text) for _, text in items)
+    clear_table_cache()
+    t0 = time.perf_counter()
+    fleet = ParserFleet({tid: cfg for tid, (cfg, _) in tenants.items()}, device=dev,
+                        max_batch=FLEET_MAX_BATCH)
+    setup_s = time.perf_counter() - t0
+    log = DispatchLog(fleet.engine)
+
+    got, fleet_cold_s, counts = counted(lambda: fleet.parse_batch(items))
+    for name in DispatchLog.KERNELS:
+        if counts[name] < 1:
+            raise AssertionError(f"fleet parse_batch never launched {name}: {counts}")
+    log.check("parse_batch")
+    dispatches = list(log.records)
+
+    # the solo loop: one Parser a (pattern, backend), each text parsed alone
+    solos = {}
+    for tid, (cfg, _) in tenants.items():
+        key = (cfg.regex, cfg.backend)
+        if key not in solos:
+            solos[key] = Parser(cfg, device=dev)
+    solo_secs = []
+    solo_by_bucket = {}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, by_bucket = [], {}
+        for tid, text in items:
+            t1 = time.perf_counter()
+            want.append(solos[(tenants[tid][0].regex, tenants[tid][0].backend)].parse(text))
+            key = "|".join(map(str, fleet.engine.tenant(tid).bucket_key))
+            by_bucket[key] = by_bucket.get(key, 0.0) + time.perf_counter() - t1
+        torch.cuda.synchronize()
+        solo_secs.append(time.perf_counter() - t0)
+        solo_by_bucket = by_bucket
+    for (tid, _), a, b in zip(items, got, want):
+        if a.ok != b.ok or not np.array_equal(a.forest.columns, b.forest.columns):
+            raise AssertionError(f"fleet tenant {tid}: result != its solo Parser's")
+    del want
+
+    # the same requests through the FleetParseService, warm: submit all, then
+    # drain step by step
+    log.records.clear()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [fleet.submit(tid, text) for tid, text in items]
+    steps = 0
+    while fleet._service.step():
+        steps += 1
+    drained = [t.result() for t in tickets]
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    drain_counts = ops.launch_counts()
+    log.check("service drain")
+    log_warm = list(log.records)
+    for a, b in zip(drained, got):
+        if not np.array_equal(a.forest.columns, b.forest.columns):
+            raise AssertionError("the service drain's result != parse_batch's")
+    del drained, tickets
+
+    # K3 launches of the a/b bucket's dispatch with 1 tenant and with 192
+    ab = [tid for tid in tenants if tid.startswith("ab")]
+    k3 = {}
+    for group in (ab[:1], ab):
+        log.records.clear()
+        fleet.parse_batch([(tid, text) for tid in group for text in tenants[tid][1]])
+        (rec,) = log.records
+        k3[len(group)] = rec["launches"]["semiring_matmul"]
+    if k3[1] != k3[len(ab)] or k3[1] < 1:
+        raise AssertionError(f"the join's K3 launches depend on the tenant count: {k3}")
+
+    stats = fleet.stats()
+    snap = {str(k): v for k, v in stats["metrics"].items()}
+    cache = {name: snap[name][0]["value"] if name in snap else 0.0
+             for name in ("table_cache_hits_total", "table_cache_misses_total")}
+    fleet_s, solo_s = drain_s, solo_secs[1]
+    emit("fleet", tenants=len(tenants), texts=len(items), bytes=n_bytes,
+         buckets=stats["fleet"]["bucket_sizes"], n_buckets=stats["fleet"]["n_buckets"],
+         compile_count=fleet.compile_count, setup_s=setup_s,
+         fleet_sweep_s={"parse_batch_cold": fleet_cold_s, "service_drain_warm": drain_s},
+         solo_sweep_s=solo_secs,
+         fleet_texts_per_s=len(items) / fleet_s, solo_texts_per_s=len(items) / solo_s,
+         fleet_mb_per_s=n_bytes / fleet_s / 1e6, solo_mb_per_s=n_bytes / solo_s / 1e6,
+         speedup=solo_s / fleet_s, dispatches=dispatches, launches=counts,
+         bucket_s={rec["bucket"]: {"fleet_dispatch": rec["seconds"],
+                                   "solo": solo_by_bucket[rec["bucket"]]}
+                   for rec in log_warm},
+         results_equal_solo_parsers=True, service={"steps": steps, "drain_s": drain_s,
+                                                   "mb_per_s": n_bytes / drain_s / 1e6,
+                                                   "launches": drain_counts},
+         k3_launches_by_tenants={str(t): n for t, n in k3.items()}, table_cache=cache)
+    # the warm run's launches by kernel and plan: the group kernels and
+    # walks ("fleet") apart from the fallbacks
+    case = {"group": "fleet", "walk": "fleet", "strip": "fleet_strip", "rows": "fleet_rows",
+            "fold": "fleet_fold"}
+    by_case = {}
+    for rec in log_warm:
+        n, g = rec["launches"], rec["grids"]
+        reach_name = next(k for k in DispatchLog.KERNELS[:3] if n[k])
+        for name, kind in ((reach_name, g["reach_kernel"]),
+                           ("build_merge_packed", g["build_merge_kernel"])):
+            by_case[(name, case[kind])] = by_case.get((name, case[kind]), 0) + n[name]
+    records = fleet_kernel_records(fleet, tenants, by_case)
+    emit("fleet_phase_total", seconds=time.perf_counter() - t_phase)
+    del fleet, solos, got
+    torch.cuda.empty_cache()
+    return records
+
+
+def analysis_phase(dev, parse_mb_per_s) -> None:
+    """The static analyzer on TRAFFIC and e125: the report, the ``auto``
+    choice on the card and whether the cost model's ranking agrees with the
+    measured ``Parser.parse`` MB/s of the three kernel paths (``main_path``
+    lines); an ``auto`` parser resolves to that path; then the phase-program
+    lint over the kernel paths' phases at the main path's buckets, every
+    finding printed."""
+    from repro_torch import Parser, ParserConfig
+    from repro_torch.analyze import analyze_pattern, lint_engine, resolve_backend
+
+    for label, regex in (("TRAFFIC", TRAFFIC_RE), ("e125", E125_RE)):
+        report = analyze_pattern(regex)
+        choice = resolve_backend(report.recommended_backend, dev.type)
+        auto = Parser(ParserConfig(regex=regex, backend="auto", n_chunks=N_CHUNKS), device=dev)
+        ran = (auto.backend_name, getattr(auto.engine.backend, "kernel", False))
+        if ran != choice:
+            raise AssertionError(f"{label}: auto ran {ran}, resolved {choice}")
+        cost = report.cost
+        candidates = ["sparse", "packed", "torch"] if report.width_bucket < report.ell_pad \
+            else ["packed", "torch"]
+        model = [("cuda" if b == "torch" else b) for b in
+                 sorted(candidates, key=lambda b: cost[b]["t_total"])]
+        card = sorted(model, key=lambda b: -parse_mb_per_s[(label, b)])
+        findings = {}
+        for backend in ("cuda", "packed", "sparse"):
+            p = Parser(ParserConfig(regex=regex, backend=backend, kernel=backend != "cuda",
+                                    n_chunks=N_CHUNKS, analyze="off"), device=dev)
+            k = p.engine.bucket_shape(E125_BYTES if label == "e125" else TRAFFIC_BYTES,
+                                      N_CHUNKS)[1]
+            findings[backend] = [str(f) for f in lint_engine(p.engine, ((N_CHUNKS, k),),
+                                                             label=f"{label}:{backend}")]
+            del p
+        report_d = report.to_dict()
+        report_d["pattern"] = label
+        emit("analysis", cell=label, report=report_d, auto_choice=list(choice),
+             model_ranking=model, card_ranking=card, ranking_agrees=model[0] == card[0],
+             parse_mb_per_s={b: parse_mb_per_s[(label, b)] for b in model},
+             lint_findings=findings, lint_clean=not any(findings.values()))
 
 
 if __name__ == "__main__":

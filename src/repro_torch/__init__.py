@@ -19,6 +19,10 @@ K6 flash attention and K7 SSD chunk; decode and the RE-constrained
     with p.open_stream() as s:                              # ParserStream
         s.append("ab"); s.edit(0, 1, "b"); s.result()
     p.stats()                                               # services, metrics, SLO
+    p.analysis                                              # static AnalysisReport
+
+    fleet = repro_torch.ParserFleet({"a": "(a|b)*abb", "b": "GET /[a-z]+"})
+    fleet.parse_batch([("a", "ababb"), ("b", "GET /x")])    # one dispatch a bucket
 
     cpu = repro_torch.Parser(
         repro_torch.ParserConfig(regex="(a|b|ab)+", backend="torch"), device="cpu"
@@ -30,8 +34,10 @@ K6 flash attention and K7 SSD chunk; decode and the RE-constrained
     logits, _ = prefill(init_params(cfg, seed=0), tokens, cfg)   # K6, K7
 """
 
-from . import api, errors, obs
-from .api import ParseResult, ParseTicket, Parser, ParserConfig, ParserStream, SLOTargets
+from . import analyze, api, errors, obs
+from .api import (
+    ParseResult, ParseTicket, Parser, ParserConfig, ParserFleet, ParserStream, SLOTargets,
+)
 from .core.backend import ParserBackend, get_backend, list_backends, register_backend
 from .core.engine import ParserEngine
 from .core.slpf import SLPF, compress
@@ -44,12 +50,10 @@ from .errors import (
     SessionNotFound,
 )
 
-# the reference's exports that are ported (``repro/__init__.py``), and the
-# engine; ``ParserFleet`` and ``analyze`` wait for their modules (ROADMAP
-# Queue 1 items 9 and 10)
+# the reference's exports (``repro/__init__.py``), and the engine
 __all__ = sorted([
     "AdmissionError", "BudgetExceeded", "ObsConfig", "ParseError", "ParseResult",
-    "ParseTicket", "Parser", "ParserBackend", "ParserConfig", "ParserEngine", "ParserStream",
-    "PathologicalPatternError", "SLOTargets", "SLPF", "SessionNotFound", "compress",
-    "get_backend", "list_backends", "register_backend",
-]) + ["api", "errors", "obs"]
+    "ParseTicket", "Parser", "ParserBackend", "ParserConfig", "ParserEngine", "ParserFleet",
+    "ParserStream", "PathologicalPatternError", "SLOTargets", "SLPF", "SessionNotFound",
+    "compress", "get_backend", "list_backends", "register_backend",
+]) + ["analyze", "api", "errors", "obs"]

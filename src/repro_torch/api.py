@@ -12,7 +12,12 @@ It mirrors ``repro/api.py``:
                      the same engine: ``parse`` / ``parse_batch`` /
                      ``submit`` → ``ParseTicket`` / ``open_stream`` →
                      ``ParserStream``, and ``stats()`` over both services,
-                     the metrics registry and the SLO targets.
+                     the metrics registry, the SLO targets and the static
+                     analysis.
+  ``ParserFleet``    many patterns on one device: each tenant's tables in a
+                     shared automaton bucket (``core/fleet.py``), one
+                     dispatch a bucket, over the weighted-fair
+                     ``FleetParseService``.
   ``ParseResult``    the forest with ``ok``, ``matches``, ``children``,
                      ``trees`` and timing / backend / bucket / trace metadata.
 
@@ -23,39 +28,44 @@ phase-split route, one ``parse.request`` span with a span per phase.
 ``kernel=True`` selects the kernel path of ``packed`` (K4, and K2 for
 build&merge) and ``sparse`` (K5 and K2); ``cuda`` is always kernels, as
 ``pallas`` is in the reference.  A kernel path runs only on the card.
-Settings whose subsystem is not ported yet are accepted by ``ParserConfig``
-(so configs round-trip between the packages) and refused by ``Parser`` with
-``NotImplementedError`` naming the ROADMAP item: ``backend="auto"`` and
-``analyze="strict"`` (item 10, static analysis) and ``mesh`` (item 11).
-``analyze="warn"`` is accepted but does not analyze the pattern yet, so
-``stats()["analysis"]`` is None; ``stats()["hlo"]`` is None too (item 12).
+
+Static analysis (``repro_torch.analyze``) runs at construction, as the
+reference's does: ``analyze="warn"`` (the default) warns on a pathologically
+ambiguous pattern, ``"strict"`` refuses it with ``PathologicalPatternError``
+(at ``Parser`` construction, at ``ParserFleet.add``, and on the services'
+admission), ``"off"`` skips it (``stats()["analysis"]`` then computes it
+lazily).  ``backend="auto"`` takes the analyzer's choice and runs it as the
+device runs it best (``analyze.pattern.resolve_backend``): on the card the
+dense family as ``cuda`` and ``packed`` / ``sparse`` with ``kernel=True``.
+``mesh`` is accepted by ``ParserConfig`` (so configs round-trip between the
+packages) and refused by ``Parser`` and ``ParserFleet`` with
+``NotImplementedError`` naming ROADMAP Queue 1 item 11; ``stats()["hlo"]``
+is None (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 from .core.backend import PackedBackend, ParserBackend, SparseBackend, get_backend
-from .core.engine import ParserEngine
+from .core.engine import ParserEngine, resolve_device
 from .core.matrices import ParserMatrices, build_matrices, feasible_start_widths
 from .core.numbering import CLOSE, OP_GROUP, OPEN
 from .core.segments import SegmentTable, compute_segments
 from .core.slpf import SLPF
-from .errors import ParseError
+from .errors import ParseError, PathologicalPatternError
 from .obs import ObsConfig, ObsHandle
-from .serve.parse_service import BucketStats, ParseRequest, ParseService
+from .serve.parse_service import BucketStats, FleetParseService, ParseRequest, ParseService
 from .serve.stream_service import StreamService
 
 _HOST_MESH_AXES = ("pod", "data")
-# every backend name a config may carry; only the registered ones
-# (core/backend.py) run in this package today
+# every backend name a config may carry: the registered ones
+# (core/backend.py) and "auto", which the static analyzer resolves
 _CONFIG_BACKENDS = ("auto", "cuda", "packed", "sparse", "torch")
-# settings refused by Parser until their subsystem is ported (ROADMAP.md)
-_UNPORTED_BACKENDS = {
-    "auto": "Queue 1 item 10 (static analysis)",
-}
+_MESH_UNPORTED = "mesh: ROADMAP Queue 1 item 11 (mesh distribution)"
 
 
 def _is_pow2(x: int) -> bool:
@@ -217,25 +227,26 @@ class ParserConfig:
     def replace(self, **kw) -> "ParserConfig":
         return dataclasses.replace(self, **kw)
 
-    def build_backend(self) -> ParserBackend:
-        """Instantiate the configured phase backend, kernel toggle applied
-        (``cuda`` is always kernels).  ``auto`` is not a backend: it waits
-        for the static analyzer, and ``get_backend`` refuses it."""
-        if self.backend == "sparse":
-            return SparseBackend(kernel=self.kernel, depth=self.feasible_depth)
-        if self.backend == "packed" and self.kernel:
+    def build_backend(
+        self, resolved: Optional[str] = None, kernel: Optional[bool] = None
+    ) -> ParserBackend:
+        """Instantiate the phase backend, kernel toggle applied (``cuda`` is
+        always kernels).  ``resolved`` / ``kernel`` override the configured
+        name and toggle: the facade passes what ``backend="auto"`` resolved
+        to; "auto" itself is not a backend."""
+        name = resolved if resolved is not None else self.backend
+        kernel = self.kernel if kernel is None else kernel
+        if name == "auto":
+            raise ValueError(
+                'backend="auto" resolves through the static analyzer; '
+                "build_backend needs the resolved name (use repro_torch.analyze."
+                "resolve_auto_backend or construct a Parser)"
+            )
+        if name == "sparse":
+            return SparseBackend(kernel=kernel, depth=self.feasible_depth)
+        if name == "packed" and kernel:
             return PackedBackend(kernel=True)
-        return get_backend(self.backend)
-
-    def _unported(self) -> Optional[str]:
-        """Why ``Parser`` cannot serve this config yet (None if it can)."""
-        if self.backend in _UNPORTED_BACKENDS:
-            return f"backend={self.backend!r}: ROADMAP {_UNPORTED_BACKENDS[self.backend]}"
-        if self.mesh is not None:
-            return "mesh: ROADMAP Queue 1 item 11 (mesh distribution)"
-        if self.analyze == "strict":
-            return 'analyze="strict": ROADMAP Queue 1 item 10 (static analysis)'
-        return None
+        return get_backend(name)
 
 
 # ------------------------------------------------------------------ results
@@ -320,7 +331,7 @@ class ParseTicket:
 
     def __init__(
         self,
-        parser: "Parser",
+        parser: Union["Parser", "ParserFleet"],
         service: ParseService,
         request: ParseRequest,
         deadline_s: Optional[float] = None,
@@ -378,6 +389,7 @@ class ParseTicket:
             bucket=req.bucket,
             latency_s=req.latency_s,
             trace_id=req.trace_id,
+            tenant=req.tenant,
         )
         return self._result
 
@@ -493,19 +505,53 @@ class Parser:
                 f"Parser takes a ParserConfig, a pattern string, or a config "
                 f"dict; got {type(config).__name__}"
             )
-        why = config._unported()
-        if why is not None:
-            raise NotImplementedError(f"not ported yet: {why}")
+        if config.mesh is not None:
+            raise NotImplementedError(f"not ported yet: {_MESH_UNPORTED}")
         self.config = config
         if matrices is None:
             matrices = build_matrices(compute_segments(config.regex))
         self.matrices = matrices
+        device = resolve_device(device)
         # one ObsHandle for the whole parser: the engine carries it, and
         # every layer over the engine (services, streams) records into it
         self.obs = ObsHandle.from_config(config.obs)
+        # static analysis at construction when the config wants a verdict
+        # (analyze != "off") or needs one (backend == "auto"); otherwise
+        # stats()["analysis"] computes it lazily
+        self._analysis = None
+        resolved, kernel = config.backend, config.kernel
+        if config.backend == "auto" or config.analyze != "off":
+            report = self._analyze()
+            m = self.obs.metrics
+            m.counter("analyzer_verdicts_total", verdict=report.verdict).inc()
+            if report.verdict == "pathological":
+                if config.analyze == "strict":
+                    m.counter(
+                        "admission_rejects_total", service="analyze", cause="pathological"
+                    ).inc()
+                    raise PathologicalPatternError(
+                        f"pattern {config.regex!r} is pathologically ambiguous (an "
+                        "iterator with a nullable body admits unboundedly many parse "
+                        'trees per text); analyze="strict" rejects it at construction',
+                        pattern=config.regex,
+                        ambiguity=report.ambiguity,
+                    )
+                if config.analyze == "warn":
+                    warnings.warn(
+                        f"repro_torch: pattern {config.regex!r} is pathologically "
+                        "ambiguous — forest size is unbounded per text "
+                        '(analyze="strict" rejects such patterns)',
+                        UserWarning,
+                        stacklevel=2,
+                    )
+            if config.backend == "auto":
+                from .analyze.pattern import resolve_backend
+
+                resolved, kernel = resolve_backend(report.recommended_backend, device.type)
+                m.counter("auto_backend_selected_total", backend=resolved).inc()
         self.engine = ParserEngine(
             matrices,
-            backend=config.build_backend(),
+            backend=config.build_backend(resolved, kernel),
             min_chunk_len=config.min_chunk_len,
             device=device,
             obs=self.obs,
@@ -539,6 +585,27 @@ class Parser:
     @property
     def compile_count(self) -> int:
         return self.engine.compile_count
+
+    def _analyze(self):
+        if self._analysis is None:
+            from .analyze import analyze_matrices
+
+            # from_matrices parsers carry a placeholder pattern: analyze the
+            # automaton alone (the AST legs fall back to matrix facts)
+            pattern = self.config.regex
+            if pattern == "<prebuilt>":
+                pattern = None
+            self._analysis = analyze_matrices(
+                self.matrices, pattern=pattern, depth=max(4, self.config.feasible_depth)
+            )
+        return self._analysis
+
+    @property
+    def analysis(self):
+        """The static ``AnalysisReport`` (``repro_torch.analyze``), memoized:
+        feasible-start width bounds, ambiguity verdict, product density, the
+        per-backend cost model and the recommended backend."""
+        return self._analyze()
 
     @property
     def table(self) -> SegmentTable:
@@ -609,6 +676,7 @@ class Parser:
         bucket: Optional[Tuple[int, int]] = None,
         latency_s: Optional[float] = None,
         trace_id: Optional[str] = None,
+        tenant: Optional[str] = None,  # ticket plumbing: one automaton here
     ) -> ParseResult:
         return ParseResult(
             forest=slpf,
@@ -619,6 +687,11 @@ class Parser:
             speculation=self._speculation(slpf, bucket),
             trace_id=trace_id,
         )
+
+    def _verdict(self) -> str:
+        """The verdict the services' pattern guard holds: the analysis made
+        at construction, or "ok" where none was (``analyze="off"``)."""
+        return self._analysis.verdict if self._analysis is not None else "ok"
 
     @property
     def parse_service(self) -> ParseService:
@@ -634,7 +707,7 @@ class Parser:
             # the facade's traffic is one tenant; its weight only matters
             # when sharing a queue (tests / embedders may add more)
             self._parse_service.register_tenant("default", weight=c.weight)
-            self._parse_service.set_pattern_guard("ok", c.analyze)
+            self._parse_service.set_pattern_guard(self._verdict(), c.analyze)
         return self._parse_service
 
     @property
@@ -650,7 +723,7 @@ class Parser:
                 cache_budget_bytes=c.cache_budget_bytes,
                 max_pending_chars=c.max_pending_chars,
             )
-            self._stream_service.set_pattern_guard("ok", c.analyze)
+            self._stream_service.set_pattern_guard(self._verdict(), c.analyze)
         return self._stream_service
 
     # ---------------------------------------------------------------- parse
@@ -762,9 +835,9 @@ class Parser:
         (``p50_ok``/``p99_ok`` appear only when targets are set);
         ``speculation`` (sparse backend only, else None) reports the carried
         product rows S against ℓp and the per-bucket observed widths.
-        ``analysis`` is None until the static analyzer is ported (ROADMAP
-        Queue 1 item 10) and ``hlo`` is None until the counterpart of the
-        reference's HLO cost model is (item 12).
+        ``analysis`` is the static analyzer's report (``analysis`` as a
+        dict), computed lazily and memoized; ``hlo`` is None until the
+        counterpart of the reference's HLO cost model is ported (item 12).
         """
         slo = self.config.slo
         ps = self._parse_service.stats if self._parse_service is not None else None
@@ -786,7 +859,7 @@ class Parser:
             "stream": ss,
             "metrics": self.obs.metrics.snapshot(),
             "hlo": None,
-            "analysis": None,
+            "analysis": self._analyze().to_dict(),
             "speculation": speculation,
             "slo": {
                 "targets": dataclasses.asdict(slo) if slo is not None else None,
@@ -800,6 +873,272 @@ class Parser:
         self.obs.close()
 
     def __enter__(self) -> "Parser":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# -------------------------------------------------------------------- fleet
+
+
+class ParserFleet:
+    """Many regexes, one device: the multi-tenant facade.
+
+        fleet = repro_torch.ParserFleet({
+            "errors":  "ERROR: .*",
+            "api":     ParserConfig(regex="GET /[a-z]+", weight=2.0),
+        })
+        fleet.parse("errors", line).ok
+        fleet.parse_batch([("errors", l1), ("api", l2), ...])
+
+    Each tenant is a ``ParserConfig`` (or pattern string / config dict), but
+    instead of one engine per config, every tenant's tables are padded into
+    a shared pow2 automaton bucket (``core/fleet.py``) and a bucket's
+    requests are served by ONE dispatch: one launch of each parse kernel
+    for every tenant in it, each result equal to that tenant's solo
+    ``Parser``'s.  Table builds go through a process-wide compile cache
+    keyed on (normalized regex, backend, ℓp bucket).
+
+    Serving is the weighted-fair scheduler (``FleetParseService``): each
+    tenant's ``weight`` is its fair share, ``max_pending`` its own queue
+    budget, ``slo`` its own grading targets in ``stats()``.  ``device=None``
+    means the card; ``mesh=`` (and a tenant config with ``mesh``) raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+    """
+
+    def __init__(
+        self,
+        tenants: Optional[Mapping[str, Union[ParserConfig, str, Mapping[str, Any]]]] = None,
+        *,
+        max_batch: int = 32,
+        max_pending: Optional[int] = None,
+        obs: Union[ObsConfig, Mapping[str, Any], None] = None,
+        device=None,
+        mesh=None,
+    ):
+        from .core.fleet import FleetEngine
+
+        if mesh is not None:
+            raise NotImplementedError(f"not ported yet: {_MESH_UNPORTED}")
+        if obs is not None and isinstance(obs, Mapping):
+            obs = ObsConfig(**dict(obs))
+        self.obs = ObsHandle.from_config(obs)
+        self.engine = FleetEngine(obs=self.obs, device=device)
+        self._service = FleetParseService._internal(
+            self.engine, max_batch=max_batch, max_pending=max_pending
+        )
+        self._configs: Dict[str, ParserConfig] = {}
+        # tenant -> backend actually served (backend="auto" resolved)
+        self._backends: Dict[str, str] = {}
+        for name, cfg in (tenants or {}).items():
+            self.add(name, cfg)
+
+    # ---------------------------------------------------------------- tenants
+
+    def add(
+        self,
+        name: str,
+        config: Union[ParserConfig, str, Mapping[str, Any]],
+        *,
+        matrices: Optional[ParserMatrices] = None,
+    ) -> "ParserFleet":
+        """Register a tenant (chainable).  ``matrices`` bypasses the regex
+        compile path for prebuilt tables (``Parser.from_matrices``' analog)."""
+        from .core.fleet import TenantSpec
+
+        if isinstance(config, str):
+            config = ParserConfig(regex=config)
+        elif isinstance(config, Mapping):
+            config = ParserConfig.from_dict(config)
+        if not isinstance(config, ParserConfig):
+            raise TypeError(
+                f"fleet tenant config must be a ParserConfig, pattern string, "
+                f"or config dict; got {type(config).__name__}"
+            )
+        if config.mesh is not None:
+            raise NotImplementedError(
+                f"not ported yet: fleet tenant {name!r}: {_MESH_UNPORTED}"
+            )
+        # static analysis at admission: Parser construction's policy, but a
+        # reject is an admission event, and the fleet keeps serving the rest
+        if config.analyze != "off" and matrices is None:
+            from .analyze.pattern import cached_report
+
+            report = cached_report(config.regex, max(4, config.feasible_depth))
+            m = self.obs.metrics
+            m.counter("analyzer_verdicts_total", verdict=report.verdict).inc()
+            if report.verdict == "pathological":
+                if config.analyze == "strict":
+                    m.counter(
+                        "admission_rejects_total", service="fleet", cause="pathological"
+                    ).inc()
+                    raise PathologicalPatternError(
+                        f"fleet tenant {name!r}: pattern {config.regex!r} is "
+                        "pathologically ambiguous (an iterator with a nullable body "
+                        "admits unboundedly many parse trees per text); "
+                        'analyze="strict" rejects it at admission',
+                        pattern=config.regex,
+                        ambiguity=report.ambiguity,
+                    )
+                warnings.warn(
+                    f"repro_torch: fleet tenant {name!r} pattern {config.regex!r} is "
+                    "pathologically ambiguous — forest size is unbounded per text "
+                    '(analyze="strict" rejects such tenants)',
+                    UserWarning,
+                    stacklevel=2,
+                )
+        spec = TenantSpec(
+            regex=config.regex,
+            backend=config.backend,
+            kernel=config.kernel,
+            feasible_depth=config.feasible_depth,
+            n_chunks=config.n_chunks,
+            min_chunk_len=config.min_chunk_len,
+            weight=config.weight,
+            max_pending=config.max_pending,
+        )
+        self._service.add_tenant(name, spec, matrices=matrices)
+        self._configs[name] = config
+        # the engine resolves backend="auto": record what the tenant runs on
+        self._backends[name] = self.engine.tenant(name).spec.backend
+        return self
+
+    @property
+    def tenants(self) -> Dict[str, ParserConfig]:
+        return dict(self._configs)
+
+    def config_of(self, tenant: str) -> ParserConfig:
+        try:
+            return self._configs[tenant]
+        except KeyError:
+            raise KeyError(f"unknown fleet tenant {tenant!r}") from None
+
+    def groups_of(self, tenant: str) -> List[int]:
+        """Numbered group ids of one tenant's pattern (``Parser.groups``'
+        analog), usable with ``ParseResult.matches``."""
+        table = self.engine.tenant(tenant).tables.matrices.table
+        return sorted(
+            {s.num for s in table.numbered.symbols if s.kind == OPEN and s.op == OP_GROUP}
+        )
+
+    # ------------------------------------------------------------------ parse
+
+    def _default_deadline_s(self, tenant: str) -> Optional[float]:
+        slo = self.config_of(tenant).slo
+        return slo.default_deadline_s if slo is not None else None
+
+    def submit(self, tenant: str, text, *, deadline_s: Optional[float] = None) -> ParseTicket:
+        """Deadline-aware asynchronous submission for one tenant: the
+        admission contract of ``Parser.submit`` plus the tenant's own
+        ``max_pending`` budget (``BudgetExceeded``)."""
+        if deadline_s is None:
+            deadline_s = self._default_deadline_s(tenant)
+        req = self._service.submit_request(text, deadline_s=deadline_s, tenant=tenant)
+        return ParseTicket(self, self._service, req, deadline_s=deadline_s)
+
+    def parse(self, tenant: str, text, *, deadline_s: Optional[float] = None) -> ParseResult:
+        """Parse one text under one tenant's automaton (sync)."""
+        return self.submit(tenant, text, deadline_s=deadline_s).result()
+
+    def parse_batch(
+        self,
+        items: Sequence[Tuple[str, Any]],
+        *,
+        deadline_s: Optional[float] = None,
+    ) -> List[ParseResult]:
+        """Parse ``[(tenant, text), ...]``; results in input order.
+
+        Same-bucket requests, across tenants, share one dispatch a step
+        (up to ``max_batch`` of them).  Admission is all-or-nothing, as in
+        ``Parser.parse_batch``.
+        """
+        tickets: List[ParseTicket] = []
+        try:
+            for tenant, text in items:
+                tickets.append(self.submit(tenant, text, deadline_s=deadline_s))
+        except Exception:
+            for ticket in tickets:
+                ticket.cancel()
+            raise
+        return [t.result() for t in tickets]
+
+    def _wrap(
+        self,
+        slpf: SLPF,
+        *,
+        bucket=None,
+        latency_s: Optional[float] = None,
+        trace_id: Optional[str] = None,
+        tenant: Optional[str] = None,
+    ) -> ParseResult:
+        cfg = self._configs.get(tenant) if tenant is not None else None
+        backend = self._backends.get(tenant) if tenant is not None else None
+        return ParseResult(
+            forest=slpf,
+            backend=backend if backend is not None else "fleet",
+            bucket=bucket,
+            latency_s=latency_s,
+            n_chunks=cfg.n_chunks if cfg is not None else None,
+            speculation=None,
+            trace_id=trace_id,
+        )
+
+    # ------------------------------------------------------------------ stats
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct dispatch shapes fleet-wide: O(#buckets × shapes),
+        independent of the tenant count."""
+        return self.engine.compile_count
+
+    def stats(self) -> Dict[str, Any]:
+        """The fleet-wide serving view: each tenant's weighted-fair and
+        latency state with an SLO grade against ITS config targets, and the
+        bucket economy (tenants a bucket, compile count, the process-wide
+        table cache), the number that should stay flat as tenants
+        multiply."""
+        from .core.fleet import table_cache_stats
+
+        s = self._service.stats
+        tenants: Dict[str, Any] = {}
+        for name, d in s["tenants"].items():
+            cfg = self._configs.get(name)
+            grade: Dict[str, Any] = {
+                "p50_s": d["p50_latency_s"],
+                "p99_s": d["p99_latency_s"],
+            }
+            slo = cfg.slo if cfg is not None else None
+            if slo is not None and slo.p50_s is not None:
+                grade["p50_ok"] = d["p50_latency_s"] <= slo.p50_s
+            if slo is not None and slo.p99_s is not None:
+                grade["p99_ok"] = d["p99_latency_s"] <= slo.p99_s
+            tenants[name] = {**d, "backend": self._backends.get(name), "slo": grade}
+        return {
+            "backend": "fleet",
+            "pending": s["pending"],
+            "peak_queue_depth": s["peak_queue_depth"],
+            "batches_run": s["batches_run"],
+            "compile_count": self.compile_count,
+            "buckets": s["buckets"],
+            "tenants": tenants,
+            "fleet": {
+                "n_tenants": len(self._configs),
+                "n_buckets": self.engine.n_buckets,
+                "bucket_sizes": {
+                    "|".join(map(str, k)): v
+                    for k, v in sorted(self.engine.bucket_sizes().items())
+                },
+                "table_cache": table_cache_stats(),
+            },
+            "metrics": self.obs.metrics.snapshot(),
+        }
+
+    def close(self) -> None:
+        """Flush observability sinks (the JSONL span log, if configured)."""
+        self.obs.close()
+
+    def __enter__(self) -> "ParserFleet":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -31,7 +31,17 @@ Backends (names map to the reference's: ``torch`` ↔ ``jnp``, ``cuda`` ↔
 
 A backend built with ``kernel=True`` runs only on the card
 (``needs_cuda``); its phases called on CPU tensors run the kernels' plain
-versions, as every wrapper does.  Backends whose products depend on the
+versions, as every wrapper does.
+
+The tenant axis (the fleet, ``core/fleet.py``): every phase also takes a
+stack of T automata of one bucket shape, N (T, A+1, ℓp, ℓp) with chunks
+(T, …, k) and I / F broadcasting over the chunk grid's batch axes (the
+fleet passes (T, 1, ℓp)).  Reach and build&merge flatten the chunks tenant
+by tenant and hand the stack to ONE kernel launch (each chunk reads its own
+tenant's table), the join's K3 folds every leading axis into one launch
+(``_batched``), and the sparse feasible rows gather each chunk's classes
+from its own tenant's table.  A sparse bucket binds the shared width S of
+its members with ``bind_shape``.  Backends whose products depend on the
 automaton take it in ``bind_tables(tables)``, which the engine calls once
 the tables are built; the default is a no-op.  The sparse width S is the
 reference's: the worst single-class feasible width rounded up to a power of
@@ -46,8 +56,10 @@ from typing import Callable, Dict, Optional, Tuple, Type, Union
 import torch
 
 from ..kernels import ops
+from ..kernels.checks import derived
 from ..kernels.ref import (
     build_merge_chunk_ref,
+    class_tables,
     packed_reach_chunk_product_ref,
     reach_chunk_product_ref,
     semiring_matmul_ref,
@@ -190,7 +202,9 @@ class ParserBackend:
 def _flat(fn, N, chunks, *per_chunk):
     """Run a (C, k)-chunk phase body on chunks with any leading axes; each
     ``per_chunk`` tensor carries the same leading axes and one trailing
-    axis (entries (…, ℓp), feasible rows (…, S, W) flatten alike)."""
+    axis (entries (…, ℓp), feasible rows (…, S, W) flatten alike).  With a
+    tenant stack N (T, …) the chunks' first axis is the tenant's, so the
+    flat chunks come tenant by tenant, as the kernels take them."""
     lead = chunks.shape[:-1]
     flat = [chunks.reshape((-1,) + chunks.shape[-1:]).contiguous()]
     flat += [x.reshape((-1,) + x.shape[len(lead):]).contiguous() for x in per_chunk]
@@ -247,13 +261,21 @@ def packed_build_merge(
     M = torch.empty((C, k, Np.shape[-1]), dtype=torch.int32, device=Np.device)
     vp = pack_bits_torch(entry_f)
     for t in range(k):
-        vp = packed_matvec_words(Np[ids[:, t]], vp)
+        vp = packed_matvec_words(class_tables(Np, ids[:, t]), vp)
         M[:, t] = vp
     beta = pack_bits_torch(entry_b)
     for t in range(k - 1, -1, -1):
         M[:, t] &= beta
-        beta = packed_matvec_T_words(Np[ids[:, t]], beta)
+        beta = packed_matvec_T_words(class_tables(Np, ids[:, t]), beta)
     return M
+
+
+def packed_tables(N: torch.Tensor) -> torch.Tensor:
+    """``pack_transition_table_torch(N)``, kept while N lives unchanged (an
+    engine's tables, a fleet bucket's gathered stack), so that a warm call
+    packs nothing."""
+    return derived(N, "packed", lambda: pack_transition_table_torch(N))
+
 
 
 class PackedBackend(ParserBackend):
@@ -280,7 +302,7 @@ class PackedBackend(ParserBackend):
 
     def reach(self, N, chunks):
         fold = ops.packed_reach_chunk_product if self.kernel else packed_reach_chunk_product_ref
-        return _flat(fold, pack_transition_table_torch(N), chunks)
+        return _flat(fold, packed_tables(N), chunks)
 
     def compose(self, later, earlier):
         return packed_semiring_matmul(later, earlier)
@@ -297,7 +319,7 @@ class PackedBackend(ParserBackend):
     def build_merge_packed(self, N, chunks, Jf, Jb):
         if self.kernel:
             return _flat(ops.build_merge_packed, N, chunks, Jf, Jb)
-        return _flat(packed_build_merge, pack_transition_table_torch(N), chunks, Jf, Jb)
+        return _flat(packed_build_merge, packed_tables(N), chunks, Jf, Jb)
 
 
 def next_pow2(n: int) -> int:
@@ -367,7 +389,9 @@ class SparseBackend(PackedBackend):
         S = self._require_bound(lp)
         u = torch.ones(chunks.shape[:-1] + (lp, 1), dtype=N.dtype, device=N.device)
         for j in range(min(self.depth, chunks.shape[-1]) - 1, -1, -1):
-            u = semiring_matmul_ref(N[chunks[..., j]].transpose(-1, -2), u)
+            cls = chunks[..., j]
+            Nx = class_tables(N, cls.reshape(-1)).reshape(cls.shape + (lp, lp))
+            u = semiring_matmul_ref(Nx.transpose(-1, -2), u)
         states = torch.arange(lp, dtype=torch.int32, device=N.device)
         idx = torch.where(u[..., 0] > 0.5, states, SPARSE_EMPTY)
         return torch.sort(idx, dim=-1).values[..., :S]
@@ -378,12 +402,12 @@ class SparseBackend(PackedBackend):
         idx = self.feasible_rows(N, chunks)                      # (…, S)
         R0 = sparse_init_rows(idx, lp)                           # (…, S, W)
         fold = ops.sparse_reach_rows if self.kernel else sparse_reach_rows_ref
-        R = _flat(fold, pack_transition_table_torch(N), chunks, R0)
+        R = _flat(fold, packed_tables(N), chunks, R0)
         body = torch.cat([idx.unsqueeze(-1), R], dim=-1)
         # an all-PAD padding chunk ⇔ its first class is PAD (PAD only pads
         # the tail) ⇒ its product is exactly the identity: the flagged form
         ident = sparse_identity(S, lp // 32, N.device)
-        pad = (chunks[..., 0] == N.shape[0] - 1)[..., None, None]
+        pad = (chunks[..., 0] == N.shape[-3] - 1)[..., None, None]
         return torch.where(pad, ident, body)
 
     def compose(self, later, earlier):

@@ -33,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels.checks import check_class_ids
 from ..obs import ObsHandle
 from .backend import ParserBackend, get_backend, next_pow2, pack_columns_u32
 from .matrices import ParserMatrices, build_matrices
@@ -268,10 +269,11 @@ class ParserEngine:
         return padded.reshape(c, k)
 
     def chunks_tensor(self, chunks: np.ndarray) -> torch.Tensor:
-        """A host chunk grid as an int32 tensor on the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(chunks, dtype=np.int32)).to(
-            self.device
-        )
+        """A host chunk grid as an int32 tensor on the engine's device, its
+        class ids range-checked here on the host (the kernels do not)."""
+        chunks = np.ascontiguousarray(chunks, dtype=np.int32)
+        check_class_ids(chunks, self.tables.N.shape[0])
+        return torch.from_numpy(chunks).to(self.device)
 
     def run(self, chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The fused core on a (c, k) or (B, c, k) grid already on the device:

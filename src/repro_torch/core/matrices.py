@@ -73,6 +73,53 @@ def build_matrices(table: SegmentTable) -> ParserMatrices:
     )
 
 
+def pad_matrices_bundle(
+    m: ParserMatrices, *, ell_pad: int, n_classes: int
+) -> tuple:
+    """Pad one automaton's (N, I, F) to a shared fleet-bucket table shape.
+
+    Returns float32 ``N (n_classes, ell_pad, ell_pad)``, ``I (ell_pad,)``,
+    ``F (ell_pad,)``, so that automata of different sizes stack on a leading
+    tenant axis and share one launch of each kernel (``core/fleet.py``):
+
+      * state axes zero-pad ℓ → ell_pad: padded states have no arcs and I/F
+        zero there, so they are unreachable and products restricted to the
+        first ℓ rows are the unpadded automaton's;
+      * the tenant's real classes keep indices 0..A-1 (``byte_to_class`` is
+        unchanged); every index from A through n_classes-1 (the relocated
+        PAD class, ``n_classes - 1`` across the bucket, and any unused
+        padding class below it) is the identity over the padded space.
+
+    The reference's ``repro/core/matrices.py::pad_matrices_bundle``, bit for
+    bit.
+    """
+    ell = m.n_segments
+    A1 = m.N.shape[0]                       # tenant classes incl. its PAD
+    if ell_pad < ell:
+        raise ValueError(f"ell_pad {ell_pad} < automaton segments {ell}")
+    if n_classes < A1:
+        raise ValueError(f"n_classes {n_classes} < automaton classes {A1}")
+    N = np.zeros((n_classes, ell_pad, ell_pad), dtype=np.float32)
+    N[: A1 - 1, :ell, :ell] = m.N[:-1].astype(np.float32)
+    N[A1 - 1:] = np.eye(ell_pad, dtype=np.float32)  # PAD + unused = identity
+    I = np.zeros(ell_pad, dtype=np.float32)
+    I[:ell] = m.I
+    F = np.zeros(ell_pad, dtype=np.float32)
+    F[:ell] = m.F
+    return N, I, F
+
+
+def feasible_width_bound(m: ParserMatrices) -> int:
+    """Worst-case single-character feasible-start width of one automaton:
+    the most source states with an arc on one real class (PAD and identity
+    padding excluded), the depth-1 bound every deeper feasible set
+    respects.  The fleet takes its maximum over a sparse bucket's members
+    as the bucket's shared width S."""
+    N = np.asarray(m.N[:-1]) > 0
+    widths = N.any(axis=1).sum(axis=1)
+    return int(widths.max()) if widths.size else 1
+
+
 def pack_bits(mat: np.ndarray, axis: int = -1) -> np.ndarray:
     """Pack a boolean array along ``axis`` into uint32 words (little-endian bits)."""
     mat = np.moveaxis(np.asarray(mat, dtype=bool), axis, -1)

@@ -56,6 +56,14 @@
 // forward pass wrote.
 //
 // Both write the packed (n_chunks, k, W) words of the plain version.
+//
+// The tenant axis (the fleet's bucket dispatch, core/fleet.py), as in K1
+// (csrc/reach.cu): T automata of one bucket shape, N stacked (T, A+1, lp,
+// lp), their chunks (and entries, and outputs) in T equal runs of cpt.  The
+// walk kernel's grid is (blocks a tenant, T): a block builds its own
+// tenant's tables and walks that tenant's chunks, so a warp's 32/L chunks
+// are always one tenant's.  The row kernel reads chunk c's rows from tenant
+// c / cpt's packed tables.  T = 1 is a plain launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,13 +80,16 @@ __global__ void build_merge_rows_kernel(const uint32_t* __restrict__ nr,
                                         const int32_t* __restrict__ ids,
                                         const float* __restrict__ entry_f,
                                         const float* __restrict__ entry_b,
-                                        uint32_t* __restrict__ out, int k, int lp, int W) {
+                                        uint32_t* __restrict__ out, int k, int lp, int W,
+                                        int cpt, long long table_words) {
   extern __shared__ uint32_t sv[];   // [2][W] packed frontier
   const long long chunk = blockIdx.x;
   const int i = threadIdx.x;
   const int lane = i & 31;
   const int warp = i >> 5;
   const long long NW = static_cast<long long>(lp) * W;
+  nr += chunk / cpt * table_words;   // this chunk's tenant's tables
+  nc += chunk / cpt * table_words;
   const int32_t* cid = ids + chunk * k;
   uint32_t* o = out + chunk * k * W;
 
@@ -322,11 +333,12 @@ __device__ __forceinline__ void walk_pass(const uint32_t* __restrict__ table,
   __syncwarp();
 }
 
-// N (n_classes, 32 W, 32 W) f32; ids (n_chunks, k); entries (n_chunks, 32 W)
-// f32; out (n_chunks, k, W).  Shared memory: the table(s), then walk_warps
-// rings of 2 * (32/L) * ((rs + 1) + (rs * W + 1)) words.  At least one block an
-// SM at 1024 threads gives a thread 64 registers (K1's and K4's finding: a
-// frontier's words then stay in them).
+// N (tenants, n_classes, 32 W, 32 W) f32; ids (tenants * n_chunks, k);
+// entries (tenants * n_chunks, 32 W) f32; out (tenants * n_chunks, k, W);
+// n_chunks is a tenant's, and block (x, t) serves tenant t.  Shared memory:
+// the table(s), then walk_warps rings of 2 * (32/L) * ((rs + 1) + (rs * W +
+// 1)) words.  At least one block an SM at 1024 threads gives a thread 64
+// registers (K1's and K4's finding: a frontier's words then stay in them).
 template <int W, int G, int L>
 __global__ void __launch_bounds__(WALK_THREADS, 1)
 build_merge_walk_kernel(const float* __restrict__ N, const int32_t* __restrict__ ids,
@@ -335,6 +347,14 @@ build_merge_walk_kernel(const float* __restrict__ N, const int32_t* __restrict__
                         int k, int rs, int both, int walk_warps) {
   extern __shared__ __align__(16) uint32_t smem[];
   constexpr int CPW = 32 / L;
+  {
+    const long long ten = blockIdx.y, LP = 32 * W;
+    N += ten * n_classes * LP * LP;
+    ids += ten * n_chunks * k;
+    entry_f += ten * n_chunks * LP;
+    entry_b += ten * n_chunks * LP;
+    out += ten * n_chunks * k * W;
+  }
   const int table_words = n_classes * cls_stride;
   uint32_t* tf = smem;
   uint32_t* tb = both ? smem + table_words : smem;
@@ -410,28 +430,31 @@ WalkKernel walk_kernel(int W, int g, int lanes) {
 
 }  // namespace
 
-// The row kernel.  nr, nc (A+1, lp, W) int32: N packed along its columns
-// (row-packed) and along its rows (column-packed); ids (n_chunks, k) int32 in
-// [0, A]; entry_f, entry_b (n_chunks, lp) f32 {0,1}; out (n_chunks, k, W)
-// int32.  lp % 32 == 0 and lp <= 1024.  Returns the cudaError_t of the launch
-// (0 on success).
+// The row kernel.  nr, nc (n_tenants, n_classes, lp, W) int32: N packed
+// along its columns (row-packed) and along its rows (column-packed); ids
+// (n_chunks, k) int32 in [0, n_classes), in n_tenants equal runs; entry_f,
+// entry_b (n_chunks, lp) f32 {0,1}; out (n_chunks, k, W) int32.  lp % 32 ==
+// 0 and lp <= 1024.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_build_merge_packed(const uint32_t* nr, const uint32_t* nc,
                                         const int32_t* ids, const float* entry_f,
                                         const float* entry_b, uint32_t* out,
-                                        int n_chunks, int k, int lp, void* stream) {
+                                        int n_chunks, int k, int lp, int n_classes,
+                                        int n_tenants, void* stream) {
   if (n_chunks <= 0) return 0;
-  if (lp <= 0 || lp % 32 != 0 || lp > 1024)
+  if (lp <= 0 || lp % 32 != 0 || lp > 1024 || n_tenants < 1 || n_chunks % n_tenants != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = lp / 32;
   build_merge_rows_kernel<<<static_cast<unsigned>(n_chunks), lp, 2 * W * sizeof(uint32_t),
-                            static_cast<cudaStream_t>(stream)>>>(nr, nc, ids, entry_f,
-                                                                 entry_b, out, k, lp, W);
+                            static_cast<cudaStream_t>(stream)>>>(
+      nr, nc, ids, entry_f, entry_b, out, k, lp, W, n_chunks / n_tenants,
+      static_cast<long long>(n_classes) * lp * W);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The walk kernel.  N (n_classes, lp, lp) f32 {0,1}; ids (n_chunks, k) int32
-// in [0, n_classes); entry_f, entry_b (n_chunks, lp) f32; out (n_chunks, k,
-// W) int32.  g in {2, 4}, lanes = WALK_LANES, lp % 32 == 0, lp <= 512;
+// The walk kernel.  N (n_tenants, n_classes, lp, lp) f32 {0,1}; ids
+// (n_chunks, k) int32 in [0, n_classes), in n_tenants equal runs (at most
+// 65535 tenants); entry_f, entry_b (n_chunks, lp) f32; out (n_chunks, k, W)
+// int32.  g in {2, 4}, lanes = WALK_LANES, lp % 32 == 0, lp <= 512;
 // rs (steps a round) in 1 .. 128; both: 1 if both tables stay
 // in shared memory, 0 to rebuild the backward table between the passes;
 // cls_stride >= (lp/g) * 2^g * (W|1) words a class.  The launcher
@@ -440,13 +463,15 @@ extern "C" int repro_build_merge_packed(const uint32_t* nr, const uint32_t* nc,
 extern "C" int repro_build_merge_walk(const float* N, const int32_t* ids, const float* entry_f,
                                       const float* entry_b, uint32_t* out, int n_classes,
                                       int n_chunks, int k, int lp, int g, int lanes, int rs,
-                                      int both, int cls_stride, void* stream) {
+                                      int both, int cls_stride, int n_tenants, void* stream) {
   if (n_chunks <= 0 || k <= 0) return 0;
   const int W = lp / 32;
   const WalkKernel fn = lp > 0 && lp % 32 == 0 ? walk_kernel(W, g, lanes) : nullptr;
   if (fn == nullptr || n_classes < 1 || lanes > 32 / g || rs < 1 || rs > 128 ||
-      cls_stride < (lp / g) * (1 << g) * (W | 1))
+      cls_stride < (lp / g) * (1 << g) * (W | 1) || n_tenants < 1 || n_tenants > 65535 ||
+      n_chunks % n_tenants != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int cpt = n_chunks / n_tenants;         // chunks a tenant
   const int cpw = 32 / lanes;
   const long long table = (both ? 2LL : 1LL) * n_classes * cls_stride * 4;
   const long long ring = 4LL * 2 * cpw * ((rs + 1) + (rs * W + 1));
@@ -456,21 +481,27 @@ extern "C" int repro_build_merge_walk(const float* N, const int32_t* ids, const 
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
-  // about as many walking warps an SM as there are units for it, as shared
-  // memory allows; one block an SM
+  // about as many walking warps an SM as there are units (of every tenant)
+  // for it, as shared memory allows; one block an SM, the SMs shared out over
+  // the tenants (a unit is a warp's chunks, all of one tenant)
+  const long long tenant_units = (static_cast<long long>(cpt) + cpw - 1) / cpw;
   const long long units = (static_cast<long long>(n_chunks) + cpw - 1) / cpw;
   long long ww = (units + sms - 1) / sms;
   const long long fit = (MAX_SMEM - table) / ring;
+  ww = ww > tenant_units ? tenant_units : ww;      // no more warps than a tenant has units
   ww = ww < 1 ? 1 : ww > WALK_THREADS / 32 ? WALK_THREADS / 32 : ww;
   ww = ww > fit ? fit : ww;
-  long long blocks = (units + ww - 1) / ww;
-  if (blocks > sms) blocks = sms;
+  long long blocks = (tenant_units + ww - 1) / ww;
+  long long cap = sms / n_tenants;
+  cap = cap < 1 ? 1 : cap;
+  if (blocks > cap) blocks = cap;
   const size_t smem = static_cast<size_t>(table + ww * ring);
   err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fn<<<static_cast<unsigned>(blocks), WALK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      N, ids, entry_f, entry_b, out, n_classes, cls_stride, n_chunks, k, rs, both,
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_tenants));
+  fn<<<grid, WALK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      N, ids, entry_f, entry_b, out, n_classes, cls_stride, cpt, k, rs, both,
       static_cast<int>(ww));
   return static_cast<int>(cudaGetLastError());
 }

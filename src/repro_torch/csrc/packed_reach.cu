@@ -57,6 +57,14 @@
 // Both write the packed (n_chunks, n_rows, W) words of the plain version.
 // PAD steps (the identity) are folded like any other step.
 //
+// The tenant axis (the fleet's bucket dispatch, core/fleet.py), as in K1
+// (csrc/reach.cu): T automata of one bucket shape, Np stacked (T, A+1, lp,
+// W), their chunks (and R0 and outputs) in T equal runs of cpt.  The walk
+// kernel's grid is (blocks a tenant, T): a block builds its own tenant's
+// table and walks that tenant's chunks, so the chunks a warp packs below 32
+// rows are always one tenant's.  The fold kernel reads chunk c's steps from
+// tenant c / cpt's table.  T = 1 is a plain launch.
+//
 // Limits, checked by the launchers: lp % 32 == 0; the walk needs lp <= 512
 // and its table in one block's shared memory (232448 bytes); the fold needs
 // 8 * lp * W + 8 * (rows per block) * W bytes of it, which holds for
@@ -78,7 +86,7 @@ int rows_per_block(int W, int n_rows) {
 __global__ void __launch_bounds__(THREADS)
 packed_fold_kernel(const uint32_t* __restrict__ np, const int32_t* __restrict__ ids,
                    const uint32_t* __restrict__ r0, uint32_t* __restrict__ out,
-                   int k, int lp, int W, int n_rows, int rpb) {
+                   int k, int lp, int W, int n_rows, int rpb, int cpt, long long table_words) {
   extern __shared__ uint32_t smem[];
   const int NW = lp * W;
   const int RW = rpb * W;
@@ -86,6 +94,7 @@ packed_fold_kernel(const uint32_t* __restrict__ np, const int32_t* __restrict__ 
   uint32_t* sR = smem + 2 * NW;    // [2][rpb * W]  this block's running rows
 
   const long long chunk = blockIdx.x;
+  np += chunk / cpt * table_words;   // this chunk's tenant's table
   const int32_t* cid = ids + chunk * k;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;  // rpb * W
@@ -145,10 +154,11 @@ long long fold_smem_bytes(int lp, int n_rows) {
 }
 
 int launch_fold(const uint32_t* np, const int32_t* ids, const uint32_t* r0,
-                uint32_t* out, int n_chunks, int k, int lp, int n_rows,
-                void* stream) {
+                uint32_t* out, int n_chunks, int k, int lp, int n_rows, int n_classes,
+                int n_tenants, void* stream) {
   if (n_chunks <= 0 || n_rows <= 0) return 0;
-  if (lp <= 0 || lp % 32 != 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (lp <= 0 || lp % 32 != 0 || k < 0 || n_tenants < 1 || n_chunks % n_tenants != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int W = lp / 32;
   if (W > THREADS) return static_cast<int>(cudaErrorInvalidValue);
   const int rpb = rows_per_block(W, n_rows);
@@ -162,37 +172,41 @@ int launch_fold(const uint32_t* np, const int32_t* ids, const uint32_t* r0,
   const dim3 grid(static_cast<unsigned>(n_chunks),
                   static_cast<unsigned>((n_rows + rpb - 1) / rpb));
   packed_fold_kernel<<<grid, rpb * W, static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(np, ids, r0, out, k, lp, W,
-                                                            n_rows, rpb);
+                       static_cast<cudaStream_t>(stream)>>>(
+      np, ids, r0, out, k, lp, W, n_rows, rpb, n_chunks / n_tenants,
+      static_cast<long long>(n_classes) * lp * W);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The fold kernel for K4.  np (A+1, lp, W) int32 packed transition rows; ids
-// (n_chunks, k) int32 class ids in [0, A]; out (n_chunks, lp, W) int32 chunk
-// products.  Returns the cudaError_t of the launch (0 on success).
+// The fold kernel for K4.  np (n_tenants, n_classes, lp, W) int32 packed
+// transition rows; ids (n_chunks, k) int32 class ids in [0, n_classes), in
+// n_tenants equal runs; out (n_chunks, lp, W) int32 chunk products.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int repro_packed_reach_products(const uint32_t* np, const int32_t* ids,
                                            uint32_t* out, int n_chunks, int k, int lp,
-                                           void* stream) {
-  return launch_fold(np, ids, nullptr, out, n_chunks, k, lp, lp, stream);
+                                           int n_classes, int n_tenants, void* stream) {
+  return launch_fold(np, ids, nullptr, out, n_chunks, k, lp, lp, n_classes, n_tenants, stream);
 }
 
 // The fold kernel for K5.  As for K4, but the fold starts from r0 (n_chunks,
 // S, W) int32 and out is (n_chunks, S, W) int32.
 extern "C" int repro_sparse_reach_rows(const uint32_t* np, const int32_t* ids,
                                        const uint32_t* r0, uint32_t* out, int n_chunks,
-                                       int k, int lp, int S, void* stream) {
-  return launch_fold(np, ids, r0, out, n_chunks, k, lp, S, stream);
+                                       int k, int lp, int S, int n_classes, int n_tenants,
+                                       void* stream) {
+  return launch_fold(np, ids, r0, out, n_chunks, k, lp, S, n_classes, n_tenants, stream);
 }
 
 namespace {
 
 constexpr int WALK_THREADS = 1024;
 
-// np (n_classes, 32 W, W) packed rows; ids (n_chunks, k); r0 (n_chunks,
-// rows, W), or null for the identity rows (rows = lp); out (n_chunks, rows,
-// W).  The group table takes n_classes * cls_stride words of shared memory,
+// np (tenants, n_classes, 32 W, W) packed rows; ids (tenants * n_chunks, k);
+// r0 (tenants * n_chunks, rows, W), or null for the identity rows (rows =
+// lp); out (tenants * n_chunks, rows, W); n_chunks is a tenant's, and block
+// (x, t) serves tenant t.  The group table takes n_classes * cls_stride words of shared memory,
 // class x at x * cls_stride.  A warp walks the rows of cpw chunks (cpw *
 // rows <= 32) or, with cpw = 1, a 32-row strip of one chunk.  At least one
 // block an SM lets ptxas give a thread 64 registers, so that a row's words
@@ -209,6 +223,13 @@ packed_walk_kernel(const uint32_t* __restrict__ np, const int32_t* __restrict__ 
   constexpr int GPW = 32 / G;         // groups in a word
   constexpr int GROUP = V * WS;       // words of a group's 2^G entries
   constexpr int CLASS = 32 * W / G * GROUP;   // words of a class, before its padding
+  {
+    const long long ten = blockIdx.y;
+    np += ten * n_classes * 32 * W * W;
+    ids += ten * n_chunks * k;
+    if (r0 != nullptr) r0 += ten * n_chunks * rows * W;
+    out += ten * n_chunks * rows * W;
+  }
 
   // word i of T[x][grp][v] is the OR of word i of rows grp*G + b of Np[x]
   // over the set bits b of v; a class's padding and each entry's word W are 0
@@ -331,8 +352,9 @@ WalkKernel walk_kernel(int W, int g) {
 }  // namespace
 
 // The walk kernel, K4's (r0 null: the identity rows, rows = lp) and K5's.
-// np (n_classes, lp, W) int32 packed rows; ids (n_chunks, k) int32 class ids
-// in [0, n_classes); r0 and out (n_chunks, rows, W) int32.  g in {2, 4},
+// np (n_tenants, n_classes, lp, W) int32 packed rows; ids (n_chunks, k)
+// int32 class ids in [0, n_classes), in n_tenants equal runs (at most
+// 65535 tenants); r0 and out (n_chunks, rows, W) int32.  g in {2, 4},
 // lp % 32 == 0, lp <= 512, rows <= lp; cpw chunks a warp, 1 or with
 // cpw * rows <= 32; cls_stride >= (lp/g) * 2^g * (W|1) words a class, and
 // n_classes * cls_stride * 4 bytes within one block's shared memory.  The
@@ -340,13 +362,16 @@ WalkKernel walk_kernel(int W, int g) {
 // cudaError_t of the launch (0 on success).
 extern "C" int repro_packed_walk(const uint32_t* np, const int32_t* ids, const uint32_t* r0,
                                  uint32_t* out, int n_classes, int n_chunks, int k, int lp,
-                                 int rows, int g, int cpw, int cls_stride, void* stream) {
+                                 int rows, int g, int cpw, int cls_stride, int n_tenants,
+                                 void* stream) {
   if (n_chunks <= 0 || rows <= 0) return 0;
   const WalkKernel fn = lp > 0 && lp % 32 == 0 ? walk_kernel(lp / 32, g) : nullptr;
   if (fn == nullptr || n_classes < 1 || k < 0 || rows > lp || (r0 == nullptr && rows != lp) ||
       cpw < 1 || (cpw > 1 && cpw * rows > 32) ||
-      cls_stride < (lp / g) * (1 << g) * ((lp / 32) | 1))
+      cls_stride < (lp / g) * (1 << g) * ((lp / 32) | 1) || n_tenants < 1 ||
+      n_tenants > 65535 || n_chunks % n_tenants != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int cpt = n_chunks / n_tenants;         // chunks a tenant
   const size_t smem = static_cast<size_t>(n_classes) * cls_stride * 4;
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -356,18 +381,24 @@ extern "C" int repro_packed_walk(const uint32_t* np, const int32_t* ids, const u
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
-  // about as many warps an SM as there are units for it, up to one full block
+  // about as many warps an SM as there are units (of every tenant) for it,
+  // up to one full block; the resident blocks shared out over the tenants
   const long long strips = cpw == 1 ? (rows + 31) / 32 : 1;
-  const long long units = (static_cast<long long>(n_chunks) + cpw - 1) / cpw * strips;
+  const long long tenant_units = (static_cast<long long>(cpt) + cpw - 1) / cpw * strips;
+  const long long units = tenant_units * n_tenants;
   long long wpb = (units + sms - 1) / sms;
+  wpb = wpb > tenant_units ? tenant_units : wpb;   // no more warps than a tenant has units
   wpb = wpb < 1 ? 1 : wpb > WALK_THREADS / 32 ? WALK_THREADS / 32 : wpb;
   const int threads = static_cast<int>(wpb) * 32;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  long long blocks = (units + wpb - 1) / wpb;
-  if (blocks > static_cast<long long>(sms) * per_sm) blocks = static_cast<long long>(sms) * per_sm;
-  fn<<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      np, ids, r0, out, n_classes, cls_stride, n_chunks, k, rows, cpw);
+  long long blocks = (tenant_units + wpb - 1) / wpb;
+  long long cap = static_cast<long long>(sms) * per_sm / n_tenants;
+  cap = cap < 1 ? 1 : cap;
+  if (blocks > cap) blocks = cap;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_tenants));
+  fn<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      np, ids, r0, out, n_classes, cls_stride, cpt, k, rows, cpw);
   return static_cast<int>(cudaGetLastError());
 }

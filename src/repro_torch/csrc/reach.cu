@@ -44,6 +44,16 @@
 //
 // Both write the product as f32 {0,1}, bit for bit the product of the plain
 // version.  PAD steps (N = identity) are folded like any other step.
+//
+// The tenant axis (the fleet's bucket dispatch, core/fleet.py): one launch
+// may serve T automata of one bucket shape, their tables stacked (T, A+1,
+// ...) and their chunks in T equal runs of cpt = n_chunks / T, chunk c
+// reading tenant c / cpt's table.  The group kernel's grid is (blocks a
+// tenant, T): a block builds only its own tenant's table in shared memory
+// and its warps take that tenant's units in turn, so a bucket of T tenants
+// needs no more shared memory a block than one tenant.  The strip kernel
+// finds its chunk's table at offset (chunk / cpt) in the stack.  T = 1 is a
+// plain launch over one table.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,13 +66,15 @@ constexpr int WARPS = THREADS / 32;
 
 __global__ void __launch_bounds__(THREADS)
 reach_strip_kernel(const uint32_t* __restrict__ nr, const int32_t* __restrict__ ids,
-                   float* __restrict__ out, int k, int lp, int W) {
+                   float* __restrict__ out, int k, int lp, int W, int cpt,
+                   long long table_words) {
   extern __shared__ uint32_t smem[];
   const int NW = lp * W;
   uint32_t* sN = smem;               // [2][lp * W]    row-packed N[x_t]
   uint32_t* sP = smem + 2 * NW;      // [2][STRIP * W] bit columns of the strip
 
   const long long chunk = blockIdx.x;
+  nr += chunk / cpt * table_words;   // this chunk's tenant's table
   const int j0 = blockIdx.y * STRIP;
   const int32_t* cid = ids + chunk * k;
   const int tid = threadIdx.x;
@@ -116,15 +128,20 @@ reach_strip_kernel(const uint32_t* __restrict__ nr, const int32_t* __restrict__ 
 constexpr int MAX_GROUP_W = 16;     // lp <= 512 on the group kernel
 constexpr int GROUP_THREADS = 1024;
 
-// T: (A+1, lp/G, 2^G, W|1) words of the group table, t_words of them (a
-// multiple of 4); ids (n_chunks, k); out (n_chunks, lp, lp).  At least one
-// block an SM lets ptxas give a thread 64 registers, so that a column's
-// words stay in them (left to itself it chose 32 at W = 9, and spilled).
+// T: (tenants, t_words) words, tenant t's (A+1, lp/G, 2^G, W|1) group table
+// in its row (t_words a multiple of 4); ids (tenants * n_chunks, k); out
+// (tenants * n_chunks, lp, lp); n_chunks is a tenant's.  Block (x, t) serves
+// tenant t.  At least one block an SM lets ptxas give a thread 64
+// registers, so that a column's words stay in them (left to itself it chose
+// 32 at W = 9, and spilled).
 template <int W, int G>
 __global__ void __launch_bounds__(GROUP_THREADS, 1)
 reach_group_kernel(const uint32_t* __restrict__ T, int t_words, const int32_t* __restrict__ ids,
                    float* __restrict__ out, int n_chunks, int k, int lp) {
   extern __shared__ __align__(16) uint32_t sT[];
+  T += static_cast<long long>(blockIdx.y) * t_words;
+  ids += static_cast<long long>(blockIdx.y) * n_chunks * k;
+  out += static_cast<long long>(blockIdx.y) * n_chunks * lp * lp;
   constexpr int WS = W | 1;           // entry stride: odd, so distinct v -> distinct banks
   constexpr int V = 1 << G;
   constexpr int GPW = 32 / G;         // groups in a word
@@ -220,15 +237,17 @@ GroupKernel group_kernel(int W, int g) {
 
 }  // namespace
 
-// The strip kernel.  nr (A+1, lp, W) int32 row-packed N; ids (n_chunks, k)
-// int32 class ids in [0, A]; out (n_chunks, lp, lp) f32.  lp % 32 == 0, and
-// 8 * W * (lp + 32) bytes of shared memory (lp <= 928).  Returns the
-// cudaError_t of the launch (0 on success).
+// The strip kernel.  nr (n_tenants, n_classes, lp, W) int32 row-packed N;
+// ids (n_chunks, k) int32 class ids in [0, n_classes), in n_tenants equal
+// runs; out (n_chunks, lp, lp) f32.  lp % 32 == 0, and 8 * W * (lp + 32)
+// bytes of shared memory (lp <= 928).  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int repro_reach_products(const uint32_t* nr, const int32_t* ids,
                                     float* out, int n_chunks, int k, int lp,
-                                    void* stream) {
+                                    int n_classes, int n_tenants, void* stream) {
   if (n_chunks <= 0) return 0;
-  if (lp <= 0 || lp % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (lp <= 0 || lp % 32 != 0 || n_tenants < 1 || n_chunks % n_tenants != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = (2LL * lp * (lp / 32) + 2LL * STRIP * (lp / 32)) * 4;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -238,21 +257,28 @@ extern "C" int repro_reach_products(const uint32_t* nr, const int32_t* ids,
   }
   const dim3 grid(static_cast<unsigned>(n_chunks), static_cast<unsigned>(lp / STRIP));
   reach_strip_kernel<<<grid, THREADS, static_cast<size_t>(smem),
-                 static_cast<cudaStream_t>(stream)>>>(nr, ids, out, k, lp, lp / 32);
+                 static_cast<cudaStream_t>(stream)>>>(nr, ids, out, k, lp, lp / 32,
+                                                      n_chunks / n_tenants,
+                                                      static_cast<long long>(n_classes) * lp *
+                                                          (lp / 32));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The group kernel.  T: the launcher's group table, (A+1, lp/g, 2^g, W|1)
-// int32 words, t_words of them (a multiple of 4, all in one block's shared
-// memory); ids (n_chunks, k) int32 class ids in [0, A]; out (n_chunks, lp,
-// lp) f32.  lp % 32 == 0, lp <= 512, g in {2, 4}.  Returns the
-// cudaError_t of the launch (0 on success).
+// The group kernel.  T: the launcher's group tables, (n_tenants, t_words)
+// int32 words, each tenant's (A+1, lp/g, 2^g, W|1) table in its row (t_words
+// a multiple of 4, all in one block's shared memory); ids (n_chunks, k)
+// int32 class ids in [0, A], in n_tenants equal runs; out (n_chunks, lp, lp)
+// f32.  lp % 32 == 0, lp <= 512, g in {2, 4}, n_tenants <= 65535.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int repro_reach_group(const uint32_t* T, int t_words, const int32_t* ids, float* out,
-                                 int n_chunks, int k, int lp, int g, void* stream) {
+                                 int n_chunks, int k, int lp, int g, int n_tenants,
+                                 void* stream) {
   if (n_chunks <= 0) return 0;
   const GroupKernel fn = lp > 0 && lp % 32 == 0 ? group_kernel(lp / 32, g) : nullptr;
-  if (fn == nullptr || t_words % 4 != 0)
+  if (fn == nullptr || t_words % 4 != 0 || n_tenants < 1 || n_tenants > 65535 ||
+      n_chunks % n_tenants != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int cpt = n_chunks / n_tenants;         // chunks a tenant
   const size_t smem = static_cast<size_t>(t_words) * 4;
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -262,17 +288,23 @@ extern "C" int repro_reach_group(const uint32_t* T, int t_words, const int32_t* 
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
-  // about as many warps an SM as there are units for it, up to one full block
+  // about as many warps an SM as there are units (of every tenant) for it,
+  // up to one full block; the resident blocks shared out over the tenants
   const long long units = static_cast<long long>(n_chunks) * (lp / 32);
+  const long long tenant_units = static_cast<long long>(cpt) * (lp / 32);
   long long wpb = (units + sms - 1) / sms;
+  wpb = wpb > tenant_units ? tenant_units : wpb;   // no more warps than a tenant has units
   wpb = wpb < 1 ? 1 : wpb > GROUP_THREADS / 32 ? GROUP_THREADS / 32 : wpb;
   const int threads = static_cast<int>(wpb) * 32;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  long long blocks = (units + wpb - 1) / wpb;
-  if (blocks > static_cast<long long>(sms) * per_sm) blocks = static_cast<long long>(sms) * per_sm;
-  fn<<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      T, t_words, ids, out, n_chunks, k, lp);
+  long long blocks = (tenant_units + wpb - 1) / wpb;
+  long long cap = static_cast<long long>(sms) * per_sm / n_tenants;
+  cap = cap < 1 ? 1 : cap;
+  if (blocks > cap) blocks = cap;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_tenants));
+  fn<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(T, t_words, ids, out, cpt, k,
+                                                                 lp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,10 @@
 
 Replaces ``repro/kernels/build.py::build_merge_chunk``.  One launch covers
 every chunk and emits the clean columns already packed, so no (C, k, ℓp) f32
-buffer exists.  :func:`plan` picks one of the source's two kernels by the
+buffer exists.  N may be a tenant stack (T, A+1, ℓp, ℓp) whose tenants own
+equal runs of the chunks (the fleet's bucket dispatch): the walk kernel's
+grid then has a tenant dimension and each block builds its own tenant's
+tables; the row kernel reads each chunk's tenant's packed tables.  :func:`plan` picks one of the source's two kernels by the
 table's size: the walk kernel, 8 lanes a chunk walking the frontier over
 group tables that each block builds in shared memory from f32 N (nothing is
 packed per call); else the row kernel, one block a chunk and one thread a
@@ -13,19 +16,21 @@ source).  The plain version is ``kernels/ref.py::build_merge_packed_ref``.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..core.matrices import pack_bits_torch
-from .checks import MAX_SMEM_BYTES, check_ids, check_status, check_table, require, stream
+from .checks import (
+    MAX_SMEM_BYTES, check_ids, check_status, check_table, derived, require, stream, tenants,
+)
 from .reach import GROUPS, MAX_GROUP_W
 
 SOURCE = "build_merge"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "repro_build_merge_packed": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "repro_build_merge_walk": (_I, [_P, _P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "repro_build_merge_packed": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "repro_build_merge_walk": (_I, [_P, _P, _P, _P, _P] + [_I] * 10 + [_P]),
 }
 ROUNDS = (128, 64, 32, 16, 8)   # steps a round of staged ids and rows, longest first
 # lanes a chunk of the walk (the one count its source is built for): a step is
@@ -74,14 +79,33 @@ def ring_bytes(lp: int, lanes: int, rs: int) -> int:
 
 def walk_warps(n_chunks: int) -> int:
     """Walking warps a block, as the source's launcher counts them: one for
-    each unit of 32/LANES chunks, spread over SMS SMs (one block an SM),
-    1 to 32."""
+    each unit of 32/LANES chunks (of the launch, over all its tenants),
+    spread over SMS SMs (one block an SM), 1 to 32."""
     units = -(-n_chunks // (32 // LANES))
     return min(max(-(-units // SMS), 1), 32)
 
 
+def grid(n_classes: int, lp: int, n_chunks: int, n_tenants: int = 1) -> Tuple[int, int, int]:
+    """(blocks a tenant, tenants, threads a block) of the launch that
+    :func:`plan` picks, as the source's launcher sizes it on SMS SMs: the
+    walk kernel's walking warps as :func:`walk_warps` counts them, at most
+    a tenant's units and as shared memory fits, one block an SM shared out
+    over the tenants; the row
+    kernel's one block a chunk of ℓp threads (tenants 1: its chunks find
+    their tables)."""
+    p = plan(n_classes, lp, n_chunks)
+    if p.kernel == "rows":
+        return n_chunks, 1, lp
+    table = (2 if p.both else 1) * table_bytes(n_classes, lp, p.g, p.lanes)
+    tenant_units = -(-(n_chunks // n_tenants) // (32 // p.lanes))
+    ww = max(min(walk_warps(n_chunks), tenant_units,
+                 (MAX_SMEM_BYTES - table) // ring_bytes(lp, p.lanes, p.round)), 1)
+    return min(-(-tenant_units // ww), max(SMS // n_tenants, 1)), n_tenants, 1024
+
+
 def plan(n_classes: int, lp: int, n_chunks: int) -> Plan:
-    """Kernel for ``n_chunks`` chunks over ``n_classes`` (ℓp, ℓp) tables: the
+    """Kernel for ``n_chunks`` chunks (the launch's, over all of its
+    tenants) over ``n_classes`` (ℓp, ℓp) tables a tenant: the
     walk kernel (ℓp ≤ 512) at the widest g of ``GROUPS`` whose table fits in
     one block's shared memory beside the rings of :func:`walk_warps` warps,
     with the longest round of ``ROUNDS`` that fits, both tables where they
@@ -112,31 +136,34 @@ def launch(
     entry_f: torch.Tensor,
     entry_b: torch.Tensor,
 ) -> torch.Tensor:
-    """N (A+1, ℓp, ℓp) f32, ids (C, k) int32, entries (C, ℓp) f32 →
+    """N (A+1, ℓp, ℓp) f32, or a tenant stack (T, A+1, ℓp, ℓp) whose tenants
+    own equal runs of the chunks; ids (C, k) int32, entries (C, ℓp) f32 →
     (C, k, ℓp/32) int32 packed clean columns."""
     name = "build_merge_packed"
     lp = check_table(name, N)
-    check_ids(name, ids, N.shape[0])
+    check_ids(name, ids)
+    T, _ = tenants(name, N, ids)
     C, k = ids.shape
     for e in (entry_f, entry_b):
         require(
             e.dtype == torch.float32 and tuple(e.shape) == (C, lp),
             f"{name}: entries must be float32 ({C}, {lp}), got {e.dtype} {tuple(e.shape)}",
         )
-    p = plan(N.shape[0], lp, C)
+    A1 = N.shape[-3]
+    p = plan(A1, lp, C)
     out = torch.empty((C, k, lp // 32), dtype=torch.int32, device=N.device)
     if p.kernel == "walk":
         status = lib.repro_build_merge_walk(
             N.data_ptr(), ids.data_ptr(), entry_f.data_ptr(), entry_b.data_ptr(),
-            out.data_ptr(), N.shape[0], C, k, lp, p.g, p.lanes, p.round, int(p.both),
-            p.cls_stride, stream(N),
+            out.data_ptr(), A1, C, k, lp, p.g, p.lanes, p.round, int(p.both),
+            p.cls_stride, T, stream(N),
         )
     else:
-        nr = pack_bits_torch(N)                           # row-packed
-        nc = pack_bits_torch(N.transpose(-1, -2))         # column-packed
+        nr = derived(N, "rows", lambda: pack_bits_torch(N))                         # row-packed
+        nc = derived(N, "cols", lambda: pack_bits_torch(N.transpose(-1, -2)))      # column-packed
         status = lib.repro_build_merge_packed(
             nr.data_ptr(), nc.data_ptr(), ids.data_ptr(), entry_f.data_ptr(),
-            entry_b.data_ptr(), out.data_ptr(), C, k, lp, stream(N),
+            entry_b.data_ptr(), out.data_ptr(), C, k, lp, A1, T, stream(N),
         )
     check_status(status, name)
     return out

@@ -8,7 +8,10 @@ group table that each block builds in shared memory from Np, with the widest
 group ``g`` of ``GROUPS`` whose table fits; else the fold kernel, a grid of
 (chunks) × (row groups) that copies N[x_t] into shared memory at every step
 (see the note at the top of the source).  K4 folds the identity rows, K5 the
-rows it is given.  The plain version is
+rows it is given.  Np may be a tenant stack (T, A+1, ℓp, W) whose tenants own
+equal runs of the chunks (the fleet's bucket dispatch): the walk kernel's
+grid then has a tenant dimension and each block builds its own tenant's
+table; the fold kernel reads each chunk's tenant's table.  The plain version is
 ``kernels/ref.py::packed_reach_chunk_product_ref``.
 """
 
@@ -19,14 +22,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from .checks import MAX_SMEM_BYTES, check_fold, check_ids, check_status, require, stream
+from .checks import MAX_SMEM_BYTES, check_fold, check_ids, check_status, require, stream, tenants
 from .reach import GROUPS, MAX_GROUP_W
 
 SOURCE = "packed_reach"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "repro_packed_walk": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "repro_packed_reach_products": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+    "repro_packed_walk": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "repro_packed_reach_products": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 FOLD_THREADS = 256        # threads of one fold-kernel block
 
@@ -81,16 +84,38 @@ def plan(n_classes: int, lp: int, rows: int) -> Tuple[str, int]:
     return "fold", 0
 
 
+def grid(n_classes: int, lp: int, rows: int, n_chunks: int, n_tenants: int = 1,
+         sms: int = 132, per_sm: int = 1) -> Tuple[int, int, int]:
+    """(grid x, grid y, threads a block) of the launch that :func:`plan`
+    picks, as the source's launcher sizes it on ``sms`` SMs with ``per_sm``
+    resident blocks an SM: the walk kernel's (blocks a tenant, tenants),
+    about as many warps an SM as there are units (a warp's chunks of one
+    tenant, or a 32-row strip), the resident blocks shared out over the
+    tenants; the fold kernel's (chunks, row groups)."""
+    kind, _ = plan(n_classes, lp, rows)
+    W = lp // 32
+    if kind == "fold":
+        rpb = max(1, min(FOLD_THREADS // W, rows))
+        return n_chunks, -(-rows // rpb), rpb * W
+    cpw, strips = lanes(rows)
+    tenant_units = -(-(n_chunks // n_tenants) // cpw) * strips
+    wpb = min(max(min(-(-tenant_units * n_tenants // sms), tenant_units), 1), 32)
+    blocks = min(-(-tenant_units // wpb), max(sms * per_sm // n_tenants, 1))
+    return blocks, n_tenants, 32 * wpb
+
+
 def fold_rows(
     lib: ctypes.CDLL, name: str, Np: torch.Tensor, ids: torch.Tensor,
     R0: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """Np (A+1, ℓp, W) int32, ids (C, k) int32 and R0 (C, rows, W) int32, or
-    None for the ℓp identity rows → (C, rows, W) int32 folded rows, through
-    the kernel that :func:`plan` picks."""
-    rows = Np.shape[1] if R0 is None else R0.shape[1]
+    """Np (A+1, ℓp, W) int32, or a tenant stack (T, A+1, ℓp, W) whose
+    tenants own equal runs of the chunks; ids (C, k) int32 and R0 (C, rows,
+    W) int32, or None for the ℓp identity rows → (C, rows, W) int32 folded
+    rows, through the kernel that :func:`plan` picks."""
+    rows = Np.shape[-2] if R0 is None else R0.shape[1]
     lp, W = check_fold(name, Np, rows)
-    A1 = Np.shape[0]
+    T, _ = tenants(name, Np, ids)
+    A1 = Np.shape[-3]
     kind, g = plan(A1, lp, rows)
     C, k = ids.shape
     out = torch.empty((C, rows, W), dtype=torch.int32, device=Np.device)
@@ -98,22 +123,23 @@ def fold_rows(
     if kind == "walk":
         status = lib.repro_packed_walk(
             Np.data_ptr(), ids.data_ptr(), r0, out.data_ptr(), A1, C, k, lp, rows, g,
-            lanes(rows)[0], class_stride(lp, g, rows), stream(Np),
+            lanes(rows)[0], class_stride(lp, g, rows), T, stream(Np),
         )
     elif R0 is None:
         status = lib.repro_packed_reach_products(
-            Np.data_ptr(), ids.data_ptr(), out.data_ptr(), C, k, lp, stream(Np)
+            Np.data_ptr(), ids.data_ptr(), out.data_ptr(), C, k, lp, A1, T, stream(Np)
         )
     else:
         status = lib.repro_sparse_reach_rows(
-            Np.data_ptr(), ids.data_ptr(), r0, out.data_ptr(), C, k, lp, rows, stream(Np)
+            Np.data_ptr(), ids.data_ptr(), r0, out.data_ptr(), C, k, lp, rows, A1, T, stream(Np)
         )
     check_status(status, name)
     return out
 
 
 def launch(lib: ctypes.CDLL, Np: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Np (A+1, ℓp, W) int32, ids (C, k) int32 → (C, ℓp, W) int32 products."""
+    """Np ([T,] A+1, ℓp, W) int32, ids (C, k) int32 → (C, ℓp, W) int32
+    products."""
     name = "packed_reach_chunk_product"
-    check_ids(name, ids, Np.shape[0])
+    check_ids(name, ids)
     return fold_rows(lib, name, Np, ids, None)

@@ -1,8 +1,11 @@
 """K1 launcher: reach chunk products through ``csrc/reach.cu``.
 
 Replaces ``repro/kernels/reach.py::reach_chunk_product``.  One launch covers
-every chunk.  :func:`plan` picks one of the source's two kernels by the
-table's size: the group kernel, one thread a column walking over a group
+every chunk, of one table or of a tenant stack of tables (T, A+1, ℓp, ℓp)
+whose tenants own equal runs of the chunks (the fleet's bucket dispatch):
+the group kernel's grid has a tenant dimension, and each block builds only
+its tenant's table; the strip kernel reads each chunk's own tenant's table.
+:func:`plan` picks one of the source's two kernels by the size of one table: the group kernel, one thread a column walking over a group
 table (:func:`group_table`) held in shared memory, with the widest group
 ``g`` of ``GROUPS`` whose table fits; else the strip kernel, a grid of
 (chunks) × (ℓp / 32 column strips) folding row-packed N (see the note at the
@@ -19,13 +22,15 @@ import torch
 import torch.nn.functional as F
 
 from ..core.matrices import pack_bits_torch
-from .checks import MAX_SMEM_BYTES, check_ids, check_status, check_table, require, stream
+from .checks import (
+    MAX_SMEM_BYTES, check_ids, check_status, check_table, derived, require, stream, tenants,
+)
 
 SOURCE = "reach"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "repro_reach_products": (_I, [_P, _P, _P, _I, _I, _I, _P]),
-    "repro_reach_group": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "repro_reach_products": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "repro_reach_group": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 # group widths, widest (fewest lookups a step) first; g = 1 would need as
 # many table bytes as g = 2 (2^g / g entries a state) for twice the lookups
@@ -61,42 +66,75 @@ def plan(n_classes: int, lp: int) -> Tuple[str, int]:
     return "strip", 0
 
 
+def grid(n_classes: int, lp: int, n_chunks: int, n_tenants: int = 1,
+         sms: int = 132, per_sm: int = 1) -> Tuple[int, int, int]:
+    """(grid x, grid y, threads a block) of the launch that :func:`plan`
+    picks, as the source's launcher sizes it on ``sms`` SMs with ``per_sm``
+    resident blocks an SM: the group kernel's (blocks a tenant, tenants),
+    about as many warps an SM as there are units of 32 columns (at most a
+    tenant's units a block), the resident blocks shared out over the
+    tenants; the strip kernel's
+    (chunks, ℓp / 32 strips)."""
+    kind, _ = plan(n_classes, lp)
+    if kind == "strip":
+        return n_chunks, lp // STRIP, 128
+    W = lp // 32
+    tenant_units = n_chunks // n_tenants * W
+    wpb = min(max(min(-(-n_chunks * W // sms), tenant_units), 1), 32)
+    blocks = -(-tenant_units // wpb)
+    return min(blocks, max(sms * per_sm // n_tenants, 1)), n_tenants, 32 * wpb
+
+
 def group_table(N: torch.Tensor, g: int) -> torch.Tensor:
-    """(A+1, ℓp/g, 2^g, W|1) int32 group table of N (A+1, ℓp, ℓp) {0,1}.
+    """(…, A+1, ℓp/g, 2^g, W|1) int32 group table of N (…, A+1, ℓp, ℓp)
+    {0,1}, per leading index (a tenant stack gives one table a tenant).
 
     Entry [x][grp][v] is the OR of the columns grp·g + b of N[x] over the set
     bits b of v, packed over the rows as ``pack_bits`` packs (bit i of word w
     is row 32·w + i); a word beyond W, when W is even, is zero.
     """
-    A1, lp, _ = N.shape
+    *lead, A1, lp, _ = N.shape
     V = 1 << g
     v = torch.arange(V, device=N.device)
     bits = ((v[:, None] >> torch.arange(g, device=N.device)[None, :]) & 1).to(N.dtype)
-    cols = N.transpose(1, 2).reshape(A1, lp // g, g, lp)         # [x][grp][b][row]
-    T = torch.clamp(torch.einsum("vb,xcbi->xcvi", bits, cols), max=1.0)
-    words = pack_bits_torch(T)                                   # (A+1, ℓp/g, 2^g, W)
+    cols = N.transpose(-1, -2).reshape(*lead, A1, lp // g, g, lp)   # [x][grp][b][row]
+    T = torch.clamp(torch.einsum("vb,...xcbi->...xcvi", bits, cols), max=1.0)
+    words = pack_bits_torch(T)                                      # (…, A+1, ℓp/g, 2^g, W)
     W = lp // 32
     return F.pad(words, (0, (W | 1) - W))
 
 
+def tenant_group_tables(N: torch.Tensor, g: int) -> torch.Tensor:
+    """(T, words) int32: each tenant's :func:`group_table`, flat and padded
+    to a multiple of 4 words (the kernel copies whole 16-byte vectors); a
+    shared table N (A+1, ℓp, ℓp) is one tenant."""
+    T = 1 if N.dim() == 3 else N.shape[0]
+    flat = group_table(N, g).reshape(T, -1)
+    return F.pad(flat, (0, -flat.shape[1] % 4)).contiguous()
+
+
 def launch(lib: ctypes.CDLL, N: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """N (A+1, ℓp, ℓp) f32, ids (C, k) int32 → (C, ℓp, ℓp) f32 products."""
+    """N (A+1, ℓp, ℓp) f32, or a tenant stack (T, A+1, ℓp, ℓp) whose tenants
+    own equal runs of the chunks; ids (C, k) int32 → (C, ℓp, ℓp) f32
+    products.  What is derived from N (the group tables, the row-packed
+    table) is kept while N lives (``checks.derived``)."""
     name = "reach_chunk_product"
     lp = check_table(name, N)
-    check_ids(name, ids, N.shape[0])
-    kind, g = plan(N.shape[0], lp)
+    check_ids(name, ids)
+    T, cpt = tenants(name, N, ids)
+    kind, g = plan(N.shape[-3], lp)
     C, k = ids.shape
     out = torch.empty((C, lp, lp), dtype=torch.float32, device=N.device)
     if kind == "group":
-        T = group_table(N, g).reshape(-1)
-        T = F.pad(T, (0, -T.numel() % 4)).contiguous()           # whole 16-byte copies
+        tab = derived(N, f"reach/group{g}", lambda: tenant_group_tables(N, g))
         status = lib.repro_reach_group(
-            T.data_ptr(), T.numel(), ids.data_ptr(), out.data_ptr(), C, k, lp, g, stream(N)
+            tab.data_ptr(), tab.shape[1], ids.data_ptr(), out.data_ptr(), C, k, lp, g, T,
+            stream(N),
         )
     else:
-        nr = pack_bits_torch(N)                                  # (A+1, ℓp, W) row-packed
+        nr = derived(N, "rows", lambda: pack_bits_torch(N))     # ([T,] A+1, ℓp, W) row-packed
         status = lib.repro_reach_products(
-            nr.data_ptr(), ids.data_ptr(), out.data_ptr(), C, k, lp, stream(N)
+            nr.data_ptr(), ids.data_ptr(), out.data_ptr(), C, k, lp, N.shape[-3], T, stream(N)
         )
     check_status(status, name)
     return out

@@ -30,17 +30,34 @@ def semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.matmul(a, b), max=1.0)
 
 
+def tenant_of_chunk(n_tenants: int, n_chunks: int, device=None) -> torch.Tensor:
+    """(C,) int64 tenant index of each of C = T·Ct chunks, tenant by tenant."""
+    if n_chunks % max(n_tenants, 1):
+        raise ValueError(f"{n_chunks} chunks do not split evenly over {n_tenants} tenants")
+    return torch.arange(n_chunks, device=device) // max(n_chunks // max(n_tenants, 1), 1)
+
+
+def class_tables(N: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The table of each chunk's class: ``N[ids]`` for a shared table N
+    (A+1, …, …), or each chunk's own tenant's, ``N[tenant, ids]``, for a
+    tenant stack (T, A+1, …, …).  ids (C, …) → (C, …, ·, ·)."""
+    if N.dim() == 3:
+        return N[ids]
+    tix = tenant_of_chunk(N.shape[0], ids.shape[0], ids.device)
+    return N[tix.view((-1,) + (1,) * (ids.dim() - 1)), ids]
+
+
 def reach_chunk_product_ref(N: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Chunk products P = N[x_k] ⊗ … ⊗ N[x_1] of C chunks at once.
 
-    N (A+1, ℓp, ℓp) f32 {0,1} with the PAD class the identity; ids (C, k)
-    int class ids → (C, ℓp, ℓp) f32.
+    N (A+1, ℓp, ℓp) f32 {0,1} with the PAD class the identity, or a tenant
+    stack (T, A+1, ℓp, ℓp); ids (C, k) int class ids → (C, ℓp, ℓp) f32.
     """
     C, k = ids.shape
     lp = N.shape[-1]
     P = torch.eye(lp, dtype=N.dtype, device=N.device).expand(C, lp, lp).contiguous()
     for t in range(k):
-        P = semiring_matmul_ref(N[ids[:, t]], P)
+        P = semiring_matmul_ref(class_tables(N, ids[:, t]), P)
     return P
 
 
@@ -51,19 +68,20 @@ def build_merge_chunk_ref(
 
     Forward from J_{i-1}: fwd[t] = clamp(N[x_t] fwd[t-1]).  Backward from
     Ĵ_{i+1}: β_k = entry_b, β_t = clamp(N[x_t]ᵀ β_{t+1}).  Column t is
-    fwd[t] ∧ β_{t+1}.  entry_f, entry_b (C, ℓp) f32.
+    fwd[t] ∧ β_{t+1}.  entry_f, entry_b (C, ℓp) f32; N shared or a tenant
+    stack, as for :func:`reach_chunk_product_ref`.
     """
     C, k = ids.shape
     lp = N.shape[-1]
     M = torch.empty((C, k, lp), dtype=N.dtype, device=N.device)
     v = entry_f.unsqueeze(-1)
     for t in range(k):
-        v = semiring_matmul_ref(N[ids[:, t]], v)
+        v = semiring_matmul_ref(class_tables(N, ids[:, t]), v)
         M[:, t] = v[..., 0]
     beta = entry_b.unsqueeze(-2)                      # row vector: βᵀ N = (Nᵀ β)ᵀ
     for t in range(k - 1, -1, -1):
         M[:, t] *= beta[:, 0]
-        beta = semiring_matmul_ref(beta, N[ids[:, t]])
+        beta = semiring_matmul_ref(beta, class_tables(N, ids[:, t]))
     return M
 
 
@@ -79,7 +97,8 @@ def packed_reach_chunk_product_ref(Np: torch.Tensor, ids: torch.Tensor) -> torch
     """Packed chunk products of C chunks at once, on int32 words.
 
     Np (A+1, ℓp, W) packed transition rows (row ``k`` of ``Np[a]`` is the
-    target set of source ``k``); ids (C, k) → (C, ℓp, W), the packed
+    target set of source ``k``), or a tenant stack (T, A+1, ℓp, W); ids
+    (C, k) → (C, ℓp, W), the packed
     identity folded through P'[j] = OR_k bit_k(P[j]) · Np[x_t][k].
     """
     C, k = ids.shape
@@ -91,11 +110,12 @@ def packed_reach_chunk_product_ref(Np: torch.Tensor, ids: torch.Tensor) -> torch
 def sparse_reach_rows_ref(Np: torch.Tensor, ids: torch.Tensor, R0: torch.Tensor) -> torch.Tensor:
     """The same fold over S gathered rows per chunk, seeded from R0.
 
-    Np (A+1, ℓp, W), ids (C, k), R0 (C, S, W) int32 → (C, S, W).
+    Np (A+1, ℓp, W) or (T, A+1, ℓp, W), ids (C, k), R0 (C, S, W) int32 →
+    (C, S, W).
     """
     R = R0.contiguous()
     for t in range(ids.shape[1]):
-        R = packed_semiring_matmul(Np[ids[:, t]], R)
+        R = packed_semiring_matmul(class_tables(Np, ids[:, t]), R)
     return R
 
 

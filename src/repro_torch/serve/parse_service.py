@@ -52,9 +52,10 @@ to the engine (``cuda`` on the card by default); ``stats["backend"]``
 reports which one is live.
 
 The port's copy of ``repro/serve/parse_service.py``.  ``mesh=`` raises
-(ROADMAP Queue 1 item 11), and the reference's ``FleetParseService`` waits
-for the fleet (item 9); the ``_classes_and_bucket`` / ``_execute`` /
-``_auto_tenants`` seams it overrides are kept.
+(ROADMAP Queue 1 item 11).  ``FleetParseService`` is the same scheduler over
+a multi-automaton ``core/fleet.py`` ``FleetEngine``, through the
+``_classes_and_bucket`` / ``_execute`` / ``_bucket_of`` / ``_auto_tenants``
+seams.
 """
 
 from __future__ import annotations
@@ -286,9 +287,9 @@ class ParseService:
         """Install the static analyzer's verdict on this service's admission
         path: under ``mode="strict"`` a ``pathological`` verdict rejects
         every request with ``PathologicalPatternError`` before any queueing.
-        The facade wires this from its analysis (``"ok"`` until the static
-        analyzer is ported, ROADMAP Queue 1 item 10); directly-assembled
-        services default to no guard."""
+        The facade wires this from its construction-time analysis (``"ok"``
+        where it made none); directly-assembled services default to no
+        guard."""
         self._pattern_guard = (verdict, mode)
 
     def _check_pattern_guard(self) -> None:
@@ -704,3 +705,48 @@ class ParseService:
                 name: ts.as_dict() for name, ts in sorted(self._tenants.items())
             },
         }
+
+
+class FleetParseService(ParseService):
+    """The weighted-fair scheduler over a multi-automaton ``FleetEngine``.
+
+    The same queueing, admission, cancellation and stats; only the seams
+    differ: planning routes a text through its tenant's own tables and
+    automaton bucket (``FleetEngine.request_plan``), and execution runs the
+    bucket's tenant-batched dispatch (``FleetEngine.run_bucket``).  Tenants
+    must be registered (they carry the automata), so auto-registration is
+    off and ``submit`` requires a known tenant name.
+    """
+
+    _auto_tenants = False
+
+    def _init(self, fleet_engine, *, max_batch: int = 8, max_pending: Optional[int] = None):
+        from ..core.fleet import FleetEngine
+
+        if not isinstance(fleet_engine, FleetEngine):
+            raise TypeError(
+                "FleetParseService requires a core.fleet.FleetEngine; "
+                f"got {type(fleet_engine).__name__}"
+            )
+        self.engine = fleet_engine
+        self.max_batch = max(1, max_batch)
+        self.n_chunks = None  # per tenant: each spec carries its own
+        self.max_pending = max_pending
+        self._init_queue_state()
+
+    def add_tenant(self, tid: str, spec, matrices=None) -> TenantState:
+        """Register one tenant end to end: its automaton into its fleet
+        bucket, its traffic class into the weighted-fair scheduler."""
+        self.engine.add_tenant(tid, spec, matrices=matrices)
+        return self.register_tenant(tid, weight=spec.weight, max_pending=spec.max_pending)
+
+    def _classes_and_bucket(self, text, tenant):
+        return self.engine.request_plan(tenant, text)
+
+    def _execute(self, bucket, batch):
+        return self.engine.run_bucket(bucket, [(req.tenant, req.classes) for req in batch])
+
+    def _bucket_of(self, req: ParseRequest):
+        if req.bucket is None:  # externally-constructed request
+            _, req.bucket = self.engine.request_plan(req.tenant, req.classes)
+        return req.bucket

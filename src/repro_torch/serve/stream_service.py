@@ -155,9 +155,9 @@ class StreamService:
         """Install the static analyzer's verdict on this service's admission
         path: under ``mode="strict"`` a ``pathological`` verdict rejects
         every append with ``PathologicalPatternError`` before anything is
-        queued.  The facade wires this from its analysis (``"ok"`` until the
-        static analyzer is ported, ROADMAP Queue 1 item 10);
-        directly-assembled services default to no guard."""
+        queued.  The facade wires this from its construction-time analysis
+        (``"ok"`` where it made none); directly-assembled services default
+        to no guard."""
         self._pattern_guard = (verdict, mode)
 
     def _check_pattern_guard(self) -> None:

@@ -5,7 +5,7 @@
 oracle's; every served backend setting (``packed``, ``sparse``, their
 ``kernel=True`` paths and ``cuda`` with ``kernel=True``) parses as
 ``repro.Parser`` does; ``ParserConfig`` dicts round-trip between the
-packages under the backend-name map; unported settings raise
+packages under the backend-name map; the unported ``mesh`` raises
 ``NotImplementedError``; the package never imports JAX or ``repro``.
 """
 
@@ -210,9 +210,12 @@ def test_served_settings_equal_reference_parser(setting, key):
 
 
 @pytest.mark.parametrize("setting", [
-    {"backend": "auto"}, {"mesh": "host"}, {"analyze": "strict"},
+    {"mesh": "host"}, {"mesh": "host", "backend": "auto"}, {"mesh": "host", "analyze": "strict"},
 ])
 def test_unported_settings_raise_not_implemented(setting):
+    """``mesh`` (ROADMAP Queue 1 item 11) is refused whatever else is set;
+    ``backend="auto"`` and ``analyze="strict"`` are served
+    (tests/test_torch_analyze.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Parser(ParserConfig(regex="a|b", **setting), device="cpu")
 
@@ -245,6 +248,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, torch\n"
         "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
         "import repro_torch.core.serial, repro_torch.core.reference, repro_torch.core.stream\n"
+        "import repro_torch.core.fleet, repro_torch.analyze\n"
         "from repro_torch.configs import get_smoke\n"
         "from repro_torch.models import model as m\n"
         "cfg = get_smoke('zamba2-2.7b')\n"
@@ -252,6 +256,9 @@ def test_port_imports_neither_jax_nor_repro():
         "p = repro_torch.Parser(repro_torch.ParserConfig(regex='(a|b|ab)+', "
         "backend='torch', n_chunks=4), device='cpu')\n"
         "assert p.parse('abab').ok\n"
+        "f = repro_torch.ParserFleet({'t': repro_torch.ParserConfig(regex='(a|b)*abb', "
+        "backend='auto')}, device='cpu')\n"
+        "assert f.parse('t', 'ababb').ok\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
     )

@@ -34,7 +34,7 @@ from repro_torch.kernels import build as build_launcher  # noqa: E402
 from repro_torch.kernels import packed_reach as packed_launcher  # noqa: E402
 from repro_torch.kernels import reach as reach_launcher  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_launcher  # noqa: E402
-from repro_torch.kernels.checks import MAX_SMEM_BYTES  # noqa: E402
+from repro_torch.kernels.checks import MAX_SMEM_BYTES, check_class_ids  # noqa: E402
 from repro_torch.kernels.ref import build_merge_packed_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -328,10 +328,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         ops.semiring_matmul(a, a.cpu())                              # mixed devices
     N = torch.eye(32, device=dev).expand(3, 32, 32).contiguous()
-    with pytest.raises(ValueError):
-        ops.reach_chunk_product(N, torch.full((1, 4), 3, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):              # class ids are range-checked on the host
+        check_class_ids(np.full((1, 4), 3, dtype=np.int32), N.shape[0])
     with pytest.raises(ValueError):
         ops.reach_chunk_product(N, torch.zeros((1, 4), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="split evenly"):
+        ops.reach_chunk_product(N.expand(2, 3, 32, 32).contiguous(),
+                                torch.zeros((3, 4), dtype=torch.int32, device=dev))
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)
@@ -527,14 +530,130 @@ def test_packed_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops.packed_reach_chunk_product(Np.float(), ids)                    # not words
     with pytest.raises(ValueError):
         ops.packed_reach_chunk_product(torch.zeros((2, 64, 3), dtype=torch.int32, device=dev), ids)
-    with pytest.raises(ValueError):
-        ops.packed_reach_chunk_product(Np, torch.full((1, 4), 2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):              # class ids are range-checked on the host
+        check_class_ids(np.full((1, 4), 2, dtype=np.int32), Np.shape[0])
     with pytest.raises(ValueError, match="exceed"):
         ops.sparse_reach_rows(Np, ids, torch.zeros((1, 65, 2), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         ops.sparse_reach_rows(Np, ids, torch.zeros((1, 8, 3), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         ops.sparse_reach_rows(Np, ids, torch.zeros((2, 8, 2), dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------- tenant axis
+#
+# K1, K2, K4 and K5 over a stack of T tenant tables (the fleet's bucket
+# dispatch): each chunk reads its own tenant's table, one launch for all.
+
+TENANTS = (1, 3, 32)
+
+
+def _tenant_case(rng, T, n_classes, lp, Ct, k, dev):
+    """T random tables (PAD, the last class, the identity) and T runs of Ct
+    chunks: a padded bucket's tail and an all-PAD chunk in each run."""
+    N = (rng.random((T, n_classes, lp, lp)) < 3.0 / lp).astype(np.float32)
+    N[:, -1] = np.eye(lp, dtype=np.float32)
+    ids = rng.integers(0, n_classes, size=(T, Ct, k))
+    ids[:, Ct // 2:, k // 2:] = n_classes - 1
+    ids[:, -1] = n_classes - 1
+    return (torch.tensor(N, device=dev),
+            torch.tensor(ids.reshape(T * Ct, k), dtype=torch.int32, device=dev))
+
+
+TENANT_REACH = [(lp, a, v) for lp, a in ((64, 19), (288, 4)) for v in _reach_variants(a, lp)]
+
+
+@pytest.mark.parametrize("lp,n_classes,variant", TENANT_REACH)
+@pytest.mark.parametrize("T", TENANTS)
+def test_reach_kernel_tenant_axis_every_plan_variant(dev, monkeypatch, lp, n_classes, variant, T):
+    """K1 over T tenant tables in one launch, bit for bit the plain version,
+    in each kernel the plan can choose (the strip fallback included)."""
+    monkeypatch.setattr(reach_launcher, "plan", lambda n, l: variant)
+    N, ids = _tenant_case(np.random.default_rng(lp + T), T, n_classes, lp, 5, 33, dev)
+    ops.reset_launches()
+    got = ops.reach_chunk_product(N, ids)
+    torch.cuda.synchronize()
+    assert ops.reach_chunk_product.launches == 1
+    assert torch.equal(got, ops.reach_chunk_product.plain(N, ids))
+
+
+TENANT_BUILD = [(lp, 4, v) for lp in (64, 288) for v in _build_variants(4, lp)]
+
+
+@pytest.mark.parametrize("lp,n_classes,variant", TENANT_BUILD)
+@pytest.mark.parametrize("T", TENANTS)
+def test_build_merge_kernel_tenant_axis_every_plan_variant(dev, monkeypatch, lp, n_classes,
+                                                           variant, T):
+    """K2 over T tenant tables in one launch: 9 chunks a tenant (not a
+    multiple of the 4 a warp walks, so a warp's chunks stay one tenant's),
+    in each walk variant and the row fallback."""
+    monkeypatch.setattr(build_launcher, "plan", lambda n, l, c: variant)
+    rng = np.random.default_rng(lp * 3 + T)
+    N, ids = _tenant_case(rng, T, n_classes, lp, 9, 65, dev)
+    ef = torch.tensor((rng.random((ids.shape[0], lp)) < 0.3).astype(np.float32), device=dev)
+    eb = torch.tensor((rng.random((ids.shape[0], lp)) < 0.3).astype(np.float32), device=dev)
+    ops.reset_launches()
+    got = ops.build_merge_packed(N, ids, ef, eb)
+    torch.cuda.synchronize()
+    assert ops.build_merge_packed.launches == 1
+    assert torch.equal(got, build_merge_packed_ref(N, ids, ef, eb))
+
+
+TENANT_WORDS = [(lp, a, rows, v) for lp, a, rows in ((64, 19, None), (64, 19, 8), (288, 4, 8))
+                for v in _word_variants(a, lp, lp if rows is None else rows)]
+
+
+@pytest.mark.parametrize("lp,n_classes,rows,variant", TENANT_WORDS)
+@pytest.mark.parametrize("T", TENANTS)
+def test_word_reach_kernels_tenant_axis_every_plan_variant(dev, monkeypatch, lp, n_classes,
+                                                           rows, variant, T):
+    """K4 (rows None) or K5 over T tenant tables in one launch: 9 chunks a
+    tenant, so that the chunks a warp packs at S = 8 straddle no tenant, in
+    each walk variant and the fold fallback."""
+    monkeypatch.setattr(packed_launcher, "plan", lambda n, l, r: variant)
+    rng = np.random.default_rng(lp + T + (rows or 0))
+    N, ids = _tenant_case(rng, T, n_classes, lp, 9, 33, dev)
+    Np = pack_transition_table_torch(N)
+    ops.reset_launches()
+    if rows is None:
+        kernel, args = ops.packed_reach_chunk_product, (Np, ids)
+    else:
+        kernel, args = ops.sparse_reach_rows, (Np, ids, _feasible_r0(rng, ids.shape[0], rows, lp, dev))
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert torch.equal(got, kernel.plain(*args))
+
+
+FLEET_PATTERNS = ["(a|b)*abb", "(a|b)" * 10, "a" * 40, "a?" * 6, "(a|b|ab)+"]
+
+
+@pytest.mark.parametrize("setting", [
+    {"backend": "cuda"}, {"backend": "packed", "kernel": True},
+    {"backend": "sparse", "kernel": True},
+])
+def test_fleet_on_the_card_equals_solo_parsers(dev, setting):
+    """A fleet on the card: every tenant's result equals its solo Parser's,
+    and each bucket dispatch makes one reach launch and one K2 launch."""
+    from repro_torch import ParserFleet
+
+    cfgs = {f"t{i}": ParserConfig(regex=p, n_chunks=4, **setting)
+            for i, p in enumerate(FLEET_PATTERNS)}
+    fleet = ParserFleet(cfgs, device=dev, max_batch=64)
+    rng = np.random.default_rng(7)
+    items = [(tid, bytes(rng.choice(list(b"ab"), size=int(n))))
+             for tid in cfgs for n in (0, 3, 40, 200)]
+    ops.reset_launches()
+    got = fleet.parse_batch(items)
+    dispatches = fleet.stats()["batches_run"]
+    reach = {"cuda": ops.reach_chunk_product, "packed": ops.packed_reach_chunk_product,
+             "sparse": ops.sparse_reach_rows}[setting["backend"]]
+    assert reach.launches == dispatches and ops.build_merge_packed.launches == dispatches
+    solos = {tid: Parser(cfg, device=dev) for tid, cfg in cfgs.items()}
+    for (tid, text), r in zip(items, got):
+        want = solos[tid].parse(text)
+        assert r.ok == want.ok
+        assert np.array_equal(r.forest.pack(), want.forest.pack())
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)

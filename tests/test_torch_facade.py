@@ -1,7 +1,8 @@
 """repro_torch's package surface against repro's.
 
 Every name of ``repro.__all__`` that the port has ported is exported by
-``repro_torch`` and is the port's own object; the unported ones are absent.
+``repro_torch`` and is the port's own object (the unported ones, none now,
+would be absent).
 ``ParseResult.slpf``, ``Parser.count_accepting`` and the context-manager
 protocol (``close`` / ``__enter__`` / ``__exit__``) behave as the
 reference's, and the five typed errors keep its class hierarchy.
@@ -19,9 +20,9 @@ import repro  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import Parser, ParserConfig  # noqa: E402
 
-# the reference's exports whose modules are not ported yet (ROADMAP Queue 1
-# items 9 and 10)
-UNPORTED = {"ParserFleet", "analyze"}
+# the reference's exports whose modules are not ported yet: none since the
+# fleet and the analyzer (ROADMAP Queue 1 items 9 and 10)
+UNPORTED: set = set()
 ERRORS = ["ParseError", "AdmissionError", "SessionNotFound", "BudgetExceeded",
           "PathologicalPatternError"]
 

@@ -660,3 +660,188 @@ def test_ssd_launcher_raises_on_unknown_outputs_and_oversized_programs(monkeypat
     with pytest.raises(ValueError, match="shared memory"):
         ssd_launcher.launch(lib, *_ssd_args(torch.bfloat16), outputs="y")
     assert [fn for fn, _ in lib.calls if fn == "repro_ssd_chunk"] == []
+
+
+# ------------------------------------------------------------ tenant axis
+#
+# K1, K2, K4 and K5 over a stack of T tenant tables (the fleet's bucket
+# dispatch): the launchers pass T to the source, whose kernels find each
+# chunk's tenant; the plans are those of one tenant's table (K2's over the
+# launch's total chunks), and the grids give each tenant its own blocks.
+
+
+def _tenant_stack(T, n_classes, lp, packed=False):
+    if packed:
+        return torch.zeros((T, n_classes, lp, lp // 32), dtype=torch.int32)
+    return torch.eye(lp).expand(T, n_classes, lp, lp).contiguous()
+
+
+@pytest.mark.parametrize("T", [1, 3, 32])
+@pytest.mark.parametrize("n_classes,lp,fn", [(19, 64, "repro_reach_group"),
+                                             (40, 288, "repro_reach_products")])
+def test_reach_launcher_passes_the_tenants(monkeypatch, T, n_classes, lp, fn):
+    lib = _RecordingLib()
+    monkeypatch.setattr(reach, "stream", lambda t: 0)
+    ids = torch.zeros((T * 3, 5), dtype=torch.int32)
+    out = reach.launch(lib, _tenant_stack(T, n_classes, lp), ids)
+    assert out.shape == (T * 3, lp, lp)
+    (got, args), = lib.calls
+    assert got == fn
+    if fn == "repro_reach_group":                  # T tables of t_words, one a tenant
+        assert args[4:9] == (T * 3, 5, lp, 4, T)
+        assert args[1] * 4 >= reach.group_table_bytes(n_classes, lp, 4)
+        assert args[1] * 4 <= MAX_SMEM_BYTES       # one tenant's table a block
+    else:
+        assert args[3:8] == (T * 3, 5, lp, n_classes, T)
+
+
+@pytest.mark.parametrize("T", [1, 3, 32])
+@pytest.mark.parametrize("n_classes,lp,fn", [(19, 64, "repro_build_merge_walk"),
+                                             (4, 512, "repro_build_merge_packed")])
+def test_build_launcher_passes_the_tenants(monkeypatch, T, n_classes, lp, fn):
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "stream", lambda t: 0)
+    C = T * 9
+    e = torch.zeros((C, lp))
+    out = build.launch(lib, _tenant_stack(T, n_classes, lp), torch.zeros((C, 5), dtype=torch.int32),
+                       e, e)
+    assert out.shape == (C, 5, lp // 32)
+    (got, args), = lib.calls
+    assert got == fn
+    if fn == "repro_build_merge_walk":
+        p = build.plan(n_classes, lp, C)               # the launch's total chunks
+        assert args[5:15] == (n_classes, C, 5, lp, p.g, p.lanes, p.round, int(p.both),
+                              p.cls_stride, T)
+    else:
+        assert args[6:11] == (C, 5, lp, n_classes, T)
+
+
+@pytest.mark.parametrize("T", [1, 3, 32])
+@pytest.mark.parametrize("n_classes,lp,rows,fn", [
+    (19, 64, None, "repro_packed_walk"), (19, 64, 8, "repro_packed_walk"),
+    (40, 288, None, "repro_packed_reach_products"), (40, 288, 8, "repro_sparse_reach_rows"),
+])
+def test_word_launchers_pass_the_tenants(monkeypatch, T, n_classes, lp, rows, fn):
+    lib = _RecordingLib()
+    monkeypatch.setattr(packed_reach, "stream", lambda t: 0)
+    C = T * 9
+    Np = _tenant_stack(T, n_classes, lp, packed=True)
+    ids = torch.zeros((C, 5), dtype=torch.int32)
+    if rows is None:
+        packed_reach.launch(lib, Np, ids)
+    else:
+        sparse_launcher.launch(lib, Np, ids, torch.zeros((C, rows, lp // 32), dtype=torch.int32))
+    (got, args), = lib.calls
+    assert got == fn
+    r = lp if rows is None else rows
+    if fn == "repro_packed_walk":
+        assert args[4:13] == (n_classes, C, 5, lp, r, 4, packed_reach.lanes(r)[0],
+                              packed_reach.class_stride(lp, 4, r), T)
+    elif rows is None:
+        assert args[3:8] == (C, 5, lp, n_classes, T)
+    else:
+        assert args[4:10] == (C, 5, lp, rows, n_classes, T)
+
+
+def test_launchers_refuse_chunks_that_do_not_split_over_the_tenants(monkeypatch):
+    lib = _RecordingLib()
+    for mod in (reach, build, packed_reach):
+        monkeypatch.setattr(mod, "stream", lambda t: 0)
+    ids = torch.zeros((7, 5), dtype=torch.int32)
+    e = torch.zeros((7, 64))
+    with pytest.raises(ValueError, match="split evenly"):
+        reach.launch(lib, _tenant_stack(3, 4, 64), ids)
+    with pytest.raises(ValueError, match="split evenly"):
+        build.launch(lib, _tenant_stack(3, 4, 64), ids, e, e)
+    with pytest.raises(ValueError, match="split evenly"):
+        packed_reach.launch(lib, _tenant_stack(3, 4, 64, packed=True), ids)
+    assert lib.calls == []
+
+
+# (launcher grid args) → (grid x, grid y, threads): the fleet's buckets at
+# chip_smoke.py's sizes and the solo parse shapes
+GRIDS = [
+    # 192 a/b tenants (Tp 256) × 4 texts × 4 chunks: 16 units a tenant, one block each
+    ("reach", (4, 32, 256 * 16, 256), (1, 256, 512)),
+    # TRAFFIC's 16 tenants × 4 texts × 64 chunks: 512 units a tenant over 8 blocks
+    ("reach", (32, 64, 16 * 256, 16), (8, 16, 1024)),
+    ("reach", (19, 64, 1024, 1), (128, 1, 512)),        # a solo TRAFFIC parse: as before
+    ("reach", (4, 512, 16 * 64, 16), (1024, 16, 128)),  # e125 at ℓp 512: the strip fallback
+    ("build", (4, 32, 256 * 16, 256), (1, 256, 1024)),
+    ("build", (32, 64, 16 * 256, 16), (8, 16, 1024)),
+    ("build", (19, 64, 1024, 1), (128, 1, 1024)),
+    ("build", (4, 512, 16 * 64, 16), (1024, 1, 512)),   # the row fallback
+    ("words", (32, 64, 8, 16 * 256, 16), (8, 16, 256)),  # K5: 4 chunks a warp
+    ("words", (32, 64, 64, 16 * 256, 16), (8, 16, 1024)),
+    ("words", (4, 512, 512, 64, 1), (64, 32, 256)),     # the fold fallback: 16 rows a block
+]
+
+
+@pytest.mark.parametrize("which,args,want", GRIDS)
+def test_tenant_grids(which, args, want):
+    """Each tenant gets its own blocks (grid y = tenants) of no more warps
+    than it has units; the resident blocks are shared out over the
+    tenants; a fallback's grid covers every chunk."""
+    fn = {"reach": reach.grid, "build": build.grid, "words": packed_reach.grid}[which]
+    got = fn(*args)
+    assert got == want
+    gx, gy, threads = got
+    assert 1 <= gx and 1 <= gy <= 65535 and 32 <= threads <= 1024 and threads % 32 == 0
+
+
+def test_class_ids_are_checked_on_the_host():
+    """Out-of-range class ids raise in numpy before the upload (the engine's
+    ``chunks_tensor``), so no launcher reads a value back from the card."""
+    from repro_torch.core.engine import ParserEngine
+    from repro_torch.core.matrices import build_matrices
+    from repro_torch.core.segments import compute_segments
+    from repro_torch.kernels.checks import check_class_ids
+
+    check_class_ids(np.array([[0, 3]], dtype=np.int32), 4)
+    check_class_ids(np.zeros((0, 5), dtype=np.int32), 1)
+    for bad in ([[0, 4]], [[-1, 0]]):
+        with pytest.raises(ValueError, match=r"\[0, 4\)"):
+            check_class_ids(np.array(bad, dtype=np.int32), 4)
+    eng = ParserEngine(build_matrices(compute_segments("(a|b)*abb")), backend="torch",
+                       device="cpu")
+    with pytest.raises(ValueError, match="class ids"):
+        eng.chunks_tensor(np.full((1, 8), eng.tables.N.shape[0], dtype=np.int32))
+
+
+@pytest.mark.parametrize("which", ["reach", "build", "packed", "sparse"])
+def test_launchers_read_no_value_back(monkeypatch, which):
+    """The host-sync lint finds nothing in a launch: no id is read back
+    (the range check is the host's), K1's group tables are derived once a
+    table."""
+    from repro_torch.analyze import lint_program
+
+    lib = _RecordingLib()
+    for mod in (reach, build, packed_reach):
+        monkeypatch.setattr(mod, "stream", lambda t: 0)
+    N, ids = _tenant_stack(3, 19, 64), torch.zeros((9, 5), dtype=torch.int32)
+    Np, e = _tenant_stack(3, 19, 64, packed=True), torch.zeros((9, 64))
+    call = {"reach": lambda: reach.launch(lib, N, ids),
+            "build": lambda: build.launch(lib, N, ids, e, e),
+            "packed": lambda: packed_reach.launch(lib, Np, ids),
+            "sparse": lambda: sparse_launcher.launch(lib, Np, ids,
+                                                     torch.zeros((9, 8, 2), dtype=torch.int32))}
+    assert lint_program(call[which], (), which) == []
+
+
+def test_derived_tables_are_kept_while_the_table_lives(monkeypatch):
+    """K1's group tables are built once a table tensor: again only after an
+    in-place write, or for another tensor."""
+    built = []
+    real = reach.tenant_group_tables
+    monkeypatch.setattr(reach, "tenant_group_tables",
+                        lambda N, g: built.append(g) or real(N, g))
+    monkeypatch.setattr(reach, "stream", lambda t: 0)
+    lib = _RecordingLib()
+    N, ids = _tenant_stack(2, 4, 64), torch.zeros((4, 3), dtype=torch.int32)
+    reach.launch(lib, N, ids)
+    reach.launch(lib, N, ids)
+    assert len(built) == 1
+    N[0, 0, 0, 1] = 1.0                                  # an in-place write: rebuilt
+    reach.launch(lib, N, ids)
+    reach.launch(lib, N.clone(), ids)                    # another tensor: its own
+    assert len(built) == 3

@@ -443,7 +443,10 @@ def test_facade_stats_keys_match_reference():
             st.result()
     sp, sr = p.stats(), r.stats()
     assert set(sp) == set(sr)
-    assert sp["analysis"] is None and sp["hlo"] is None
+    assert sp["hlo"] is None and set(sp["analysis"]) == set(sr["analysis"])
+    for key, value in sp["analysis"].items():
+        if key not in ("cost", "recommended_backend"):
+            assert value == sr["analysis"][key], key
     for key in ("parse", "stream", "slo"):
         same_shape(sp[key], sr[key], key)
     assert set(sp["metrics"]) == set(sr["metrics"]) - {"analyzer_verdicts_total"}

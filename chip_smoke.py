@@ -87,6 +87,24 @@ or ``repro``).  Phases, each printing one JSON line:
              the measured ``Parser.parse`` MB/s of the three kernel paths,
              and the phase-program lint's findings on those paths at the
              main path's buckets (printed, never exempted)
+  mesh       ``ParserConfig(mesh="host")`` across ranks, one process a rank
+             (``torch.multiprocessing``, spawn; rendezvous through a file):
+             one rank a card over NCCL where there are two cards or more (up
+             to 4), else two ranks sharing the one card in a gloo group.  On
+             ``cuda`` and on ``packed`` / ``sparse`` with ``kernel=True``,
+             every rank runs ``Parser.parse`` of the 8 MiB TRAFFIC log and of
+             1 MiB of e125, ``parse_batch`` of the 8 mixed texts and a
+             ``StreamingParser`` on the mesh engine (1 MiB of TRAFFIC in 16
+             appends), each after the same run without a mesh on the same
+             card: the packed columns must be equal, the reach kernel and K2
+             (and K3 on ``cuda``) must launch in the mesh run, and
+             ``allgather_payload_bytes_total`` must grow by the gathered
+             chunks times one product's bytes.  Prints the world, mesh shape,
+             group backend and transport, and for every rank and run the
+             seconds and MB/s beside the single-process run's, the launches,
+             the payload and the gathers.  A failing rank fails the phase (the
+             others are killed); a rank still running after MESH_TIMEOUT_S is
+             killed and fails it
 
 and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
 2560, vocab 32000) with random weights from ``--seed``:
@@ -247,6 +265,14 @@ def e125_text(n_bytes: int, seed: int) -> bytes:
 def corrupt(text: bytes) -> bytes:
     mid = len(text) // 2
     return text[:mid] + b"~" + text[mid + 1:]
+
+
+def mixed_batch(traffic: bytes):
+    """The main path's ``parse_batch`` texts: 1 to 20000 lines of the log,
+    an empty text and a corrupted one."""
+    lines = traffic.split(b"\n")[:-1]
+    batch = [b"\n".join(lines[:n]) + b"\n" for n in (1, 3, 40, 500, 4000, 20000)]
+    return batch + [b"", corrupt(batch[3])]
 
 
 def time_ms(fn) -> float:
@@ -1104,7 +1130,9 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(libs))
     kernel_build_report()
 
-    records = parser_phases(args, dev) + lm_phases(dev, args.seed)
+    records = parser_phases(args, dev)
+    mesh_phase(args)
+    records += lm_phases(dev, args.seed)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1134,9 +1162,7 @@ def parser_phases(args, dev):
     e125_records = kernel_cases(p_e125, e125)
 
     # ------------------------------------------------ the main path, counted
-    lines = traffic.split(b"\n")[:-1]
-    batch = [b"\n".join(lines[:n]) + b"\n" for n in (1, 3, 40, 500, 4000, 20000)]
-    batch += [b"", corrupt(batch[3])]
+    batch = mixed_batch(traffic)
     traffic_bad, e125_bad = corrupt(traffic), corrupt(e125)
     r_traffic, t_traffic, n_traffic = counted(lambda: p_traffic.parse(traffic))
     r_bad, _, n_bad = counted(lambda: p_traffic.parse(traffic_bad))
@@ -1956,6 +1982,207 @@ def analysis_phase(dev, parse_mb_per_s) -> None:
              model_ranking=model, card_ranking=card, ranking_agrees=model[0] == card[0],
              parse_mb_per_s={b: parse_mb_per_s[(label, b)] for b in model},
              lint_findings=findings, lint_clean=not any(findings.values()))
+
+
+# ------------------------------------------------------------------ the mesh
+
+MESH_TIMEOUT_S = 420
+MESH_STREAM_BYTES = 1 << 20
+MESH_STREAM_PIECES = 16
+REACH_KERNEL = {"cuda": "reach_chunk_product", "packed": "packed_reach_chunk_product",
+                "sparse": "sparse_reach_rows"}
+
+
+def mesh_phase(args) -> None:
+    """The mesh route across ranks, one process a rank (``torch.multiprocessing``,
+    spawn): one rank a card over NCCL where there are two cards or more (up
+    to 4), else two ranks sharing the one card in a gloo group (NCCL refuses
+    two ranks on one device).  The kernels are already built (``main``): a
+    rank only loads them.  A rank that fails fails the phase at once (the
+    others are killed); a rank still running after MESH_TIMEOUT_S is killed
+    and fails it too."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    world, group_backend = (min(4, cards), "nccl") if cards >= 2 else (2, "gloo")
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        procs = [ctx.Process(target=mesh_rank, args=(r, world, group_backend, tmp, args.seed))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        killed = [r for r, p in enumerate(procs) if p.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        reports, failures = [], []
+        for r, proc in enumerate(procs):
+            path = Path(tmp) / f"rank{r}.json"
+            rep = json.loads(path.read_text()) if path.exists() else {}
+            reports.append(rep)
+            if r in killed:
+                failures.append(f"rank {r} killed after {time.perf_counter() - t0:.0f} s "
+                                f"(timeout {MESH_TIMEOUT_S} s, or another rank failed)")
+            elif proc.exitcode != 0 or not rep.get("ok"):
+                failures.append(f"rank {r} exit code {proc.exitcode}: "
+                                f"{rep.get('error', 'no report')}")
+    if failures:
+        raise AssertionError("mesh: " + "\n".join(failures))
+    emit("mesh", world=world, group_backend=group_backend, mesh_shape=reports[0]["mesh_shape"],
+         transport=reports[0]["transport"], seconds=time.perf_counter() - t0,
+         columns_equal_single_process=True, ranks=reports)
+
+
+def mesh_rank(rank: int, world: int, group_backend: str, tmp: str, seed: int) -> None:
+    """One rank of ``mesh_phase``: joins the group, runs ``mesh_runs`` and
+    writes its report (or its traceback) to ``tmp``; exits 1 on a failure."""
+    import os
+    import traceback
+
+    report = {"rank": rank, "ok": False}
+    dist = None
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.kernels import ops
+
+        missing = [s for s in ops._signatures() if not ops._target(s).exists()]
+        if missing:
+            raise RuntimeError(f"kernels not built before the ranks started: {missing}")
+        ops.build()                       # loads the built libraries, compiles nothing
+        dev = torch.device("cuda", rank if group_backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(group_backend, init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=world)
+        report.update(mesh_runs(dev, seed))
+        report["ok"] = True
+    except Exception:
+        report["error"] = traceback.format_exc()[-6000:]
+    finally:
+        if dist is not None and dist.is_initialized():
+            dist.destroy_process_group()
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(report))
+    if not report["ok"]:
+        sys.exit(1)
+
+
+def mesh_runs(dev, seed: int) -> dict:
+    """On ``cuda`` and on ``packed`` / ``sparse`` with ``kernel=True``:
+    ``Parser.parse`` of the 8 MiB TRAFFIC log and of 1 MiB of e125,
+    ``parse_batch`` of the 8 mixed texts, and a ``StreamingParser`` on the
+    mesh engine (1 MiB of TRAFFIC in 16 appends, then ``current_slpf``),
+    each after the same text's single-process parse on the same card.  Each
+    mesh run is counted on its own; its packed columns must equal the
+    single-process run's, its reach kernel and K2 (and K3 on ``cuda``) must
+    launch, and the product-stack payload must be the gathered chunks times
+    one product's bytes."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import Parser, ParserConfig
+    from repro_torch.core.backend import next_pow2
+    from repro_torch.core.stream import StreamingParser
+
+    traffic = traffic_log(TRAFFIC_BYTES, seed)
+    e125 = e125_text(E125_BYTES, seed + 1)
+    batch = mixed_batch(traffic)
+    stream_text = traffic_log(MESH_STREAM_BYTES, seed + 2)
+    piece = MESH_STREAM_BYTES // MESH_STREAM_PIECES
+    runs = {}
+    mesh = None
+    for backend, kernel in (("cuda", False), ("packed", True), ("sparse", True)):
+        need = [REACH_KERNEL[backend], "build_merge_packed"] + (
+            ["semiring_matmul"] if backend == "cuda" else [])
+        cfgs = {regex: ParserConfig(regex=regex, backend=backend, kernel=kernel,
+                                    n_chunks=N_CHUNKS) for regex in (TRAFFIC_RE, E125_RE)}
+        single = {regex: Parser(cfg, device=dev) for regex, cfg in cfgs.items()}
+        meshed = {regex: Parser(cfg.replace(mesh="host"), device=dev) for regex, cfg in cfgs.items()}
+        out = {}
+        for label, regex, text in (("traffic", TRAFFIC_RE, traffic), ("e125", E125_RE, e125),
+                                   ("batch", TRAFFIC_RE, batch),
+                                   ("stream", TRAFFIC_RE, stream_text)):
+            p1, pm = single[regex], meshed[regex]
+            d = pm.engine.dist
+            mesh, transport = pm.engine.mesh, d.transport
+            eye = pm.engine.backend.identity_product(pm.engine.tables.ell_pad)
+            product_bytes = eye.numel() * eye.element_size()
+            stacks = []        # products a join of the stream gathers (one an append)
+
+            def run_stream(engine):
+                sp = StreamingParser(engine, max_seal_len=STREAM_SEAL)
+                for i in range(MESH_STREAM_PIECES):
+                    sp.append(text[i * piece:(i + 1) * piece])
+                    tail = 1 if sp.n > sum(len(c) for c in sp._sealed_classes) else 0
+                    stacks.append(next_pow2(sp.n_sealed_chunks + tail + 1))
+                return [sp.current_slpf()]
+
+            for p in (p1, pm):     # first calls: kernel modules, allocator, process groups
+                p.parse(batch[2])
+                p.parse_batch(batch[:2])
+            if label == "batch":
+                want, s1, _ = counted(lambda: [r.forest for r in p1.parse_batch(text)])
+                mesh_fn = lambda: [r.forest for r in pm.parse_batch(text)]  # noqa: E731
+            elif label == "stream":
+                want, s1, _ = counted(lambda: run_stream(p1.engine))
+                want.append(p1.parse(text).forest)
+                stacks.clear()
+                mesh_fn = lambda: 2 * run_stream(pm.engine)  # noqa: E731
+            else:
+                want, s1, _ = counted(lambda: [p1.parse(text).forest])
+                mesh_fn = lambda: [pm.parse(text).forest]  # noqa: E731
+            payload = pm.obs.metrics.counter("allgather_payload_bytes_total")
+            before, gathers = payload.value, d.gathers
+            dist.barrier()
+            got, sm, n = counted(mesh_fn)
+            for g, w in zip(got, want):
+                if not np.array_equal(g.pack(), w.pack()):
+                    raise AssertionError(f"{backend} {label}: mesh columns != single-process")
+            if min(n[k] for k in need) <= 0:
+                raise AssertionError(f"{backend} {label}: a kernel never launched: {n}")
+            if label == "batch":
+                eng = pm.engine
+                c_req = -(-N_CHUNKS // d.batch_chunk_devices) * d.batch_chunk_devices
+                groups: dict = {}
+                for t in text:
+                    key = eng.bucket_shape(len(eng.classes_of_text(t)), c_req)
+                    groups[key] = groups.get(key, 0) + 1
+                dsz = d.batch_devices
+                chunks = sum(-(-next_pow2(m) // dsz) * dsz * c for (c, _), m in groups.items())
+            elif label == "stream":
+                csz = d.chunk_devices
+                chunks = sum(-(-c // csz) * csz for c in stacks)
+            else:
+                chunks = -(-N_CHUNKS // d.chunk_devices) * d.chunk_devices
+            moved = payload.value - before
+            if moved != chunks * product_bytes:
+                raise AssertionError(f"{backend} {label}: payload {moved} != {chunks} chunks "
+                                     f"x {product_bytes} bytes")
+            n_bytes = sum(map(len, text)) if label == "batch" else len(text)
+            out[label] = {"bytes": n_bytes, "single_s": s1, "mesh_s": sm,
+                          "single_mb_per_s": n_bytes / s1 / 1e6,
+                          "mesh_mb_per_s": n_bytes / sm / 1e6,
+                          "launches": {k: v for k, v in n.items() if v},
+                          "payload_bytes": moved, "gathered_chunks": chunks,
+                          "product_bytes": product_bytes, "gathers": d.gathers - gathers}
+            del got, want
+        runs[backend + ("+kernel" if kernel else "")] = out
+        del single, meshed
+    return {"mesh_shape": mesh.shape, "transport": transport, "group": mesh.backend,
+            "runs": runs}
 
 
 if __name__ == "__main__":

@@ -37,10 +37,14 @@ admission), ``"off"`` skips it (``stats()["analysis"]`` then computes it
 lazily).  ``backend="auto"`` takes the analyzer's choice and runs it as the
 device runs it best (``analyze.pattern.resolve_backend``): on the card the
 dense family as ``cuda`` and ``packed`` / ``sparse`` with ``kernel=True``.
-``mesh`` is accepted by ``ParserConfig`` (so configs round-trip between the
-packages) and refused by ``Parser`` and ``ParserFleet`` with
-``NotImplementedError`` naming ROADMAP Queue 1 item 11; ``stats()["hlo"]``
-is None (item 12).
+``ParserConfig(mesh="host")`` builds a ``('pod', 'data')`` mesh over the
+ranks of the initialized ``torch.distributed`` group (``launch/mesh.py``; a
+single process with no group is the 1-rank mesh): run one process a rank,
+each building the same ``Parser`` and making the same calls.  ``parse`` then
+shards one text's chunks over every rank, ``parse_batch`` batch slots over
+'data' and chunks over 'pod' (``core/distributed.py``).  Fleet tenants run
+on one device and refuse ``mesh``.  ``stats()["hlo"]`` is None (ROADMAP
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -65,7 +69,6 @@ _HOST_MESH_AXES = ("pod", "data")
 # every backend name a config may carry: the registered ones
 # (core/backend.py) and "auto", which the static analyzer resolves
 _CONFIG_BACKENDS = ("auto", "cuda", "packed", "sparse", "torch")
-_MESH_UNPORTED = "mesh: ROADMAP Queue 1 item 11 (mesh distribution)"
 
 
 def _is_pow2(x: int) -> bool:
@@ -247,6 +250,28 @@ class ParserConfig:
         if name == "packed" and kernel:
             return PackedBackend(kernel=True)
         return get_backend(name)
+
+    def build_mesh(self):
+        """The declared mesh (``launch/mesh.py`` ``make_parse_mesh``, over
+        every rank of the default process group), or None on a
+        single-device config.  Building it is collective across ranks."""
+        if self.mesh is None:
+            return None
+        from .launch.mesh import make_parse_mesh
+
+        return make_parse_mesh()
+
+    def build_mesh_rules(self):
+        """``MeshRules`` with this config's overrides, or None for defaults."""
+        if self.mesh_rules is None:
+            return None
+        from .parallel.sharding import MeshRules
+
+        overrides = {
+            name: (axes if len(axes) != 1 else axes[0]) or None
+            for name, axes in self.mesh_rules
+        }
+        return MeshRules().with_overrides(**overrides)
 
 
 # ------------------------------------------------------------------ results
@@ -505,8 +530,6 @@ class Parser:
                 f"Parser takes a ParserConfig, a pattern string, or a config "
                 f"dict; got {type(config).__name__}"
             )
-        if config.mesh is not None:
-            raise NotImplementedError(f"not ported yet: {_MESH_UNPORTED}")
         self.config = config
         if matrices is None:
             matrices = build_matrices(compute_segments(config.regex))
@@ -554,6 +577,8 @@ class Parser:
             backend=config.build_backend(resolved, kernel),
             min_chunk_len=config.min_chunk_len,
             device=device,
+            mesh=config.build_mesh(),
+            mesh_rules=config.build_mesh_rules(),
             obs=self.obs,
         )
         self._parse_service: Optional[ParseService] = None
@@ -746,11 +771,16 @@ class Parser:
         """Parse one text synchronously through the same admission path as
         ``submit`` (stats and SLO grades observe it).
 
+        On a mesh config this is the long-text route, queue-free: the
+        engine's single-text distributed program shards the chunk dim over
+        every chunk mesh axis ('pod' × 'data'); ``parse_batch`` keeps batch
+        slots over 'data' and chunks over 'pod'.
+
         With tracing on the call runs queue-free through the engine's
         phase-split route (the same bits as the fused core), so the span log
         carries one ``parse.request`` root with a span per phase.
         """
-        if not self.obs.enabled:
+        if not self.obs.enabled and self.engine.mesh is None:
             return self.submit(text, deadline_s=deadline_s).result()
         if deadline_s is None:
             deadline_s = self._default_deadline_s()
@@ -762,14 +792,17 @@ class Parser:
         obs = self.obs
         trace_id = obs.new_trace_id()
         t0 = time.perf_counter()
-        with obs.span(
-            "parse.request",
-            trace_id=trace_id,
-            bucket=list(bucket),
-            backend=self.backend_name,
-            n_chars=len(classes),
-        ):
-            slpf = self.engine.parse_traced(classes, n_chunks=self.config.n_chunks)
+        if obs.enabled:
+            with obs.span(
+                "parse.request",
+                trace_id=trace_id,
+                bucket=list(bucket),
+                backend=self.backend_name,
+                n_chars=len(classes),
+            ):
+                slpf = self.engine.parse_traced(classes, n_chunks=self.config.n_chunks)
+        else:
+            slpf = self.engine.parse(classes, n_chunks=self.config.n_chunks)
         latency = time.perf_counter() - t0
         # admission and the SLO grades learn this route too; it never
         # queues, so the whole latency is compute
@@ -903,8 +936,8 @@ class ParserFleet:
     Serving is the weighted-fair scheduler (``FleetParseService``): each
     tenant's ``weight`` is its fair share, ``max_pending`` its own queue
     budget, ``slo`` its own grading targets in ``stats()``.  ``device=None``
-    means the card; ``mesh=`` (and a tenant config with ``mesh``) raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+    means the card.  Tenants share one device's engine pool, so a tenant
+    config with ``mesh`` is refused (``ValueError``), as in the reference.
     """
 
     def __init__(
@@ -915,12 +948,9 @@ class ParserFleet:
         max_pending: Optional[int] = None,
         obs: Union[ObsConfig, Mapping[str, Any], None] = None,
         device=None,
-        mesh=None,
     ):
         from .core.fleet import FleetEngine
 
-        if mesh is not None:
-            raise NotImplementedError(f"not ported yet: {_MESH_UNPORTED}")
         if obs is not None and isinstance(obs, Mapping):
             obs = ObsConfig(**dict(obs))
         self.obs = ObsHandle.from_config(obs)
@@ -957,8 +987,9 @@ class ParserFleet:
                 f"or config dict; got {type(config).__name__}"
             )
         if config.mesh is not None:
-            raise NotImplementedError(
-                f"not ported yet: fleet tenant {name!r}: {_MESH_UNPORTED}"
+            raise ValueError(
+                "fleet tenants run on the shared single-device engine pool; "
+                "mesh configs are not supported (use a dedicated Parser)"
             )
         # static analysis at admission: Parser construction's policy, but a
         # reject is an admission event, and the fleet keeps serving the rest

@@ -14,7 +14,10 @@ The reference's layers (``repro/core/engine.py``), in PyTorch:
             calls, and the traced route (``parse_traced``) times.
   engine    ``ParserEngine`` — texts → classes → chunk grids bucketed to
             power-of-two chunk lengths, grouped into power-of-two batches,
-            one core call per bucket, SLPF assembly on the host.
+            one core call per bucket, SLPF assembly on the host.  Built
+            with ``mesh=`` (``launch/mesh.py``), its ``parse`` /
+            ``parse_batch`` run through the mesh layer, ``dist``
+            (``core/distributed.py``).
 
 Texts pad with the PAD class, a semantic no-op, so bucket padding never
 changes a result.  PyTorch runs eagerly: there is no trace to count, and
@@ -191,7 +194,10 @@ class ParserEngine:
 
     ``obs`` is the observability handle every layer over this engine
     records into (streams, both services, the facade); the default is a
-    disabled tracer with a live metrics registry."""
+    disabled tracer with a live metrics registry.  ``mesh`` (a
+    ``launch.mesh.ParseMesh``) and ``mesh_rules`` (a
+    ``parallel.sharding.MeshRules``) make it a mesh engine: every rank of
+    the mesh builds the same engine and makes the same calls."""
 
     def __init__(
         self,
@@ -200,6 +206,8 @@ class ParserEngine:
         backend: Union[str, ParserBackend] = "cuda",
         min_chunk_len: int = 8,
         device=None,
+        mesh=None,
+        mesh_rules=None,
         obs: Optional[ObsHandle] = None,
     ):
         if isinstance(matrices_or_table, SegmentTable):
@@ -222,6 +230,9 @@ class ParserEngine:
         # shapes here, before any phase runs
         self.backend.bind_tables(self.tables)
         self.min_chunk_len = max(1, min_chunk_len)
+        self.mesh = mesh
+        self.mesh_rules = mesh_rules
+        self._dist = None
         self.obs = obs if obs is not None else ObsHandle()
         self._seen_batch_shapes: set = set()
         self._seen_phase_shapes: set = set()
@@ -242,6 +253,18 @@ class ParserEngine:
         if key not in self._seen_phase_shapes:
             self._seen_phase_shapes.add(key)
             self._bump_compiles()
+
+    @property
+    def dist(self):
+        """The mesh layer (``core/distributed.py``) of an engine built with
+        ``mesh=``; None on a single-device engine.  Built lazily."""
+        if self.mesh is None:
+            return None
+        if self._dist is None:
+            from .distributed import DistributedEngine
+
+            self._dist = DistributedEngine(self, self.mesh, rules=self.mesh_rules)
+        return self._dist
 
     def classes_of_text(self, text) -> np.ndarray:
         if isinstance(text, (bytes, str)):
@@ -284,13 +307,21 @@ class ParserEngine:
     # --------------------------------------------------------------- parse
 
     def parse(self, text, n_chunks: int = 8) -> SLPF:
-        """Parse one text (a batch of one; empty texts take the same path)."""
+        """Parse one text (a batch of one; empty texts take the same path).
+
+        On a mesh engine this is the long-text route: the chunk dim shards
+        over every chunk axis ('pod' × 'data')."""
+        if self.mesh is not None:
+            return self.dist.parse(text, n_chunks=n_chunks)
         return self.parse_batch([text], n_chunks=n_chunks)[0]
 
     def parse_batch(self, texts: Sequence, n_chunks: int = 8) -> List[SLPF]:
         """Parse many texts: grouped by (c, k) bucket, each group padded to
         a power-of-two number of batch rows (extra rows all PAD), one core
-        call per group."""
+        call per group.  On a mesh engine the groups take the distributed
+        batched route: batch slots over 'data', chunks over 'pod'."""
+        if self.mesh is not None:
+            return self.dist.parse_batch(texts, n_chunks=n_chunks)
         classes_list = [self.classes_of_text(t) for t in texts]
         groups: Dict[Tuple[int, int], List[int]] = {}
         for i, cls in enumerate(classes_list):
@@ -338,9 +369,17 @@ class ParserEngine:
         ``phase.reach``, ``phase.join``, ``phase.build_merge`` and
         ``phase.host_build``.  Each device span synchronizes the engine's
         device before it closes, so it times the phase and not its launches.
+        A mesh engine runs its distributed program in one
+        ``phase.device_parse`` span instead: its phases are separated by
+        collectives, not by host seams.
         """
         obs = self.obs
         classes = self.classes_of_text(text)
+        if self.mesh is not None:
+            with obs.span("phase.device_parse", n_chars=len(classes)):
+                slpf = self.dist.parse(classes, n_chunks=n_chunks)
+                self._sync()
+            return slpf
         c, k = self.bucket_shape(len(classes), n_chunks)
         chunks = self.chunks_tensor(self._pad_to(classes, c, k))
         t = self.tables
@@ -375,22 +414,20 @@ def _resolve_engine(
     """Shared constructor contract of everything layered on the engine
     (``ParseService``, ``StreamingParser``, ``StreamService``): accept
     matrices / a segment table and build an engine (backend ``cuda`` on the
-    card unless told otherwise), or accept a prebuilt ``ParserEngine`` — in
-    which case ``backend=`` / ``device=`` must not also be passed.  ``mesh``
-    is refused: mesh distribution is not ported (ROADMAP Queue 1 item 11)."""
-    if mesh is not None or mesh_rules is not None:
-        raise NotImplementedError(
-            "not ported yet: mesh: ROADMAP Queue 1 item 11 (mesh distribution)"
-        )
+    card unless told otherwise, on ``mesh`` when given), or accept a
+    prebuilt ``ParserEngine`` — in which case ``backend=`` / ``device=`` /
+    ``mesh=`` must not also be passed."""
     if isinstance(matrices_or_engine, ParserEngine):
-        if backend is not None or device is not None:
+        if backend is not None or device is not None or mesh is not None:
             raise ValueError(
-                "pass backend=/device= only when building the engine here; "
-                "a prebuilt ParserEngine already owns its backend and device"
+                "pass backend=/device=/mesh= only when building the engine here; "
+                "a prebuilt ParserEngine already owns its backend, device and mesh"
             )
         return matrices_or_engine
     return ParserEngine(
         matrices_or_engine,
         backend=backend if backend is not None else "cuda",
         device=device,
+        mesh=mesh,
+        mesh_rules=mesh_rules,
     )

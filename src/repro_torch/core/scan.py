@@ -11,11 +11,14 @@ share the chunk axis (the SSD layer's (decay, state) pairs,
 ``models/mamba.py``).  ``combine(later, earlier)`` and ``act(summaries,
 state)`` work on whole stacks: each is one batched call over the leading
 axes, where the reference vmaps a single-element function.
+
+Across ranks (``core/distributed.py``) the summaries are all-gathered over
+the chunk's mesh axes in ``linear_index`` order before the same scan.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple, TypeVar, Union
+from typing import Callable, Optional, Sequence, Tuple, TypeVar, Union
 
 import torch
 
@@ -57,3 +60,14 @@ def exclusive_entries(
     applied = act(associative_prefix(combine, summaries), init)
     first = torch.broadcast_to(init, applied.shape[1:]).unsqueeze(0)
     return torch.cat([first.to(applied.dtype), applied[:-1]], dim=0)
+
+
+def linear_index(mesh, axes: Sequence[str], rank: Optional[int] = None) -> int:
+    """This rank's (or ``rank``'s) row-major position over the mesh axes
+    ``axes`` (0 for none): where its chunk rows sit in a stack gathered
+    over them."""
+    coord = mesh.coordinate if rank is None else mesh.coordinate_of(rank)
+    idx = 0
+    for name in axes:
+        idx = idx * mesh.shape[name] + coord[name]
+    return idx

@@ -80,8 +80,11 @@ one per leaf: each chunk's columns depend only on its classes and its two
 entries, so the bits are the same and a capped stream of many leaves pays
 a handful of launches, not one per leaf.
 
-The port's copy of ``repro/core/stream.py`` on the port's engine.  Mesh
-routing is not ported (ROADMAP Queue 1 item 11): ``mesh=`` raises.
+The port's copy of ``repro/core/stream.py`` on the port's engine.  On a
+mesh engine (``ParserEngine(mesh=...)``) the join over the cached products
+runs through ``core/distributed.py``'s ``join_products``: the flattened
+leaf frontier is the all-gather payload, before and after any ``edit``;
+reach, compose and build&merge stay on each rank, as in the reference.
 """
 
 from __future__ import annotations
@@ -634,7 +637,13 @@ class StreamingParser:
             return
         t = self.engine.tables
         P, c_real = self._stack_products()
-        Jf, Jb, col0p = self.engine.phases.join(P, t.I, t.F)
+        dist = self.engine.dist
+        if dist is not None:
+            # sharded streaming: the leaf frontier is the mesh layer's
+            # all-gather payload, joined replicated there
+            Jf, Jb, col0p = dist.join_products(P)
+        else:
+            Jf, Jb, col0p = self.engine.phases.join(P, t.I, t.F)
         self._join = (Jf, Jb, col0p, c_real)
 
     def _joined(self):

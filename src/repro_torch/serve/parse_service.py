@@ -51,8 +51,10 @@ Backends: ``ParseService(..., backend=..., device=...)`` plumbs straight
 to the engine (``cuda`` on the card by default); ``stats["backend"]``
 reports which one is live.
 
-The port's copy of ``repro/serve/parse_service.py``.  ``mesh=`` raises
-(ROADMAP Queue 1 item 11).  ``FleetParseService`` is the same scheduler over
+The port's copy of ``repro/serve/parse_service.py``.  ``mesh=`` builds a
+mesh engine (``core/distributed.py``); every rank then queues and serves
+alike, and admission reads rank 0's observed p99 (``agreed``), so that all
+ranks admit or reject together.  ``FleetParseService`` is the same scheduler over
 a multi-automaton ``core/fleet.py`` ``FleetEngine``, through the
 ``_classes_and_bucket`` / ``_execute`` / ``_bucket_of`` / ``_auto_tenants``
 seams.
@@ -69,6 +71,7 @@ from typing import Deque, Dict, Hashable, List, Optional, Tuple, Union
 import numpy as np
 
 from ..core.backend import ParserBackend
+from ..core.distributed import agreed
 from ..core.engine import _resolve_engine
 from ..core.slpf import SLPF
 from ..errors import AdmissionError, BudgetExceeded, PathologicalPatternError
@@ -420,7 +423,7 @@ class ParseService:
             )
         if deadline_s is None:
             return
-        predicted = self.admission_p99_s(bucket)
+        predicted = agreed(self.engine, self.admission_p99_s(bucket))
         if deadline_s <= 0.0 or predicted > deadline_s:
             m.counter(
                 "admission_rejects_total", service="parse", cause="deadline"

@@ -47,8 +47,9 @@ served-count/latency aggregates (bucket key = piece chunk length k).
 
 The port's copy of ``repro/serve/stream_service.py``.  A step's batched
 reach is one (B_pad, k) grid on the engine's device: on the card, ONE K1 /
-K4 / K5 launch for every same-bucket session it serves.  ``mesh=`` raises
-(ROADMAP Queue 1 item 11).
+K4 / K5 launch for every same-bucket session it serves.  ``mesh=`` builds a
+mesh engine: each session's join runs through ``core/distributed.py``, and
+admission reads rank 0's observed p99 (``agreed``).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from typing import Deque, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from ..core.backend import ParserBackend, next_pow2
+from ..core.distributed import agreed
 from ..core.engine import _resolve_engine
 from ..core.slpf import SLPF
 from ..core.stream import StreamingParser
@@ -258,7 +260,7 @@ class StreamService:
             piece_len = min(s.parser.tail_room(), len(classes))
             bucket = s.parser._bucket_len(piece_len)
             if deadline_s is not None:
-                predicted = self.admission_p99_s(bucket)
+                predicted = agreed(self.engine, self.admission_p99_s(bucket))
                 if deadline_s <= 0.0 or predicted > deadline_s:
                     m.counter(
                         "admission_rejects_total", service="stream",

@@ -5,8 +5,8 @@
 oracle's; every served backend setting (``packed``, ``sparse``, their
 ``kernel=True`` paths and ``cuda`` with ``kernel=True``) parses as
 ``repro.Parser`` does; ``ParserConfig`` dicts round-trip between the
-packages under the backend-name map; the unported ``mesh`` raises
-``NotImplementedError``; the package never imports JAX or ``repro``.
+packages under the backend-name map; ``mesh="host"`` configs parse as the
+reference's do; the package never imports JAX or ``repro``.
 """
 
 import json
@@ -213,11 +213,21 @@ def test_served_settings_equal_reference_parser(setting, key):
     {"mesh": "host"}, {"mesh": "host", "backend": "auto"}, {"mesh": "host", "analyze": "strict"},
 ])
 def test_unported_settings_raise_not_implemented(setting):
-    """``mesh`` (ROADMAP Queue 1 item 11) is refused whatever else is set;
-    ``backend="auto"`` and ``analyze="strict"`` are served
-    (tests/test_torch_analyze.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Parser(ParserConfig(regex="a|b", **setting), device="cpu")
+    """The settings once refused as unported (``mesh``, with or without
+    ``backend="auto"`` / ``analyze="strict"``) are served: on the 1-rank
+    mesh every result equals the reference ``Parser``'s on its 1-device
+    mesh (the default backend maps ``jnp`` ↔ ``torch`` here on the CPU)."""
+    port_setting = {"backend": "torch", **setting}
+    port = Parser(ParserConfig(regex="(a|b|ab)+", n_chunks=N_CHUNKS, **port_setting),
+                  device="cpu")
+    ref = repro.Parser(repro.ParserConfig(regex="(a|b|ab)+", n_chunks=N_CHUNKS, **setting))
+    assert port.engine.mesh.shape == dict(ref.engine.mesh.shape) == {"pod": 1, "data": 1}
+    assert port.backend_name == TO_PORT[ref.backend_name]
+    texts = ["", "ab", "abab", "aab", "ab" * 9, "abx"]
+    for text in texts:
+        _assert_same_result(port.parse(text), ref.parse(text), ref.groups, text)
+    for text, got, want in zip(texts, port.parse_batch(texts), ref.parse_batch(texts)):
+        _assert_same_result(got, want, ref.groups, text)
 
 
 def test_ported_settings_are_accepted():
@@ -249,6 +259,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
         "import repro_torch.core.serial, repro_torch.core.reference, repro_torch.core.stream\n"
         "import repro_torch.core.fleet, repro_torch.analyze\n"
+        "import repro_torch.core.distributed, repro_torch.launch.mesh\n"
+        "import repro_torch.parallel.sharding\n"
         "from repro_torch.configs import get_smoke\n"
         "from repro_torch.models import model as m\n"
         "cfg = get_smoke('zamba2-2.7b')\n"
@@ -256,6 +268,9 @@ def test_port_imports_neither_jax_nor_repro():
         "p = repro_torch.Parser(repro_torch.ParserConfig(regex='(a|b|ab)+', "
         "backend='torch', n_chunks=4), device='cpu')\n"
         "assert p.parse('abab').ok\n"
+        "pm = repro_torch.Parser(repro_torch.ParserConfig(regex='(a|b|ab)+', "
+        "backend='torch', mesh='host', n_chunks=4), device='cpu')\n"
+        "assert pm.parse('abab').ok and pm.engine.dist.chunk_axes == ('pod', 'data')\n"
         "f = repro_torch.ParserFleet({'t': repro_torch.ParserConfig(regex='(a|b)*abb', "
         "backend='auto')}, device='cpu')\n"
         "assert f.parse('t', 'ababb').ok\n"

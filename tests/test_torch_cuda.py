@@ -2,7 +2,8 @@
 PyTorch version, the ``cuda``, ``packed`` and ``sparse`` kernel backends
 against the ``torch`` backend (parses, and streams with splices), the
 grouped build&merge of a stream's ``result()`` against per-leaf launches,
-one reach launch a stream-service step, and the LM prefill through K6 and
+one reach launch a stream-service step, 1-rank mesh parses against the
+non-mesh parse, and the LM prefill through K6 and
 K7 against the same model on its plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
@@ -676,6 +677,45 @@ def test_packed_and_sparse_kernel_backends_equal_torch_backend(dev, pattern, set
     assert kernel.launches >= 1 and ops.reach_chunk_product.launches == 0
     assert ops.build_merge_packed.launches == kernel.launches       # build&merge through K2
     assert p_kern.backend_name == setting["backend"]
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("setting", [
+    {"backend": "cuda"}, {"backend": "packed", "kernel": True},
+    {"backend": "sparse", "kernel": True},
+])
+def test_one_rank_mesh_parses_equal_the_non_mesh_parse(dev, pattern, setting):
+    """``mesh="host"`` on one process (the 1-rank mesh): ``parse``,
+    ``parse_batch`` and a stream through the mesh layer, on the kernels,
+    equal to the same config without a mesh."""
+    from repro_torch.core.stream import StreamingParser
+
+    cfg = ParserConfig(regex=pattern, n_chunks=4, **setting)
+    p_mesh = Parser(cfg.replace(mesh="host"), device=dev)
+    p_one = Parser(cfg, device=dev)
+    assert p_mesh.engine.dist.transport == "local"
+    rng = np.random.default_rng(len(pattern))
+    texts = [b"", b"a", b"ab" * 9, b"xyzyyz", b"ba" * 40 + b"~"]
+    texts += [bytes(rng.choice(list(b"abxyz"), size=int(n))) for n in (3, 17, 100)]
+    prefixes = [b"".join(texts[:i + 1]) for i in range(len(texts))]
+    want = [p_one.parse(t).forest for t in texts]
+    want_batch = [r.forest for r in p_one.parse_batch(texts)]
+    want_stream = [p_one.parse(t).forest for t in prefixes]
+    ops.reset_launches()                      # the mesh runs' launches only
+    for text, w in zip(texts, want):
+        got = p_mesh.parse(text)
+        assert got.ok == w.accepted and np.array_equal(got.forest.pack(), w.pack())
+    for got, w in zip(p_mesh.parse_batch(texts), want_batch):
+        assert np.array_equal(got.forest.pack(), w.pack())
+    sp = StreamingParser(p_mesh.engine, first_seal_len=4)
+    for piece, w in zip(texts, want_stream):
+        sp.append(piece)
+        assert np.array_equal(sp.current_slpf().pack(), w.pack())
+    reach = {"cuda": ops.reach_chunk_product, "packed": ops.packed_reach_chunk_product,
+             "sparse": ops.sparse_reach_rows}[setting["backend"]]
+    assert reach.launches >= 1 and ops.build_merge_packed.launches >= 1
+    if setting["backend"] == "cuda":
+        assert ops.semiring_matmul.launches >= 1
 
 
 def test_cuda_kernel_setting_is_the_cuda_backend(dev):

@@ -88,6 +88,26 @@ def test_engine_parse_equals_reference_engine(key):
     assert np.array_equal(single.pack(), ref.parse(batch[-2], n_chunks=N_CHUNKS).pack())
 
 
+@pytest.mark.parametrize("backend,ref_backend", [("torch", "jnp"), ("packed", "packed"),
+                                                 ("sparse", "sparse")])
+def test_backend_conformance_mesh_route(backend, ref_backend):
+    """The mesh route (``ParserEngine(mesh=...)`` on the 1-rank mesh) on a
+    corpus slice, as ``tests/test_conformance.py`` holds the reference's:
+    equal to the port's fused parse and to the reference's mesh route."""
+    from repro.launch.mesh import make_parse_mesh as ref_make_parse_mesh
+    from repro_torch.launch.mesh import make_parse_mesh
+
+    key = CORPUS[1]
+    art, port_m, _ = artifacts(key)
+    fused = ParserEngine(port_m, backend=backend, device="cpu")
+    meshed = ParserEngine(port_m, backend=backend, device="cpu", mesh=make_parse_mesh())
+    ref_meshed = RefEngine(art.matrices, backend=ref_backend, mesh=ref_make_parse_mesh())
+    for text in texts(key)[:6]:
+        got = meshed.parse(text, n_chunks=N_CHUNKS)
+        assert np.array_equal(got.pack(), fused.parse(text, n_chunks=N_CHUNKS).pack()), text
+        assert np.array_equal(got.pack(), ref_meshed.parse(text, n_chunks=N_CHUNKS).pack()), text
+
+
 def test_batched_core_equals_per_row_core():
     ref = _ref_engine("(a|b|ab)+")
     t = carried_tables(ref)

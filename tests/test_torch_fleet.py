@@ -229,12 +229,18 @@ def test_fleet_engine_rejects_duplicate_and_unknown_tenants():
 
 
 def test_parser_fleet_rejects_mesh_and_unknown_tenant():
+    """As the reference: a tenant with ``mesh`` is a ``ValueError`` (tenants
+    share one device), and ``ParserFleet`` has no ``mesh=`` keyword."""
     fleet = _port_fleet({"t": ParserConfig(regex=RX_SMALL, backend="torch")})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="mesh configs are not supported"):
         fleet.add("m", ParserConfig(regex=RX_SMALL, backend="torch", mesh="host"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="mesh configs are not supported"):
+        repro.ParserFleet().add("m", repro.ParserConfig(regex=RX_SMALL, mesh="host"))
+    with pytest.raises(TypeError, match="mesh"):
         ParserFleet({"t": ParserConfig(regex=RX_SMALL, backend="torch")}, device="cpu",
                     mesh="host")
+    with pytest.raises(TypeError, match="mesh"):
+        repro.ParserFleet(mesh="host")
     with pytest.raises(KeyError):
         fleet.parse("ghost", "abb")
     assert sorted(fleet.tenants) == ["t"]

@@ -27,6 +27,7 @@ from repro_torch import Parser, ParserConfig  # noqa: E402
 from repro_torch.core.engine import ParserEngine  # noqa: E402
 from repro_torch.core.stream import StreamingParser  # noqa: E402
 from repro_torch.core.serial import parse_serial_matrix  # noqa: E402
+from repro_torch.launch.mesh import make_parse_mesh  # noqa: E402
 
 AMBIG = "(a|b|ab)+"   # ambiguous: many LSTs per text
 # port backend ↔ reference backend (ROADMAP.md, "Layout")
@@ -331,8 +332,8 @@ def test_resolve_engine_rules():
     port_eng = engines("torch")[0]
     with pytest.raises(ValueError, match="prebuilt ParserEngine"):
         StreamingParser(port_eng, backend="packed")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        StreamingParser(port_eng, mesh="host")
+    with pytest.raises(ValueError, match="prebuilt ParserEngine"):
+        StreamingParser(port_eng, mesh=make_parse_mesh())
     built = StreamingParser(artifacts(AMBIG)[1], backend="packed", device="cpu")
     assert built.engine.backend.name == "packed"
 

@@ -69,7 +69,7 @@ or ``repro``).  Phases, each printing one JSON line:
              (192 on the 8 patterns (a|b)*a(a|b){k}, 4 texts of 4 KiB each;
              48 on TRAFFIC, 16 each on ``cuda``, ``packed`` and ``sparse``
              with ``kernel=True``, 4 logs of 64 KiB each; 16 on e125, one
-             text of 64 KiB each: 16 MiB).  ``parse_batch`` (cold, counted)
+             text of 16 KiB each: 15.3 MiB).  ``parse_batch`` (cold, counted)
              and a ``FleetParseService`` drain of the same requests through
              ``submit`` (warm); every tenant's result equals a solo
              ``Parser`` on its backend; each bucket dispatch makes one reach
@@ -116,14 +116,20 @@ and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
                   mode, one line each with its own bound and plan), with
                   kernel, plain and (K6)
                   ``scaled_dot_product_attention`` times and the name of the
-                  kernel SDPA ran
+                  kernel SDPA ran; K6 again with a logit softcap (``SOFTCAP``,
+                  case "softcap": the same limits, and the cap must move the
+                  output)
   lm_prefill      ``prefill`` of 2 x 2048 tokens in bf16, counted: seconds,
                   tokens/s, peak memory, K6 and K7 launches (9 and 108 for
                   the two-pass SSD: 54 ``"state"``, 54 ``"y"``), finite logits
   lm_profile      one more prefill under ``torch.profiler``: device time by
                   kernel family (K6, K7, cuBLAS GEMMs, the rest) and the
                   largest kernels
-  lm_consistency  the same model in f32 on a 1 x 512 prompt: ``prefill``
+  lm_consistency  the same model in f32, its depth cut to the first
+                  CONSISTENCY_DEPTH = 12 of 54 layers (2 shared blocks; the
+                  512 host-bound decode steps at 54 layers took 95 s on the
+                  H100), on a
+                  1 x 512 prompt: ``prefill``
                   logits (K6, K7) against teacher-forced ``decode_step``
                   logits (no kernel) at the last position, for the weights
                   as initialized (reported with their sensitivity to a 1e-6
@@ -137,7 +143,40 @@ and the LM serving path, on zamba2-2.7b at full width (54 layers, d_model
                   every finished one a full match; decode tokens/s
 
 then the f32 LM kernel records (``kernels_f32``, launches of the f32
-prefill), the kernel table (one record a launch kind: K7's ``"state"`` and
+prefill); then training, MoE and the frontends:
+
+  train_grad_gate  zamba2-2.7b at full width, one 1 x 2048 microbatch:
+                  ``forward_train``'s loss and gradients (the embedding, the
+                  shared block's wq, the first SSM layer's in_proj, the global
+                  norm; every leaf nonzero) through K6 / K7 (counted: 9 and
+                  216 launches) against the plain versions on the same card,
+                  beside the plain versions' own sensitivity to a 1e-3 nudge
+                  of the embeddings: at the reference's initialization
+                  (reported: the gradient is chaotic there), and gated at
+                  unit-scale attention logits in bf16 (``GRAD_GATE``,
+                  ``LOSS_GATE``) and in f32 compute over the bf16 params
+  train           3 ``Trainer.run`` steps at full width (bf16 params, fp32
+                  masters, 2 x 2048 tokens a step: accum 2 x microbatch 1, no
+                  checkpoint), counted: step seconds, tokens/s, losses, peak
+                  memory, K6 / K7 launches a step (18, 432)
+  train_profile   one more step under ``torch.profiler``: device ms by kernel
+                  family and within the AdamW update and the recomputed
+                  backward of K6 / K7
+  train_grad_gate_f32  the same gate on zamba2's smoke config in f32, every
+                  leaf within 1e-3
+  train_resume    tinyllama smoke, 6 steps, crash at step 4, resume from the
+                  step-3 checkpoint: final loss within 1e-4 of the
+                  uninterrupted run's
+  train_moe       3 ``Trainer`` steps of the mixtral smoke config: finite
+                  losses, K6 launches counted
+  moe_frontend    mixtral-8x22b at full width cut to depth 2 of 56: prefill of
+                  1 x 5120 tokens (past its 4096-token window) and 16 decode
+                  steps; internvl2-1b at full width: prefill of 768 tokens
+                  after (1, 256, 1024) seeded frontend features; counted,
+                  finite logits
+
+then the kernel table (K6 and K7 records also carry their launches in the
+``train`` run, ``train_launches``) (one record a launch kind: K7's ``"state"`` and
 ``"y"`` launches each with their own count, time and bound), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -157,7 +196,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -194,6 +235,7 @@ HBM_BYTES_PER_S = 3.35e12
 LM_ARCH = "zamba2-2.7b"
 LM_BATCH, LM_LEN = 2, 2048          # a multiple of the SSD chunk (256)
 CONSISTENCY_LEN = 512               # two SSD chunks: the join carries a state
+CONSISTENCY_DEPTH = 12              # layers of 54: two shared blocks
 # prefill (K6, K7) against teacher-forced decode (no kernel) in f32, max |Δ|
 # of the last position's logits (scale ~1: rms-normed features through a
 # 1/sqrt(d_model) head), with unit-scale attention logits: the reference's
@@ -208,6 +250,9 @@ LM_PATTERN = "(ab|a)*c"
 # (0.036 at n = 2048): the absolute limit is that size, the relative one sees
 # a fault confined to late rows (a dropped key tile moves them by ~sqrt(64/n)).
 K6_ROW_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K6's logit softcap in its check: with unit-normal q and k the scaled scores
+# have scale ~1, so a cap of 1 bends most of them
+SOFTCAP = 1.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -747,6 +792,7 @@ def lm_kernel_cases(cfg, dev, seed: int):
             "shapes": {"dtype": tag, "b": b, "L": L, "h": h, "hd": hd, "tolerance_atol": tol,
                        "tolerance_row_rel": rel_tol},
         })
+        emit("kernel", **softcap_record(qkv, tag, tol, rel_tol))
         del qkv, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -761,6 +807,41 @@ def lm_kernel_cases(cfg, dev, seed: int):
         torch.cuda.empty_cache()
         out[tag] = recs
     return out
+
+
+def softcap_record(qkv, tag, tol, rel_tol) -> dict:
+    """K6 with a logit softcap (SOFTCAP, where the scores' scale is ~1, so
+    that it bites) against its plain version, at the prefill's shapes; no
+    path of zamba2 launches it and no PyTorch call computes it."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    kw = dict(causal=True, window=None, softcap=SOFTCAP)
+    got = ops.flash_attention(*qkv, **kw)
+    torch.cuda.synchronize()
+    want = ops.flash_attention.plain(*qkv, **kw)
+    uncapped = ops.flash_attention.plain(*qkv, causal=True, window=None)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    moved = (want.float() - uncapped.float()).abs().max().item()
+    if not (err <= tol and rel <= rel_tol and torch.isfinite(got).all() and moved > tol):
+        raise AssertionError(f"flash_attention softcap {tag}: max |err| {err} (limit {tol}), "
+                             f"row-relative {rel} (limit {rel_tol}), cap moves {moved}")
+    b, L, h, hd = qkv[0].shape
+    e = qkv[0].element_size()
+    rate = BF16_FLOPS if qkv[0].dtype == torch.bfloat16 else F32_FLOPS
+    b_ms, b_by = bound_ms(2.0 * L * (L + 1) * hd * b * h, 4.0 * b * L * h * hd * e, rate)
+    return {"name": "flash_attention", "case": "softcap", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:96",
+            "launches": None, "max_abs_err": err, "max_row_rel_err": rel,
+            "softcap_moves_output_by": moved,
+            **timing_fields(lambda: ops.flash_attention(*qkv, **kw),
+                            lambda: ops.flash_attention.plain(*qkv, **kw), None),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shapes": {"dtype": tag, "b": b, "L": L, "h": h, "hd": hd, "softcap": SOFTCAP,
+                       "tolerance_atol": tol, "tolerance_row_rel": rel_tol}}
 
 
 def ssd_bound(P, q, hp, n, e, rate, outputs):
@@ -1080,7 +1161,8 @@ def lm_phases(dev, seed: int):
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
-                                attn_p_dtype="float32")
+                                attn_p_dtype="float32", n_layers=CONSISTENCY_DEPTH,
+                                layout=cfg.layout[:CONSISTENCY_DEPTH])
     counts32 = lm_consistency_phase(cfg32, params32, dev, seed)
     for rec in kernel_records["float32"]:
         rec["launches"] = counts32.get(count_key(rec), 0)
@@ -1088,6 +1170,448 @@ def lm_phases(dev, seed: int):
     del params32
     torch.cuda.empty_cache()
     return bf16
+
+
+# ------------------------------------------------------------ training path
+
+TRAIN_LEN, TRAIN_BATCH, TRAIN_STEPS = 2048, 2, 3      # one rank: accum 2 x microbatch 1
+# kernels against plain versions, by compute dtype: forward_train's loss
+# (relative) and the gradients' relative L2 error.  In bf16 a leaf whose
+# plain-version gradient itself moves by more under a bf16-sized nudge of the
+# embeddings (``sensitivity``) is held to that instead: at 54 layers the bf16
+# gradient is only defined to that noise (PERF.md, training findings)
+GRAD_GATE = {"bfloat16": 5e-2, "float32": 1e-3}
+LOSS_GATE = {"bfloat16": 1e-2, "float32": 1e-3}
+RESUME_BOUND = 1e-4                  # the reference's (tests/test_train_e2e.py)
+MIXTRAL_DEPTH, MIXTRAL_PROMPT, MIXTRAL_DECODE = 2, 5120, 16
+INTERNVL_TEXT = 768                  # text tokens after its 256 frontend features
+
+
+def expected_train_launches(cfg) -> dict:
+    """K6 and K7 launches of one microbatch's forward and backward: every
+    stacked layer's forward runs again in the backward under remat (kernels
+    included), the zamba2 shared block's does not (the reference does not
+    wrap it); the backward itself recomputes the plain versions."""
+    again = 2 if cfg.remat else 1
+    kinds = cfg.layer_kinds
+    n_attn = sum(1 for k in kinds if k in ("attn", "moe"))
+    n_shared = len(kinds) // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    n_ssm = kinds.count("ssm")
+    return {"flash_attention": n_attn * again + n_shared, "ssd_chunk": 2 * n_ssm * again,
+            "ssd_chunk/state": n_ssm * again, "ssd_chunk/y": n_ssm * again}
+
+
+def check_launches(label, counts, want) -> None:
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) pairs of a param tree in its flatten order (keys sorted)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+class plain_kernels:
+    """Within the block the model's K6 and K7 calls go to their plain
+    versions (``ops.flash_attention.plain``, ``ops.ssd_chunk.plain``): the
+    yardstick of the gradient gates, never a path of the port."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._saved = ops.flash_attention, ops.ssd_chunk
+        ops.flash_attention, ops.ssd_chunk = (w.plain for w in self._saved)
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.flash_attention, ops.ssd_chunk = self._saved
+
+
+def forward_backward(cfg, params, micro, keep):
+    """forward_train's loss and gradients of one microbatch; returns (loss,
+    {path: gradient} for the paths in ``keep`` (a leaf path, or a path and a
+    layer index), f32 global norm, paths whose gradient is zero or absent)."""
+    import torch
+
+    from repro_torch.models.model import forward_train
+
+    from repro_torch.optim.adamw import tree_map
+
+    tree = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    named = list(_paths(tree))
+    live = [p for _, p in named]
+    total, metrics = forward_train(tree, micro, cfg)
+    grads = torch.autograd.grad(total, live, allow_unused=True)
+    kept, sq, dead = {}, torch.zeros((), device=live[0].device), []
+    for (path, _), g in zip(named, grads):
+        if g is None or not bool(g.ne(0).any()):
+            dead.append(path)
+            continue
+        sq = sq + g.float().square().sum()
+        for want in keep:
+            name, index = want if isinstance(want, tuple) else (want, None)
+            if name == path:
+                kept[want if index is None else f"{name}[{index}]"] = (
+                    g if index is None else g[index]).float().clone()
+    del grads, live, tree, total
+    return float(metrics["loss"].detach()), kept, float(sq.sqrt()), dead
+
+
+def grad_gate(label, cfg, params, micro, keep, init="as initialized", gated=True):
+    """Loss and gradients through the kernels (counted) and through the plain
+    versions on the same card and inputs, and the plain versions' own
+    ``sensitivity``: their gradients' change when the embeddings move by a
+    relative 1e-3 (about bf16's rounding), which bounds how far any two
+    evaluation orders of an ill-conditioned function may drift apart.  A
+    gated run fails past LOSS_GATE and GRAD_GATE of ``cfg.dtype`` (in bf16,
+    a leaf's sensitivity where that is larger); every run fails on a zero or
+    absent gradient."""
+    import torch
+
+    (k_loss, k_grads, k_norm, k_dead), secs, counts = counted(
+        lambda: forward_backward(cfg, params, micro, keep))
+    check_launches(f"{label} forward+backward", counts, expected_train_launches(cfg))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=params["embed"].device)
+    gen.manual_seed(1)
+    noise = 1.0 + 1e-3 * torch.randn(params["embed"].shape, generator=gen,
+                                     device=params["embed"].device)
+    nudged = dict(params, embed=(params["embed"].float() * noise).to(params["embed"].dtype))
+    del noise
+    with plain_kernels():
+        p_loss, p_grads, p_norm, p_dead = forward_backward(cfg, params, micro, keep)
+        n_loss, n_grads, n_norm, _ = forward_backward(cfg, nudged, micro, keep)
+    del nudged
+
+    def compare(a_loss, a_grads, a_norm):
+        rel = {k: ((a_grads[k] - p_grads[k]).norm() / p_grads[k].norm().clamp_min(1e-30)).item()
+               for k in p_grads}
+        rel["global_norm"] = abs(a_norm - p_norm) / max(p_norm, 1e-30)
+        return abs(a_loss - p_loss) / max(abs(p_loss), 1e-30), rel
+
+    loss_rel, rel = compare(k_loss, k_grads, k_norm)
+    sens_loss, sens = compare(n_loss, n_grads, n_norm)
+    dtype_name = cfg.dtype
+    loss_bound = LOSS_GATE[dtype_name]
+    bound = {k: max(GRAD_GATE[dtype_name], sens[k]) if dtype_name == "bfloat16"
+             else GRAD_GATE[dtype_name] for k in rel}
+    fields = dict(model=cfg.name, dtype=dtype_name, param_dtype=cfg.param_dtype, init=init,
+                  gated=gated,
+                  loss_kernels=k_loss, loss_plain=p_loss,
+                  loss_rel=loss_rel, loss_bound=loss_bound, grad_rel_l2=rel, grad_bound=bound,
+                  global_norm_kernels=k_norm, global_norm_plain=p_norm,
+                  sensitivity={"loss_rel": sens_loss, "grad_rel_l2": sens},
+                  zero_or_absent=k_dead + p_dead, seconds_kernels=secs,
+                  launches={k: counts.get(k, 0) for k in expected_train_launches(cfg)})
+    emit(label, **fields)
+    if k_dead or p_dead or set(k_grads) != set(keep_names(keep)):
+        raise AssertionError(f"{label}: zero or absent gradients {k_dead + p_dead}")
+    if gated and not (loss_rel <= loss_bound and all(v <= bound[k] for k, v in rel.items())):
+        raise AssertionError(f"{label}: kernels against plain {fields}")
+    return counts
+
+
+def keep_names(keep):
+    return [k if isinstance(k, str) else f"{k[0]}[{k[1]}]" for k in keep]
+
+
+def train_profile(trainer, step_s: float) -> dict:
+    """Device time of one train step by kernel family, and within the
+    optimizer update and the recomputed backward of K6 and of K7 (the
+    kernels launched inside each ``record_function`` range).  The idle share
+    is the card's: 1 − device time / ``step_s``, an unprofiled step's seconds
+    (the profiler's own host work slows the profiled step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+
+    params, opt_state = trainer.init_state()
+    batch = trainer.device_batch(0)
+    apply, recompute = step_mod.apply_updates, ops._recompute_grads
+
+    def apply_ranged(*a, **k):
+        with record_function("train.adamw"):
+            return apply(*a, **k)
+
+    def recompute_ranged(ctx, plain, *a, **k):
+        with record_function(f"train.recompute_backward/{plain.__name__}"):
+            return recompute(ctx, plain, *a, **k)
+
+    step_mod.apply_updates, ops._recompute_grads = apply_ranged, recompute_ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer._step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    finally:
+        step_mod.apply_updates, ops._recompute_grads = apply, recompute
+    del params, opt_state, batch
+    families = {"flash_attention": 0.0, "ssd_chunk": 0.0, "gemm": 0.0, "other": 0.0}
+    ranges = {"train.adamw": 0.0, "train.recompute_backward/flash_attention_ref": 0.0,
+              "train.recompute_backward/ssd_chunk_ref": 0.0}
+    top = []
+    # a range's device time: the kernels launched by the CPU ops that run
+    # inside its CPU-side event, on its thread (the profiler's GPU-side
+    # annotation of the same name spans the gaps between them too)
+    events = [ev for ev in prof.events() if ev.device_type.name == "CPU"]
+    spans = [(ev.name, ev.thread, ev.time_range.start, ev.time_range.end)
+             for ev in events if ev.name in ranges]
+    for ev in events:
+        us = sum(k.duration for k in ev.kernels)
+        if not us or ev.name in ranges:
+            continue
+        for name, thread, start, end in spans:
+            if ev.thread == thread and start <= ev.time_range.start and ev.time_range.end <= end:
+                ranges[name] += us / 1e3
+                break
+    for ev in prof.key_averages():
+        us = _device_us(ev)
+        if not us or ev.key in ranges or ev.device_type.name != "CUDA":
+            continue
+        name = ev.key.lower()
+        fam = ("flash_attention" if "flash_" in name and "kernel" in name
+               else "ssd_chunk" if "ssd_" in name and "kernel" in name
+               else "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
+               else "other")
+        families[fam] += us / 1e3
+        top.append((us / 1e3, ev.key[:80], ev.count))
+    top.sort(reverse=True)
+    total = sum(families.values())
+    out = {"step_s": step_s, "step_s_profiled": prof_s, "device_ms_by_family": families,
+           "device_ms_in_range": ranges, "device_ms_total": total,
+           "idle_share": max(0.0, 1.0 - total / (step_s * 1e3)), "top": top[:12]}
+    emit("train_profile", **out)
+    return out
+
+
+def train_full_width_phase(dev, seed: int, workdir) -> dict:
+    """The gradient gate and three ``Trainer`` steps of zamba2-2.7b at full
+    width (bf16 params, fp32 masters), counted; then one step profiled."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = get_config(LM_ARCH)
+    params = init_params(cfg, seed=seed, device=dev)
+    toks = SyntheticLM(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH, seed).batch_at(0)["tokens"]
+    micro = {"tokens": torch.from_numpy(toks[:1].astype("int64")).to(dev)}
+    keep = ["embed", "shared_attn/wq", ("stacks/ssm/ssm/w_in", 0)]
+    grad_gate("train_grad_gate", cfg, params, micro, keep, gated=False)
+    unit = _unit_scale_attention(params, cfg)
+    grad_gate("train_grad_gate", cfg, unit, micro, keep, init="unit_scale_attention")
+    f32_compute = dataclasses.replace(cfg, dtype="float32", attn_p_dtype="float32")
+    grad_gate("train_grad_gate", f32_compute, unit, micro, keep, init="unit_scale_attention")
+    del params, unit, micro
+    torch.cuda.empty_cache()
+
+    shape = ShapeSpec("train", seq_len=TRAIN_LEN, global_batch=TRAIN_BATCH, kind="train")
+    trainer = Trainer(cfg, shape, make_host_mesh(), workdir,
+                      TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=0, log_every=1,
+                                    seed=seed),
+                      opt=AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS), device=dev)
+    if (trainer.plan.accum_steps, trainer.plan.microbatch) != (2, 1):
+        raise AssertionError(f"train plan {trainer.plan}")
+    torch.cuda.reset_peak_memory_stats()
+    result, secs, counts = counted(trainer.run)
+    per_micro = expected_train_launches(cfg)
+    n_micro = TRAIN_STEPS * trainer.plan.accum_steps
+    check_launches("train", counts, {k: v * n_micro for k, v in per_micro.items()})
+    hist = result["history"]
+    if not all(map(math.isfinite, (h["loss"] for h in hist))):
+        raise AssertionError(f"train: losses {hist}")
+    tokens = TRAIN_LEN * TRAIN_BATCH
+    fields = dict(model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                  n_params=cfg.n_params,
+                  param_dtype=cfg.param_dtype, seq=TRAIN_LEN, global_batch=TRAIN_BATCH,
+                  accum_steps=trainer.plan.accum_steps, microbatch=trainer.plan.microbatch,
+                  steps=TRAIN_STEPS, seconds=secs,
+                  step_seconds=[h["dt"] for h in hist],
+                  tokens_per_s=[tokens / h["dt"] for h in hist],
+                  losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+                  lrs=[h["lr"] for h in hist],
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launches={k: counts.get(k, 0) for k in per_micro},
+                  launches_per_step={k: counts.get(k, 0) // TRAIN_STEPS for k in per_micro},
+                  expected_per_microbatch=per_micro, nvidia_smi=nvidia_smi_line())
+    emit("train", **fields)
+    torch.cuda.empty_cache()
+    train_profile(trainer, statistics.median(h["dt"] for h in hist))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_smoke_phases(dev, seed: int, workdir) -> None:
+    """The f32 gradient gate at smoke size, crash → resume, and the mixtral
+    smoke config's Trainer steps, on the card."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.model import init_params
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_smoke(LM_ARCH), dtype="float32", param_dtype="float32",
+                              attn_p_dtype="float32")
+    params = init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    micro = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device=dev)}
+    keep = [path for path, _ in _paths(params)]
+    grad_gate("train_grad_gate_f32", cfg, params, micro, keep)
+    del params
+
+    smoke = get_smoke("tinyllama-1.1b")
+    shape = ShapeSpec("tiny_train", seq_len=32, global_batch=4, kind="train")
+
+    def crash_resume(label):
+        a = Trainer(smoke, shape, make_host_mesh(), Path(workdir) / f"{label}_a",
+                    TrainerConfig(total_steps=6, checkpoint_every=3, log_every=1), device=dev)
+        ra = a.run()
+        b1 = Trainer(smoke, shape, make_host_mesh(), Path(workdir) / f"{label}_b",
+                     TrainerConfig(total_steps=6, checkpoint_every=3, log_every=1,
+                                   fail_at_step=4), device=dev)
+        try:
+            b1.run()
+            raise AssertionError("train_resume: the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        b2 = Trainer(smoke, shape, make_host_mesh(), Path(workdir) / f"{label}_b",
+                     TrainerConfig(total_steps=6, checkpoint_every=3, log_every=1), device=dev)
+        rb = b2.run()
+        return ra["final_loss"], rb["final_loss"], [h["step"] for h in rb["history"]]
+
+    ra, rb, resumed = crash_resume("resume")
+    runs = {"default": {"final_loss": ra, "resumed_final_loss": rb, "delta": abs(ra - rb),
+                        "resumed_steps": resumed}}
+    if not abs(ra - rb) < RESUME_BOUND:
+        torch.use_deterministic_algorithms(True, warn_only=False)
+        try:
+            ra, rb, resumed = crash_resume("resume_deterministic")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        runs["deterministic"] = {"final_loss": ra, "resumed_final_loss": rb,
+                                 "delta": abs(ra - rb), "resumed_steps": resumed}
+    emit("train_resume", model=smoke.name, bound=RESUME_BOUND, gated=list(runs)[-1], **runs)
+    if not (abs(ra - rb) < RESUME_BOUND and resumed == [4, 5, 6]):
+        raise AssertionError(f"train_resume: {runs}")
+
+    moe = get_smoke("mixtral-8x22b")
+    t = Trainer(moe, ShapeSpec("t", seq_len=16, global_batch=2, kind="train"), make_host_mesh(),
+                Path(workdir) / "moe", TrainerConfig(total_steps=3, checkpoint_every=100),
+                device=dev)
+    result, secs, counts = counted(t.run)
+    losses = [h["loss"] for h in result["history"]]
+    per_micro = expected_train_launches(moe)
+    check_launches("train_moe", counts,
+                   {k: v * 3 * t.plan.accum_steps for k, v in per_micro.items()})
+    emit("train_moe", model=moe.name, losses=losses, seconds=secs,
+         launches={k: counts.get(k, 0) for k in per_micro})
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_moe: losses {losses}")
+
+
+def moe_frontend_phase(dev, seed: int) -> dict:
+    """mixtral-8x22b at full width, depth MIXTRAL_DEPTH: prefill of
+    MIXTRAL_PROMPT tokens (K6 with its 4096-token window, which they exceed)
+    and MIXTRAL_DECODE decode steps; internvl2-1b at full width: prefill
+    with a seeded (1, 256, 1024) ``extra``.  Counted; finite logits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, init_params, make_cache, prefill
+
+    out = {}
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=MIXTRAL_DEPTH)
+    params = init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MIXTRAL_PROMPT), generator=gen, device=dev)
+    with torch.no_grad():
+        prefill(params, tokens[:, :256], cfg)                      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        (logits, _), secs, counts = counted(lambda: prefill(params, tokens, cfg))
+        check_launches("moe_prefill", counts, {"flash_attention": MIXTRAL_DEPTH, "ssd_chunk": 0})
+        caches = make_cache(cfg, 1, MIXTRAL_PROMPT + MIXTRAL_DECODE, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MIXTRAL_DECODE):
+            step_logits, caches = decode_step(params, caches, tokens[:, t : t + 1], cfg)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+    out["mixtral"] = dict(model=cfg.name, depth=f"{MIXTRAL_DEPTH} of 56", d_model=cfg.d_model,
+                          n_params=cfg.n_params, window=cfg.sliding_window,
+                          prompt=MIXTRAL_PROMPT, prefill_s=secs,
+                          prefill_tokens_per_s=MIXTRAL_PROMPT / secs,
+                          decode_steps=MIXTRAL_DECODE, decode_s=decode_s,
+                          decode_tokens_per_s=MIXTRAL_DECODE / decode_s,
+                          cache_len=int(caches["attn"]["k"].shape[2]),
+                          max_memory_allocated=torch.cuda.max_memory_allocated(),
+                          launches={k: counts[k] for k in ("flash_attention", "ssd_chunk")},
+                          logits_finite=finite)
+    if not finite or tuple(logits.shape) != (1, 1, cfg.vocab_size):
+        raise AssertionError(f"moe_prefill: {out['mixtral']}")
+    del params, caches, logits, step_logits
+    torch.cuda.empty_cache()
+
+    cfg = get_config("internvl2-1b")
+    params = init_params(cfg, seed=seed, device=dev)
+    fe = cfg.frontend
+    tokens = torch.randint(0, cfg.vocab_size, (1, INTERNVL_TEXT), generator=gen, device=dev)
+    extra = torch.randn((1, fe.n_extra_tokens, fe.feature_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        prefill(params, tokens, cfg, extra=extra)                   # warm-up
+        (logits, cache), secs, counts = counted(lambda: prefill(params, tokens, cfg, extra=extra))
+        check_launches("frontend_prefill", counts, {"flash_attention": cfg.n_layers})
+        plain_logits, _ = prefill(params, tokens, cfg)
+    finite = bool(torch.isfinite(logits).all())
+    moved = (logits.float() - plain_logits.float()).abs().max().item()
+    out["internvl2"] = dict(model=cfg.name, n_params=cfg.n_params, text=INTERNVL_TEXT,
+                            extra=list(extra.shape), pos=cache["pos"], prefill_s=secs,
+                            tokens_per_s=(INTERNVL_TEXT + fe.n_extra_tokens) / secs,
+                            launches={"flash_attention": counts["flash_attention"]},
+                            logits_finite=finite, extra_moves_logits=moved)
+    if not finite or cache["pos"] != INTERNVL_TEXT + fe.n_extra_tokens or not moved > 0:
+        raise AssertionError(f"frontend_prefill: {out['internvl2']}")
+    emit("moe_frontend", **out)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phases(dev, seed: int) -> dict:
+    """Training at full width and smoke size, then MoE and the frontends;
+    returns the full-width run's launch counts."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        counts = train_full_width_phase(dev, seed, Path(tmp) / "full")
+        train_smoke_phases(dev, seed, tmp)
+    moe_frontend_phase(dev, seed)
+    emit("train_phases_total", seconds=time.perf_counter() - t0)
+    return counts
 
 
 def _leaves(tree):
@@ -1132,7 +1656,11 @@ def main() -> int:
 
     records = parser_phases(args, dev)
     mesh_phase(args)
-    records += lm_phases(dev, args.seed)
+    lm_records = lm_phases(dev, args.seed)
+    train_counts = train_phases(dev, args.seed)
+    for rec in lm_records:
+        rec["train_launches"] = train_counts.get(count_key(rec), 0)
+    records += lm_records
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1575,7 +2103,7 @@ def obs_trace_phase(dev, cfg_t, traffic: bytes, r_traffic, host_secs) -> None:
 FLEET_AB_PATTERNS = [f"(a|b)*a(a|b){{{k}}}" for k in range(1, 9)]
 FLEET_AB, FLEET_AB_TEXTS, FLEET_AB_BYTES = 192, 4, 4 << 10
 FLEET_TRAFFIC, FLEET_TRAFFIC_TEXTS, FLEET_BYTES = 48, 4, 64 << 10
-FLEET_E125 = 16
+FLEET_E125, FLEET_E125_BYTES = 16, 16 << 10
 FLEET_MAX_BATCH = 1024      # a bucket's requests in one dispatch
 
 
@@ -1584,8 +2112,9 @@ def fleet_tenants(seed: int):
     in 5 automaton buckets: 192 on the 8 patterns (a|b)*a(a|b){k} (cuda, 4
     texts of 4 KiB of random a/b each), 48 on TRAFFIC (16 each on cuda,
     packed and sparse with kernel=True, 4 logs of 64 KiB each) and 16 on
-    e125 (cuda, one text of 64 KiB each); about 16 MiB a sweep.  Chunks of
-    about 1024 characters."""
+    e125 (cuda, one text of 16 KiB each: 64 KiB until the training phases
+    joined the script; its strip-kernel dispatch cost ~9.3 s); about 15.3
+    MiB a sweep.  Chunks of about 1024 characters."""
     import numpy as np
 
     from repro_torch import ParserConfig
@@ -1606,8 +2135,8 @@ def fleet_tenants(seed: int):
             cfg, [traffic_log(FLEET_BYTES, seed + 100 + 8 * j + b)
                   for b in range(FLEET_TRAFFIC_TEXTS)])
     for j in range(FLEET_E125):
-        cfg = ParserConfig(regex=E125_RE, backend="cuda", n_chunks=FLEET_BYTES // 1024)
-        tenants[f"e125-{j:02d}"] = (cfg, [e125_text(FLEET_BYTES, seed + 1000 + j)])
+        cfg = ParserConfig(regex=E125_RE, backend="cuda", n_chunks=FLEET_E125_BYTES // 1024)
+        tenants[f"e125-{j:02d}"] = (cfg, [e125_text(FLEET_E125_BYTES, seed + 1000 + j)])
     return tenants
 
 

@@ -8,7 +8,11 @@ K2; the
 ``torch`` backend runs the same phases as plain tensor code on either device.
 The LM serving path (``models``, ``configs``, ``serve``) runs prefill through
 K6 flash attention and K7 SSD chunk; decode and the RE-constrained
-``ServeEngine`` / ``ContinuousBatcher`` run plain tensor code.
+``ServeEngine`` / ``ContinuousBatcher`` run plain tensor code.  Training
+(``train``, ``optim``, ``data``) runs ``forward_train`` through K6 and K7 as
+autograd Functions (backward: a recompute of their plain versions), on one
+rank.  Like the reference's, the package's top level exports the parser; the
+LM and training entry points are imported from their modules.
 
     import repro_torch
 
@@ -32,6 +36,12 @@ K6 flash attention and K7 SSD chunk; decode and the RE-constrained
     from repro_torch.models.model import init_params, prefill
     cfg = get_config("zamba2-2.7b")
     logits, _ = prefill(init_params(cfg, seed=0), tokens, cfg)   # K6, K7
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    Trainer(cfg, ShapeSpec("t", 2048, 2, "train"), make_host_mesh(), "run",
+            TrainerConfig(total_steps=3, checkpoint_every=0)).run()  # on the card
 """
 
 from . import analyze, api, errors, obs

@@ -22,7 +22,10 @@
 // query tiles from the last (longest causal row range) to the first, so the
 // longest blocks start first and the short ones fill the tail.  Masked scores
 // are -inf and a row whose running max is still -inf uses 0 in its place, so
-// no NaN arises.
+// no NaN arises.  A logit softcap c > 0 (the attention of configs with
+// attn_logit_softcap) maps each scaled score s to c * tanh(s / c) before the
+// mask, in f32 (tanhf), and the exponentials then take the capped score times
+// log2(e); c = 0 leaves the path as it was, one uniform branch a score.
 //
 // bf16 (head_dim a multiple of 8 up to 128): a block of 128 query rows, two
 // warpgroups of 64 rows each, a 4-stage K/V ring filled by TMA.  S = Q K^T is
@@ -157,21 +160,25 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // Online-softmax step for one thread's two rows (r = 0: row g, r = 1: row
 // g + 8) over NT accumulator n-tiles s[nt*4 + e] (e >> 1 is the row) of raw
-// scores: mask when the tile is not fully visible, take the row max, update
-// (m, l) in the log2 domain, leave p = 2^(s * scale_log2 - m) in s (one FMA
-// and one exponential a score), and return in alpha the factor by which the
-// output accumulators must be rescaled (rescale_rows).  FAST_EXP takes the
+// scores: cap them when cap > 0 (s = cap * tanh(s * cap_in), cap_in = scale /
+// cap; scale_log2 is then log2(e)), mask when the tile is not fully visible,
+// take the row max, update (m, l) in the log2 domain, leave
+// p = 2^(s * scale_log2 - m) in s (one FMA and one exponential a score), and
+// return in alpha the factor by which the output accumulators must be
+// rescaled (rescale_rows).  FAST_EXP takes the
 // exponential on the special-function unit alone (the bf16 kernel, whose p is
 // rounded to bf16); otherwise exp2f.
 template <int NT, bool FAST_EXP>
 __device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* alpha,
                                                bool full, int row0, int k0, int t, int Lk,
-                                               int causal, int window, float scale_log2) {
+                                               int causal, int window, float scale_log2,
+                                               float cap, float cap_in) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
+      if (cap > 0.f) s[nt * 4 + e] = cap * tanhf(s[nt * 4 + e] * cap_in);
       if (!full) {
         const int row = row0 + (e >= 2 ? 8 : 0);
         const int col = k0 + nt * 8 + t * 2 + (e & 1);
@@ -447,7 +454,8 @@ template <int HD>   // head_dim padded to a multiple of 16; hd <= HD is the real
 __global__ void __launch_bounds__(256, HD <= 80 ? 2 : 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                  int Lq, int Lk, int H, int hd, int causal, int window, float scale_log2) {
+                  int Lq, int Lk, int H, int hd, int causal, int window, float scale_log2,
+                  float cap, float cap_in) {
   constexpr int Q_BYTES = BQ16 * HD * 2;
   constexpr int TILE_BYTES = BKV * HD * 2;
   constexpr int NO = HD / 8;   // n-tiles of O
@@ -523,7 +531,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   auto softmax = [&](int i) {
     const int k0 = (kt_lo + i) * BKV;
     online_softmax<8, true>(s, m, l, alpha, tile_mask(qw0, 64, k0, Lk, causal, window).full,
-                            row0, k0, t, Lk, causal, window, scale_log2);
+                            row0, k0, t, Lk, causal, window, scale_log2, cap, cap_in);
   };
   // S's n-tiles 2kk, 2kk+1 are the A fragment of keys 16kk..16kk+15
   auto pack_p = [&]() {
@@ -638,7 +646,8 @@ template <int HD>   // head_dim padded to a multiple of 16
 __global__ void __launch_bounds__(128)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int Lq, int Lk, int H,
-                 int hd, int causal, int window, float scale_log2, int vec) {
+                 int hd, int causal, int window, float scale_log2, float cap, float cap_in,
+                 int vec) {
   constexpr int S = HD + 4;          // shared row stride (floats)
   constexpr int TILE = BKV * S;
   constexpr int NO = HD / 8;
@@ -718,7 +727,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     float alpha[2];
     online_softmax<8, false>(s, m, l, alpha, tm.full, row0, k0, t, Lk, causal, window,
-                             scale_log2);
+                             scale_log2, cap, cap_in);
     rescale_rows<NO>(o, alpha);
 
     // O += P V over the 8 key blocks of 8: k slot t is key 2t, slot t + 4 key 2t + 1
@@ -802,7 +811,8 @@ int bf16_map(CUtensorMap* map, const void* base, int b, int L, int H, int hd, in
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int Lq, int Lk,
-                int H, int hd, int causal, int window, float scale_log2, cudaStream_t stream) {
+                int H, int hd, int causal, int window, float scale_log2, float cap,
+                float cap_in, cudaStream_t stream) {
   const int smem = BQ16 * HD * 2 + STAGES16 * 2 * BKV * HD * 2 + 8 * (1 + STAGES16);
   CUtensorMap tq, tk, tv;
   int err = bf16_map(&tq, q, b, Lq, H, hd, BQ16);
@@ -814,13 +824,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, i
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid(b * H, (Lq + BQ16 - 1) / BQ16);
   flash_bf16_kernel<HD><<<grid, 256, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
-                                                     Lq, Lk, H, hd, causal, window, scale_log2);
+                                                     Lq, Lk, H, hd, causal, window, scale_log2,
+                                                     cap, cap_in);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int Lq, int Lk,
-               int H, int hd, int causal, int window, float scale_log2, cudaStream_t stream) {
+               int H, int hd, int causal, int window, float scale_log2, float cap,
+               float cap_in, cudaStream_t stream) {
   const int smem = (BQ32 + STAGES32 * 2 * BKV) * (HD + 4) * 4;
   cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -831,7 +843,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b, in
   dim3 grid(b * H, (Lq + BQ32 - 1) / BQ32);
   flash_f32_kernel<HD><<<grid, 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Lq, Lk, H, hd, causal, window, scale_log2, vec);
+      static_cast<float*>(out), Lq, Lk, H, hd, causal, window, scale_log2, cap, cap_in, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -849,32 +861,35 @@ extern "C" int repro_flash_query_tile(int dtype) { return dtype == 1 ? BQ16 : BQ
 
 // q (b, Lq, h, hd), k and v (b, Lk, h, hd), out (b, Lq, h, hd): contiguous on
 // the device, all f32 (dtype 0) or all bf16 (dtype 1).  Query i sees key j
-// when (!causal || j <= i) and (window <= 0 || j > i - window).  Returns the
-// cudaError_t of the launch (0 on success).
+// when (!causal || j <= i) and (window <= 0 || j > i - window).  softcap > 0
+// caps the scaled scores at softcap * tanh(s / softcap) before the mask (0:
+// off).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int dtype, int b, int Lq, int Lk, int h, int hd,
-                                     int causal, int window, void* stream_ptr) {
+                                     int causal, int window, float softcap, void* stream_ptr) {
   if (b <= 0 || Lq <= 0 || h <= 0) return 0;
   const long long q_tiles = (Lq + repro_flash_query_tile(dtype) - 1) / repro_flash_query_tile(dtype);
   if (!repro_flash_supports(dtype, hd) || Lk <= 0 || q_tiles > 65535 ||
-      static_cast<long long>(b) * h > 0x7fffffffLL)
+      static_cast<long long>(b) * h > 0x7fffffffLL || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(hd));
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  const float cap = softcap, cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  const float scale_log2 = softcap > 0.f ? LOG2E : LOG2E / sqrtf(static_cast<float>(hd));
 #define REPRO_FLASH_CASE(n)                                                                   \
   case n:                                                                                     \
     return dtype == 1 ? launch_bf16<16 * n>(q, k, v, out, b, Lq, Lk, h, hd, causal, window,   \
-                                            scale_log2, stream)                               \
+                                            scale_log2, cap, cap_in, stream)                  \
                       : launch_f32<16 * n>(q, k, v, out, b, Lq, Lk, h, hd, causal, window,    \
-                                           scale_log2, stream);
+                                           scale_log2, cap, cap_in, stream);
   switch ((hd + 15) / 16) {
     REPRO_FLASH_CASE(1) REPRO_FLASH_CASE(2) REPRO_FLASH_CASE(3) REPRO_FLASH_CASE(4)
     REPRO_FLASH_CASE(5) REPRO_FLASH_CASE(6) REPRO_FLASH_CASE(7)
     default:
       return dtype == 1 ? launch_bf16<128>(q, k, v, out, b, Lq, Lk, h, hd, causal, window,
-                                           scale_log2, stream)
+                                           scale_log2, cap, cap_in, stream)
                         : launch_f32<128>(q, k, v, out, b, Lq, Lk, h, hd, causal, window,
-                                          scale_log2, stream);
+                                          scale_log2, cap, cap_in, stream);
   }
 #undef REPRO_FLASH_CASE
 }

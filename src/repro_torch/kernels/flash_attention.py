@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.  The
 kernel reads the public layout (b, L, h, hd) in place, with K and V already
 repeated to the query heads, so one launch covers every (batch, head) pair
-and no transpose is copied.  bf16 runs on wgmma (head_dim a multiple of 8 up
+and no transpose is copied.  An optional logit ``softcap`` c maps each
+scaled score s to c·tanh(s/c) before the mask (None or 0: off).  bf16 runs on wgmma (head_dim a multiple of 8 up
 to 128), f32 on mma.sync in 3xTF32 (head_dim up to 128).  The plain version
 is ``kernels/ref.py::flash_attention_ref``.
 """
@@ -18,9 +19,9 @@ import torch
 from .checks import check_status, require, stream
 
 SOURCE = "flash_attention"
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "repro_flash_supports": (_I, [_I, _I]),
     "repro_flash_query_tile": (_I, [_I]),
 }
@@ -36,6 +37,7 @@ def launch(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """q (b, Lq, h, hd), k and v (b, Lk, h, hd), one dtype → (b, Lq, h, hd)."""
     name = "flash_attention"
@@ -60,6 +62,7 @@ def launch(
     tiles = -(-Lq // lib.repro_flash_query_tile(dtype))
     require(tiles <= MAX_GRID_Y, f"{name}: {tiles} query tiles exceed the grid ({MAX_GRID_Y})")
     require(window is None or window > 0, f"{name}: window must be positive, got {window}")
+    require(softcap is None or softcap >= 0, f"{name}: softcap must be >= 0, got {softcap}")
     require(Lk > 0 or Lq == 0, f"{name}: no keys")
     require(
         all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
@@ -68,7 +71,7 @@ def launch(
     out = torch.empty_like(q)
     status = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dtype, b, Lq, Lk, h, hd,
-        int(causal), 0 if window is None else int(window), stream(q),
+        int(causal), 0 if window is None else int(window), float(softcap or 0.0), stream(q),
     )
     check_status(status, name)
     return out

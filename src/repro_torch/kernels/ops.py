@@ -23,12 +23,22 @@ Boolean matrices): its tensor-core kernel rounds them to bf16, exact on
 
 Every wrapper has the signature of its plain version in ``kernels/ref.py``:
 tensors (K7's S_prev may be None for ``outputs="state"``), then static
-keyword arguments (K6's ``causal`` and ``window``, K7's ``outputs``).
-Given CPU tensors it runs that plain version; given CUDA tensors it checks
-them, launches the kernel on the current stream, raises if the launch
-fails, and adds one to its ``launches`` count (K7's also to the count of
-its ``outputs`` mode).  A CUDA tensor never falls back to the plain
-version.
+keyword arguments (K6's ``causal``, ``window`` and ``softcap``, K7's
+``outputs``).  Given CPU tensors it runs that plain version; given CUDA
+tensors it checks them, launches the kernel on the current stream, raises
+if the launch fails, and adds one to its ``launches`` count (K7's also to
+the count of its ``outputs`` mode).  A CUDA tensor never falls back to the
+plain version.
+
+K6 and K7 are differentiable: where autograd records (grad mode on and an
+input that requires grad), their wrappers go through the
+``torch.autograd.Function``s ``FlashAttention`` and ``SSDChunk``, whose
+forward is the wrapper's own (the kernel on the card, the plain version on
+the CPU, counted alike) and whose backward recomputes the plain version
+under ``torch.enable_grad()`` and differentiates it, as the reference's
+``_flash_bwd_vjp`` does (``repro/kernels/ops.py``; its SSD is differentiated
+as jnp, the same function).  Under ``torch.no_grad()`` nothing is saved and
+the launches are the same.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -151,17 +161,33 @@ class KernelWrapper:
     """A kernel's public entry: the plain version on the CPU, the kernel on
     the card.  ``launches`` counts the kernel launches it made; where
     ``case`` names a static keyword and its default, ``case_launches``
-    counts them by that keyword's value as well."""
+    counts them by that keyword's value as well.  With a ``grad`` Function
+    (K6, K7) a call that autograd records goes through it."""
 
-    def __init__(self, name: str, plain, launcher, case: Optional[Tuple[str, str]] = None):
+    def __init__(self, name: str, plain, launcher, case: Optional[Tuple[str, str]] = None,
+                 grad=None):
         self.name = name
         self.plain = plain
         self._launcher = launcher
         self._case = case
+        self._grad = grad
         self.launches = 0
         self.case_launches: Dict[str, int] = {}
 
     def __call__(self, *tensors: Optional[torch.Tensor], **static):
+        if self._grad is not None and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors
+        ):
+            unknown = set(static) - set(self._grad.STATIC)
+            if unknown:
+                raise TypeError(f"{self.name}: unexpected keyword arguments {sorted(unknown)}")
+            args = [static.get(k, default) for k, default in self._grad.STATIC.items()]
+            return self._grad.apply(*tensors, *args)
+        return self.run(*tensors, **static)
+
+    def run(self, *tensors: Optional[torch.Tensor], **static):
+        """The plain version on CPU tensors, else one counted kernel launch;
+        never recorded by autograd as such (the Functions' forward)."""
         given = [t for t in tensors if t is not None]
         if all(t.device.type == "cpu" for t in given):
             return self.plain(*tensors, **static)
@@ -184,8 +210,68 @@ packed_reach_chunk_product = KernelWrapper(
     "packed_reach_chunk_product", packed_reach_chunk_product_ref, _packed_reach
 )
 sparse_reach_rows = KernelWrapper("sparse_reach_rows", sparse_reach_rows_ref, _sparse_reach)
-flash_attention = KernelWrapper("flash_attention", flash_attention_ref, _flash)
-ssd_chunk = KernelWrapper("ssd_chunk", ssd_chunk_ref, _ssd, case=("outputs", "both"))
+
+
+def _recompute_grads(ctx, plain, static: Dict[str, Any], grads_out: Sequence) -> list:
+    """The gradients of ``plain(*saved, **static)`` with respect to the saved
+    inputs that need them (None for the others), recomputed under
+    ``torch.enable_grad()`` and pulled back from ``grads_out`` (one per
+    output; outputs that are None, or whose gradient is None, add nothing)."""
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad[: len(saved)]
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(saved, needs)]
+        outs = plain(*inputs, **static)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if o is not None and g is not None]
+        wrt = [t for t, need in zip(inputs, needs) if need and t is not None]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True) if pairs and wrt else ())
+    return [next(got, None) if need and t is not None else None for t, need in zip(inputs, needs)]
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 under autograd: forward through ``flash_attention.run`` (the kernel
+    on the card), backward by recomputing ``flash_attention_ref``."""
+
+    STATIC = {"causal": True, "window": None, "softcap": None}
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, softcap=None):
+        ctx.static = {"causal": causal, "window": window, "softcap": softcap}
+        ctx.save_for_backward(q, k, v)
+        return flash_attention.run(q, k, v, **ctx.static)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*_recompute_grads(ctx, flash_attention_ref, ctx.static, (grad_out,)),
+                None, None, None)
+
+
+class SSDChunk(torch.autograd.Function):
+    """K7 under autograd, in each ``outputs`` mode the SSD asks for
+    (``"state"``, ``"y"``; ``"both"`` too): forward through
+    ``ssd_chunk.run``, backward by recomputing ``ssd_chunk_ref``.  The output
+    not asked for is None and has no gradient."""
+
+    STATIC = {"outputs": "both"}
+
+    @staticmethod
+    def forward(ctx, xdt, cs, B, C, S_prev, outputs="both"):
+        ctx.static = {"outputs": outputs}
+        ctx.save_for_backward(xdt, cs, B, C, S_prev)
+        return ssd_chunk.run(xdt, cs, B, C, S_prev, outputs=outputs)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        return (*_recompute_grads(ctx, ssd_chunk_ref, ctx.static, (grad_y, grad_state)), None)
+
+
+flash_attention = KernelWrapper("flash_attention", flash_attention_ref, _flash,
+                                grad=FlashAttention)
+ssd_chunk = KernelWrapper("ssd_chunk", ssd_chunk_ref, _ssd, case=("outputs", "both"),
+                          grad=SSDChunk)
 
 KERNELS = (
     reach_chunk_product,

@@ -8,7 +8,8 @@ The parser's arithmetic is OR-AND over {0,1}: f32 matmul then min(·, 1) for
 the dense kernels, int32 words holding the uint32 bit pattern for the packed
 ones.  It is exact, so a kernel and its plain version agree bit for bit.  The
 two LM kernels (``flash_attention_ref``, ``ssd_chunk_ref``) are float, and are
-held to the reference's tolerances.
+held to the reference's tolerances; they compute in f32, or in f64 for f64
+inputs (``_wide``: the gradient checks' type).
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.matrices import pack_bits_torch, packed_identity, packed_semiring_matmul
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or kept in f64."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -121,15 +127,18 @@ def sparse_reach_rows_ref(Np: torch.Tensor, ids: torch.Tensor, R0: torch.Tensor)
 
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    *, causal: bool = True, window: Optional[int] = None,
+    *, causal: bool = True, window: Optional[int] = None, softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Masked softmax attention: q (b, L, h, hd), k and v (b, Lk, h, hd) with
     the KV heads already repeated to the query heads.  Scores and softmax in
-    f32; p is cast to v's dtype before the PV product (f32 accumulation); the
-    output is in q's dtype."""
+    f32; a ``softcap`` c (None or 0: off) maps each scaled score s to
+    c·tanh(s/c) before the mask; p is cast to v's dtype before the PV product
+    (f32 accumulation); the output is in q's dtype."""
     L, hd = q.shape[1], q.shape[-1]
     Lk = k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) / math.sqrt(hd)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
     qpos = torch.arange(L, device=q.device)[:, None]
     kpos = torch.arange(Lk, device=q.device)[None, :]
     mask = torch.ones((L, Lk), dtype=torch.bool, device=q.device)
@@ -139,7 +148,7 @@ def flash_attention_ref(
         mask &= kpos > qpos - window
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", _wide(p.to(v.dtype)), _wide(v)).to(q.dtype)
 
 
 def ssd_chunk_ref(
@@ -162,17 +171,18 @@ def ssd_chunk_ref(
         raise ValueError(f"ssd_chunk: outputs={outputs!r} needs S_prev")
     q = xdt.shape[1]
     csq = cs[..., 0]
-    Bf, xf = B.float(), xdt.float()
+    Bf, xf = _wide(B), _wide(xdt)
     y = S_c = None
     if outputs != "state":
         iota = torch.arange(q, device=xdt.device)
-        Lmask = torch.where(
-            iota[:, None] >= iota[None, :], torch.exp(csq[:, :, None] - csq[:, None, :]), 0.0
-        )
-        Cf = C.float()
+        # the mask is taken before the exponential: exp(cs_i − cs_j) above the
+        # diagonal may overflow, and its gradient (0 · inf) would be NaN
+        Lmask = torch.exp(torch.where(iota[:, None] >= iota[None, :],
+                                      csq[:, :, None] - csq[:, None, :], float("-inf")))
+        Cf = _wide(C)
         CB = torch.einsum("pin,pjn->pij", Cf, Bf)
         y_intra = torch.einsum("pij,pjh->pih", Lmask * CB, xf)
-        y_inter = torch.exp(csq)[..., None] * torch.einsum("pin,phn->pih", Cf, S_prev.float())
+        y_inter = torch.exp(csq)[..., None] * torch.einsum("pin,phn->pih", Cf, _wide(S_prev))
         y = y_intra + y_inter
     if outputs != "y":
         w = torch.exp(csq[:, -1:] - csq)

@@ -1,1 +1,2 @@
-"""The decoder LM backbone (config, layers, Mamba-2 SSD, model) for serving."""
+"""The decoder LM backbone (config, layers, Mamba-2 SSD, MoE, model) for serving and
+training."""

@@ -10,8 +10,9 @@ list drives hybrid stacking (zamba2's shared attention block).
 
 The same dataclasses as ``repro.models.config`` (a copy: the port imports
 nothing of ``repro``), so a config from either package describes one model.
-The port's model runs layer kinds ``attn`` and ``ssm`` and the zamba2 shared
-block; ``moe`` layers and ``frontend`` stubs raise ``NotImplementedError``.
+The port's model runs every layer kind (``attn``, ``ssm``, ``moe``), the
+zamba2 shared block, the ``frontend`` stubs and the attention logit softcap,
+for serving and for training (``train/``) on one rank.
 """
 
 from __future__ import annotations

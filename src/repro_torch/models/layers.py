@@ -4,9 +4,10 @@ Conventions (the reference's):
   * activations: (batch, seq, d_model) in ``cfg.dtype`` (bf16 by default);
   * params: nested dicts of tensors with the reference's names, declared via
     ``ParamDecl`` so that shapes and initializers live in one place;
-  * attention is GQA with RoPE and an optional sliding window.  Prefill
-    attention is K6 (``kernels/ops.flash_attention``, its plain version on
-    the CPU); decode attends one token against the cache here;
+  * attention is GQA with RoPE, an optional sliding window and an optional
+    logit softcap.  Prefill and training attention is K6
+    (``kernels/ops.flash_attention``, its plain version on the CPU); decode
+    attends one token against the cache here;
   * head padding follows ``HeadPlan`` (zero-padded query heads, zero rows of
     the output projection), so the math is exact.
 """
@@ -105,6 +106,7 @@ def decode_attention(
     groups: int,
     grouped: bool = True,
     window: Optional[int] = None,
+    softcap: Optional[float] = None,
     row_start: Optional[torch.Tensor] = None,   # (b,) — continuous batching
 ) -> torch.Tensor:
     """Single-step grouped attention against a (possibly ring-buffered) cache.
@@ -112,7 +114,8 @@ def decode_attention(
     Exact head plans attend grouped (K/V never repeated); non-exact ones
     repeat.  Masks use each slot's absolute position, so overwritten ring
     slots never leak, and ``row_start`` masks positions before each row's
-    current request (slot reuse in ``serve/scheduler.py``)."""
+    current request (slot reuse in ``serve/scheduler.py``).  A ``softcap`` c
+    maps the scaled scores s to c·tanh(s/c) before the mask."""
     b, S, kv, hd = k_cache.shape
     h = q.shape[2]
     if not grouped:
@@ -124,6 +127,8 @@ def decode_attention(
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(b, 1, kv, groups, hd)
     s = torch.einsum("bqcgd,bscd->bcgqs", qg.float(), k_cache.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     mask = (kpos >= 0) & (kpos <= pos)
     if window is not None:
         mask &= kpos > pos - window

@@ -21,9 +21,13 @@ same tensor is dropped (replicated): a spec's axes are disjoint.
 
 ``PartitionSpec`` is the port's own small immutable value: one entry per
 tensor dim (None, one axis name, or a tuple of them), trailing Nones
-trimmed, as ``resolve`` builds it.  Placing model tensors by these rules
-(``logical_sharding``, ``constrain``, ``adapt_rules_for``) belongs to the
-LM stack's distribution and is not here.
+trimmed, as ``resolve`` builds it; ``NamedSharding`` pairs one with its mesh.
+
+The model half (``logical_sharding``, ``constrain``, ``adapt_rules_for``)
+resolves the LM stack's logical axes as the reference does.  Placing model
+tensors across ranks (FSDP over 'data', TP over 'model') is ROADMAP item
+12d: on a mesh of one rank ``constrain`` is the identity, which is exact
+(the reference replicates there too), and on a larger mesh it raises.
 """
 
 from __future__ import annotations
@@ -121,3 +125,66 @@ def divisible(n: int, mesh, axis: Optional[Axis]) -> bool:
         if a in mesh.axis_names:
             size *= mesh.shape[a]
     return n % size == 0
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A ``PartitionSpec`` on a mesh (the reference's ``jax.sharding`` value)."""
+
+    mesh: object
+    spec: PartitionSpec
+
+
+def logical_sharding(mesh, rules: MeshRules, logical: Sequence[Axis]) -> NamedSharding:
+    return NamedSharding(mesh, rules.resolve(logical, mesh))
+
+
+def constrain(x, mesh, rules: MeshRules, logical: Sequence[Axis]):
+    """Place ``x`` by its logical axes: the identity on a mesh of one rank;
+    a larger mesh raises (ROADMAP item 12d, model parallelism)."""
+    from ..launch.mesh import mesh_chips
+
+    sharding = logical_sharding(mesh, rules, logical)
+    if mesh_chips(mesh) > 1:
+        raise NotImplementedError(
+            f"placing model tensors over a mesh of {mesh_chips(mesh)} ranks ({sharding.spec}) "
+            "is not ported (ROADMAP item 12d)"
+        )
+    return x
+
+
+def adapt_rules_for(cfg, mesh, rules: MeshRules) -> MeshRules:
+    """Drop shardings that do not divide this model's dimensions (GQA kv heads,
+    expert counts, vocab remainders) — replication is the exact fallback.
+
+    Head counts are checked AFTER zero-padding (HeadPlan): query heads pad to
+    the TP multiple, so 'heads' stays sharded for e.g. 14→16 or 40→48."""
+    from ..models.layers import HeadPlan
+    from ..models.mamba import ssm_dims
+
+    overrides: Dict[str, Axis] = {}
+    tp = mesh.shape.get("model", 1)
+    plan = HeadPlan.plan(cfg.n_heads, cfg.n_kv_heads, tp)
+    if not divisible(plan.pad_kv, mesh, rules.rules.get("kv_heads")):
+        overrides["kv_heads"] = None
+    if not divisible(plan.pad_q, mesh, rules.rules.get("heads")):
+        overrides["heads"] = None
+    if cfg.moe is not None:
+        if not divisible(cfg.moe.n_experts, mesh, rules.rules.get("experts")):
+            # expert dim replicated; shard each expert's hidden dim instead
+            overrides["experts"] = None
+        else:
+            # expert-parallel: the expert hidden dim must then stay unsharded
+            overrides["expert_mlp"] = None
+    if not divisible(cfg.vocab_size, mesh, rules.rules.get("vocab")):
+        overrides["vocab"] = None
+    # the 'mlp' rule shards FFN hidden dims AND the SSM projection dims; it
+    # must survive for attention-free archs (d_ff == 0) — test what it shards.
+    mlp_dims = [cfg.d_ff] if cfg.d_ff else []
+    if cfg.ssm is not None:
+        dims = ssm_dims(cfg.d_model, cfg.ssm)
+        in_dim = 2 * dims["d_inner"] + 2 * cfg.ssm.n_groups * cfg.ssm.d_state + dims["n_heads"]
+        mlp_dims += [dims["d_inner"], dims["conv_dim"], in_dim]
+    if any(not divisible(d, mesh, rules.rules.get("mlp")) for d in mlp_dims):
+        overrides["mlp"] = None
+    return rules.with_overrides(**overrides) if overrides else rules

@@ -1081,3 +1081,108 @@ def test_stream_service_step_is_one_reach_launch(dev):
     cold = Parser(ParserConfig(regex="(a|b|ab)+", backend="torch"), device=dev)
     for st in streams:
         assert np.array_equal(st.result().forest.pack(), cold.parse("abab").forest.pack())
+
+
+# ------------------------------------------------- softcap and training
+
+
+@pytest.mark.parametrize("b,L,h,hd", [(2, 256, 4, 80), (1, 37, 3, 64), (1, 130, 2, 128)])
+@pytest.mark.parametrize("window,softcap", [(None, 1.0), (16, 1.0), (None, 30.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_softcap_kernel_equals_plain(dev, b, L, h, hd, window, softcap, dtype):
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(L + hd)
+    q, k, v = _qkv(rng, b, L, L, h, hd, dtype, dev)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = ops.flash_attention.plain(q, k, v, **kw)
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    if softcap == 1.0:       # the cap bends unit-scale scores: the output moves
+        uncapped = ops.flash_attention.plain(q, k, v, causal=True, window=window)
+        assert (uncapped.float() - want.float()).abs().max().item() > atol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_functions_on_the_card(dev, dtype):
+    """K6 and K7 under autograd on CUDA tensors: the output has a grad_fn,
+    the kernel launched, and the gradients equal those of the plain versions
+    on the same card (the backward recomputes them: f32 atol 1e-5, bf16
+    2e-2 of the gradients' scale)."""
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(9)
+    qkv = [t.requires_grad_(True) for t in _qkv(rng, 1, 96, 96, 2, 64, dtype, dev)]
+    ops.reset_launches()
+    out = ops.flash_attention(*qkv, causal=True, window=32, softcap=30.0)
+    assert out.grad_fn is not None and ops.flash_attention.launches == 1
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, qkv, g)
+    plain = ops.flash_attention.plain(*qkv, causal=True, window=32, softcap=30.0)
+    want = torch.autograd.grad(plain, qkv, g)
+    for a, w in zip(got, want):
+        tol = 1e-5 if dtype == torch.float32 else 2e-2 * w.float().abs().max().item()
+        assert (a.float() - w.float()).abs().max().item() <= tol
+
+    P, q, hp, n = 6, 64, 32, 16
+    t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32) * 0.3,  # noqa: E731
+                                device=dev)
+    xdt, B, C = (t(*s).to(dtype).requires_grad_(True) for s in ((P, q, hp), (P, q, n), (P, q, n)))
+    cs = torch.cumsum(-(torch.tensor(rng.random((P, q, 1)), dtype=torch.float32, device=dev)
+                        * 0.3 + 0.01), 1).requires_grad_(True)
+    S = t(P, hp, n).requires_grad_(True)
+    for outputs in ("state", "y"):
+        args = (xdt, cs, B, C, None if outputs == "state" else S)
+        ops.reset_launches()
+        res = ops.ssd_chunk(*args, outputs=outputs)
+        assert ops.launch_counts()[f"ssd_chunk/{outputs}"] == 1
+        o = res[1] if outputs == "state" else res[0]
+        assert o.grad_fn is not None
+        wrt = [a for a in args if a is not None]
+        go = torch.randn_like(o)
+        got = torch.autograd.grad(o, wrt, go, allow_unused=True)
+        pres = ops.ssd_chunk.plain(*args, outputs=outputs)
+        want = torch.autograd.grad(pres[1] if outputs == "state" else pres[0], wrt, go,
+                                   allow_unused=True)
+        for a, w in zip(got, want):
+            assert (a is None) == (w is None)
+            if w is not None:
+                tol = 1e-5 if dtype == torch.float32 else 2e-2 * w.float().abs().max().item()
+                assert (a.float() - w.float()).abs().max().item() <= tol + 1e-6
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "tinyllama-1.1b", "mixtral-8x22b",
+                                  "llama4-scout-17b-a16e", "internvl2-1b"])
+def test_forward_train_on_the_card_equals_the_plain_versions(dev, arch):
+    """The smoke model's loss and gradients in f32 through K6 and K7 on the
+    card (and remat) against the same model on the plain versions on the CPU:
+    loss rtol 1e-4, each gradient's relative L2 error within 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32", param_dtype="float32",
+                              attn_p_dtype="float32")
+    params = model.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 32)))}
+    if cfg.frontend is not None:
+        fe = cfg.frontend
+        batch["extra"] = torch.tensor(rng.standard_normal((2, fe.n_extra_tokens,
+                                                           fe.feature_dim)).astype(np.float32))
+
+    def run(tree, b):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), tree)
+        total, _ = model.forward_train(live, b, cfg)
+        return float(total.detach()), torch.autograd.grad(total, tree_leaves(live))
+
+    ops.reset_launches()
+    got_loss, got = run(_to(params, dev), {k: v.to(dev) for k, v in batch.items()})
+    assert ops.flash_attention.launches + ops.ssd_chunk.launches > 0
+    want_loss, want = run(params, batch)
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    for a, w in zip(got, want):
+        rel = ((a.cpu() - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-3

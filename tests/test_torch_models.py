@@ -5,6 +5,10 @@ The same parameters (the reference's ``init_params`` carried over by
 smoke size in f32: ``prefill`` logits and every ``decode_step``'s logits agree
 within 2e-3 max |Δ| (the reference's decode ≡ forward bound,
 ``tests/test_models.py``).  Prefill runs the plain versions of K6 and K7 here.
+Every layer kind is covered: attention, SSM, the zamba2 hybrid, MoE (mixtral,
+llama4-scout with its shared expert) and the frontend stubs (internvl2,
+musicgen), whose prefill takes the same seeded ``extra`` features in both
+packages.
 """
 
 import dataclasses
@@ -27,7 +31,8 @@ from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import layers, model  # noqa: E402
 
-PARITY_ARCHS = ["zamba2-2.7b", "tinyllama-1.1b", "mamba2-2.7b"]
+PARITY_ARCHS = ["zamba2-2.7b", "tinyllama-1.1b", "mamba2-2.7b", "mixtral-8x22b",
+                "llama4-scout-17b-a16e", "internvl2-1b", "musicgen-medium"]
 F32 = dict(dtype="float32", param_dtype="float32", attn_p_dtype="float32", remat=False)
 
 
@@ -48,6 +53,15 @@ def pair(request):
 
 def _tokens(cfg, b, L, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, L)).astype(np.int32)
+
+
+def _extra(cfg, b, seed=0):
+    """The frontend's features (b, n_extra, feature_dim), or None."""
+    if cfg.frontend is None:
+        return None
+    fe = cfg.frontend
+    shape = (b, fe.n_extra_tokens, fe.feature_dim)
+    return np.random.default_rng(seed + 100).standard_normal(shape).astype(np.float32)
 
 
 def test_config_registry_equals_the_reference():
@@ -83,10 +97,12 @@ def _flatten(tree, prefix=""):
 
 def test_prefill_equals_reference(pair):
     arch, rcfg, rparams, _, pcfg, pparams = pair
-    toks = _tokens(rcfg, 2, 24)
-    want, wcache = jax.jit(lambda p, t: ref_model.prefill(p, t, rcfg))(rparams, jnp.asarray(toks))
+    toks, extra = _tokens(rcfg, 2, 24), _extra(rcfg, 2)
+    want, wcache = jax.jit(lambda p, t, e: ref_model.prefill(p, t, rcfg, extra=e))(
+        rparams, jnp.asarray(toks), None if extra is None else jnp.asarray(extra))
     ops.reset_launches()
-    got, cache = model.prefill(pparams, torch.tensor(toks, dtype=torch.int64), pcfg)
+    got, cache = model.prefill(pparams, torch.tensor(toks, dtype=torch.int64), pcfg,
+                               extra=None if extra is None else torch.tensor(extra))
     assert ops.flash_attention.launches == 0 and ops.ssd_chunk.launches == 0   # CPU: plain
     assert got.shape == (2, 1, pcfg.vocab_size) and cache["pos"] == int(wcache["pos"])
     assert np.abs(got.numpy() - np.asarray(want)).max() < 2e-3, arch
@@ -112,13 +128,16 @@ def test_every_decode_step_equals_reference(pair):
 def test_decode_equals_forward(arch):
     """The port's own teacher-forced decode reproduces its prefill logits at
     every position (h2o-danube: a sliding window of 16 over 20 tokens, so the
-    ring buffer wraps)."""
+    ring buffer wraps).  MoE configs get the reference test's capacity
+    factor 8, so that no token is dropped in the full forward either."""
     cfg = _f32(get_smoke(arch))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     params = model.init_params(cfg, seed=7, device="cpu")
     b, L = 1, 20 if arch == "h2o-danube-3-4b" else 10
     toks = torch.tensor(_tokens(cfg, b, L, seed=8)).long()
     x, pos = model.embed_inputs(params, toks, cfg)
-    full = model.logits_from(params, model.backbone(params, x, cfg, pos), cfg)
+    full = model.logits_from(params, model.backbone(params, x, cfg, pos)[0], cfg)
     caches = model.make_cache(cfg, b, 32, device="cpu")
     outs = []
     for t in range(L):
@@ -143,13 +162,6 @@ def test_bf16_prefill_is_close_to_the_reference():
     got = model.prefill(pparams, torch.tensor(toks).long(), pcfg)[0].float().numpy()
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() < 5e-2 * max(1.0, np.abs(want).max())
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e", "internvl2-1b",
-                                  "musicgen-medium"])
-def test_unported_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_params(get_smoke(arch), device="cpu")
 
 
 def test_init_params_defaults_to_the_card():

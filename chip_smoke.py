@@ -174,9 +174,23 @@ prefill); then training, MoE and the frontends:
                   steps; internvl2-1b at full width: prefill of 768 tokens
                   after (1, 256, 1024) seeded frontend features; counted,
                   finite logits
+  train_mesh      the ``Trainer`` on a (2, 2) ('data', 'model') mesh of 4 gloo
+                  ranks sharing the card (spawned; DTensor params, state and
+                  activations, their collectives staged through the host),
+                  zamba2-2.7b at full width cut to its first 6 layers (one
+                  shared block), bf16 params, 2 steps of 4 x 512 tokens (accum
+                  2 x microbatch 2), in bf16 and in f32 compute, each against
+                  the one-rank ``Trainer`` on the same card with the same seed
+                  and batches (run first, accum 4 x microbatch 1): every step's
+                  loss within ``TRAIN_MESH_GATE`` (2e-2 bf16, 1e-4 f32); per
+                  rank step seconds, tokens/s, peak memory, K6 / K7 launches
+                  (checked: one microbatch's count times the microbatches, the
+                  same on every rank) and the staged collectives' calls and
+                  bytes a step; a rank that fails or hangs fails it
 
 then the kernel table (K6 and K7 records also carry their launches in the
-``train`` run, ``train_launches``) (one record a launch kind: K7's ``"state"`` and
+``train`` run, ``train_launches``, and on each rank of the ``train_mesh``
+run, ``train_mesh_launches_per_rank``) (one record a launch kind: K7's ``"state"`` and
 ``"y"`` launches each with their own count, time and bound), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -265,6 +279,15 @@ def nvidia_smi_query(fields: str) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_cards() -> list:
+    """Every card's ``nvidia-smi`` index, name and power limit."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()
 
 
 def nvidia_smi_line() -> str:
@@ -1322,7 +1345,7 @@ def keep_names(keep):
     return [k if isinstance(k, str) else f"{k[0]}[{k[1]}]" for k in keep]
 
 
-def train_profile(trainer, step_s: float) -> dict:
+def train_profile(trainer, step_s: float, label="train_profile") -> dict:
     """Device time of one train step by kernel family, and within the
     optimizer update and the recomputed backward of K6 and of K7 (the
     kernels launched inside each ``record_function`` range).  The idle share
@@ -1358,7 +1381,8 @@ def train_profile(trainer, step_s: float) -> dict:
     finally:
         step_mod.apply_updates, ops._recompute_grads = apply, recompute
     del params, opt_state, batch
-    families = {"flash_attention": 0.0, "ssd_chunk": 0.0, "gemm": 0.0, "other": 0.0}
+    families = {"flash_attention": 0.0, "ssd_chunk": 0.0, "gemm": 0.0, "collective": 0.0,
+                "other": 0.0}
     ranges = {"train.adamw": 0.0, "train.recompute_backward/flash_attention_ref": 0.0,
               "train.recompute_backward/ssd_chunk_ref": 0.0}
     top = []
@@ -1378,21 +1402,30 @@ def train_profile(trainer, step_s: float) -> dict:
                 break
     for ev in prof.key_averages():
         us = _device_us(ev)
-        if not us or ev.key in ranges or ev.device_type.name != "CUDA":
+        # "nccl:…" are the profiler's annotations of collectives: their time
+        # is their kernels' again
+        if not us or ev.key in ranges or ev.device_type.name != "CUDA" or ev.key.startswith(
+                "nccl:"):
             continue
         name = ev.key.lower()
         fam = ("flash_attention" if "flash_" in name and "kernel" in name
                else "ssd_chunk" if "ssd_" in name and "kernel" in name
+               else "collective" if "nccl" in name
                else "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
                else "other")
         families[fam] += us / 1e3
         top.append((us / 1e3, ev.key[:80], ev.count))
     top.sort(reverse=True)
     total = sum(families.values())
+    compute = total - families["collective"]
+    # a collective's kernel occupies the card while it waits for its peers,
+    # so the compute kernels' share is read beside the idle share
     out = {"step_s": step_s, "step_s_profiled": prof_s, "device_ms_by_family": families,
            "device_ms_in_range": ranges, "device_ms_total": total,
-           "idle_share": max(0.0, 1.0 - total / (step_s * 1e3)), "top": top[:12]}
-    emit("train_profile", **out)
+           "idle_share": max(0.0, 1.0 - total / (step_s * 1e3)),
+           "compute_share": compute / (step_s * 1e3), "top": top[:12]}
+    if label:
+        emit(label, **out)
     return out
 
 
@@ -1658,8 +1691,10 @@ def main() -> int:
     mesh_phase(args)
     lm_records = lm_phases(dev, args.seed)
     train_counts = train_phases(dev, args.seed)
+    mesh_counts = train_mesh_phase(dev, args.seed)
     for rec in lm_records:
         rec["train_launches"] = train_counts.get(count_key(rec), 0)
+        rec["train_mesh_launches_per_rank"] = mesh_counts.get(count_key(rec), 0)
     records += lm_records
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
@@ -2530,21 +2565,34 @@ def mesh_phase(args) -> None:
     rank only loads them.  A rank that fails fails the phase at once (the
     others are killed); a rank still running after MESH_TIMEOUT_S is killed
     and fails it too."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
     cards = torch.cuda.device_count()
     world, group_backend = (min(4, cards), "nccl") if cards >= 2 else (2, "gloo")
+    t0 = time.perf_counter()
+    reports = run_ranks("mesh", mesh_rank, world, (group_backend, args.seed), MESH_TIMEOUT_S)
+    emit("mesh", world=world, group_backend=group_backend, mesh_shape=reports[0]["mesh_shape"],
+         transport=reports[0]["transport"], seconds=time.perf_counter() - t0,
+         columns_equal_single_process=True, ranks=reports)
+
+
+def run_ranks(label: str, target, world: int, args: tuple, timeout_s: float) -> list:
+    """``target(rank, world, tmp, *args)`` in ``world`` processes
+    (``torch.multiprocessing``, spawn), each writing its JSON report to
+    ``tmp/rank<r>.json``; returns the reports in rank order.  A rank that
+    fails fails the phase at once (the others are killed); a rank still
+    running after ``timeout_s`` is killed and fails it too."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
     ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        procs = [ctx.Process(target=mesh_rank, args=(r, world, group_backend, tmp, args.seed))
-                 for r in range(world)]
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as tmp:
+        procs = [ctx.Process(target=target, args=(r, world, tmp, *args)) for r in range(world)]
         for proc in procs:
             proc.start()
-        deadline = time.monotonic() + MESH_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
             if any(p.exitcode not in (None, 0) for p in procs):
                 break
@@ -2561,20 +2609,20 @@ def mesh_phase(args) -> None:
             reports.append(rep)
             if r in killed:
                 failures.append(f"rank {r} killed after {time.perf_counter() - t0:.0f} s "
-                                f"(timeout {MESH_TIMEOUT_S} s, or another rank failed)")
+                                f"(timeout {timeout_s} s, or another rank failed)")
             elif proc.exitcode != 0 or not rep.get("ok"):
                 failures.append(f"rank {r} exit code {proc.exitcode}: "
                                 f"{rep.get('error', 'no report')}")
     if failures:
-        raise AssertionError("mesh: " + "\n".join(failures))
-    emit("mesh", world=world, group_backend=group_backend, mesh_shape=reports[0]["mesh_shape"],
-         transport=reports[0]["transport"], seconds=time.perf_counter() - t0,
-         columns_equal_single_process=True, ranks=reports)
+        raise AssertionError(f"{label}: " + "\n".join(failures))
+    return reports
 
 
-def mesh_rank(rank: int, world: int, group_backend: str, tmp: str, seed: int) -> None:
-    """One rank of ``mesh_phase``: joins the group, runs ``mesh_runs`` and
-    writes its report (or its traceback) to ``tmp``; exits 1 on a failure."""
+def rank_main(rank: int, world: int, group_backend: str, tmp: str, runs, *args) -> None:
+    """One rank of a multi-process phase: loads the built kernels (compiling
+    nothing), joins the group (rendezvous through a file in ``tmp``), runs
+    ``runs(dev, *args)`` and writes its report (or its traceback) to ``tmp``;
+    exits 1 on a failure."""
     import os
     import traceback
 
@@ -2597,7 +2645,7 @@ def mesh_rank(rank: int, world: int, group_backend: str, tmp: str, seed: int) ->
         torch.backends.cuda.matmul.allow_tf32 = False
         dist.init_process_group(group_backend, init_method=f"file://{tmp}/store",
                                 rank=rank, world_size=world)
-        report.update(mesh_runs(dev, seed))
+        report.update(runs(dev, *args))
         report["ok"] = True
     except Exception:
         report["error"] = traceback.format_exc()[-6000:]
@@ -2607,6 +2655,11 @@ def mesh_rank(rank: int, world: int, group_backend: str, tmp: str, seed: int) ->
         (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(report))
     if not report["ok"]:
         sys.exit(1)
+
+
+def mesh_rank(rank: int, world: int, tmp: str, group_backend: str, seed: int) -> None:
+    """One rank of ``mesh_phase``: ``mesh_runs`` under ``rank_main``."""
+    rank_main(rank, world, group_backend, tmp, mesh_runs, seed)
 
 
 def mesh_runs(dev, seed: int) -> dict:
@@ -2712,6 +2765,143 @@ def mesh_runs(dev, seed: int) -> dict:
         del single, meshed
     return {"mesh_shape": mesh.shape, "transport": transport, "group": mesh.backend,
             "runs": runs}
+
+
+# ------------------------------------------------------ training on a mesh
+
+# zamba2-2.7b at full width cut to its first shared block, on a (2, 2)
+# ('data', 'model') mesh of 4 ranks: accum 2 x microbatch 2 (one rank: 4 x 1)
+TRAIN_MESH = dict(depth=6, seq=512, batch=4, steps=2, opt="default", profile=False,
+                  variants=("bfloat16", "float32"))
+# losses against the one-rank Trainer, by compute dtype: the reference itself
+# moves by up to 1.3e-2 between one device and (2, 2) in bf16 (PERF.md)
+TRAIN_MESH_GATE = {"bfloat16": 2e-2, "float32": 1e-4}
+TRAIN_MESH_TIMEOUT_S = 300
+
+
+def train_mesh_config(depth: int, variant: str):
+    """zamba2-2.7b at full width, its first ``depth`` layers, bf16 params,
+    computing in ``variant`` (bf16, or f32 over the bf16 params)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=depth, layout=cfg.layout[:depth])
+    if variant == "float32":
+        cfg = dataclasses.replace(cfg, dtype="float32", attn_p_dtype="float32")
+    return cfg
+
+
+def train_mesh_run(dev, mesh, spec: dict, variant: str, seed: int, workdir) -> dict:
+    """``spec["steps"]`` counted ``Trainer`` steps on ``mesh`` (on a mesh of
+    several ranks, this rank's share): losses, step seconds, tokens/s, peak
+    memory and K6 / K7 launches (checked: one microbatch's count times the
+    microbatches), and with ``spec["profile"]`` one more step profiled."""
+    import torch
+
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = train_mesh_config(spec["depth"], variant)
+    steps = spec["steps"]
+    opt = (AdamWConfig() if spec["opt"] == "default"
+           else AdamWConfig(warmup_steps=1, total_steps=steps))
+    shape = ShapeSpec("train", seq_len=spec["seq"], global_batch=spec["batch"], kind="train")
+    trainer = Trainer(cfg, shape, mesh, Path(workdir) / variant,
+                      TrainerConfig(total_steps=steps, checkpoint_every=0, log_every=1,
+                                    seed=seed), opt=opt, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    result, secs, counts = counted(trainer.run)
+    per_micro = expected_train_launches(cfg)
+    check_launches(f"train_mesh {variant}", counts,
+                   {k: v * steps * trainer.plan.accum_steps for k, v in per_micro.items()})
+    hist = result["history"]
+    if not all(map(math.isfinite, (h["loss"] for h in hist))):
+        raise AssertionError(f"train_mesh {variant}: losses {hist}")
+    tokens = spec["seq"] * spec["batch"]
+    out = {"plan": [trainer.plan.accum_steps, trainer.plan.microbatch, trainer.plan.tp],
+           "losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+           "step_seconds": [h["dt"] for h in hist],
+           "tokens_per_s": [tokens / h["dt"] for h in hist], "seconds": secs,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": {k: counts.get(k, 0) for k in per_micro},
+           "expected_per_microbatch": per_micro}
+    if spec["profile"]:
+        torch.cuda.empty_cache()
+        out["profile"] = train_profile(trainer, statistics.median(out["step_seconds"]),
+                                       label=None)
+    return out
+
+
+def train_mesh_runs(dev, spec: dict, seed: int, workdir) -> dict:
+    """One rank of ``train_mesh_phase``: every variant on the (2, 2)
+    ('data', 'model') mesh, with the calls and bytes this rank sent a step
+    through the host-staged collectives (gloo ranks sharing one card)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    mesh = mesh_mod.ParseMesh((2, 2), ("data", "model"))
+    out = {"mesh_shape": mesh.shape, "group": mesh.backend}
+    for variant in spec["variants"]:
+        mesh_mod.STAGED_TRAFFIC.clear()
+        out[variant] = train_mesh_run(dev, mesh, spec, variant, seed,
+                                      Path(workdir) / f"rank{mesh.rank}")
+        out[variant]["staged_traffic_per_step"] = {
+            op: {k: v / spec["steps"] for k, v in seen.items()}
+            for op, seen in mesh_mod.STAGED_TRAFFIC.items()}
+    return out
+
+
+def train_mesh_rank(rank: int, world: int, tmp: str, group_backend: str, spec: dict,
+                    seed: int) -> None:
+    """One rank of ``train_mesh_phase``: ``train_mesh_runs`` under
+    ``rank_main``."""
+    rank_main(rank, world, group_backend, tmp, train_mesh_runs, spec, seed, tmp)
+
+
+def train_mesh_phase(dev, seed: int, spec: dict = TRAIN_MESH, label: str = "train_mesh",
+                     timeout_s: float = TRAIN_MESH_TIMEOUT_S) -> dict:
+    """``Trainer`` on a (2, 2) ('data', 'model') mesh of 4 ranks against the
+    one-rank ``Trainer`` on card 0 (same seed and batches, run first, in this
+    process): one rank a card over NCCL on four cards, else 4 gloo ranks
+    sharing the one card (their DTensor collectives staged through the
+    host).  Per rank and variant: losses and their gap to the one-rank
+    run's (gated by ``TRAIN_MESH_GATE``), step seconds, tokens/s, peak
+    memory, K6 / K7 launches (checked per rank and equal across ranks).
+    Returns rank 0's launches in the first variant."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    single = {}
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as tmp:
+        for variant in spec["variants"]:
+            single[variant] = train_mesh_run(dev, make_host_mesh(), spec, variant, seed, tmp)
+            torch.cuda.empty_cache()
+    group_backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    reports = run_ranks(label, train_mesh_rank, 4, (group_backend, spec, seed), timeout_s)
+    gaps, failures = {}, []
+    for variant in spec["variants"]:
+        want = single[variant]["losses"]
+        gaps[variant] = [max(abs(rep[variant]["losses"][i] - want[i]) for rep in reports)
+                         for i in range(len(want))]
+        if max(gaps[variant]) > TRAIN_MESH_GATE[variant]:
+            failures.append(f"{variant}: loss gaps {gaps[variant]} > {TRAIN_MESH_GATE[variant]}")
+        if any(rep[variant]["launches"] != reports[0][variant]["launches"] for rep in reports):
+            failures.append(f"{variant}: the ranks launched K6 / K7 unequally")
+    cfg = train_mesh_config(spec["depth"], spec["variants"][0])
+    emit(label, model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         param_dtype=cfg.param_dtype, seq=spec["seq"], global_batch=spec["batch"],
+         steps=spec["steps"], optimizer=spec["opt"], world=4, group_backend=group_backend,
+         mesh_shape=reports[0]["mesh_shape"], gate=TRAIN_MESH_GATE, loss_gaps_per_step=gaps,
+         seconds=time.perf_counter() - t0, one_rank=single,
+         ranks=[{k: v for k, v in rep.items() if k != "ok"} for rep in reports],
+         cards=nvidia_smi_cards())
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures))
+    return reports[0][spec["variants"][0]]["launches"]
 
 
 if __name__ == "__main__":

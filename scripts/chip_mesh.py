@@ -1,14 +1,29 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s ``mesh`` phase alone, on the cards of this machine.
+"""Run one of ``chip_smoke.py``'s multi-rank phases alone, on the cards of
+this machine.
 
-    python3 scripts/chip_mesh.py [--seed 0]
+    python3 scripts/chip_mesh.py [--phase mesh|train] [--seed 0]
 
-On a machine with two cards or more it runs one rank a card over NCCL (up
-to 4, a (2, 2) ('pod', 'data') mesh on four); on one card, two ranks share
-it in a gloo group.  It builds the kernels first (one ``nvcc`` per source),
-then prints the ``nvidia-smi`` line of every card, the phase's ``mesh``
-line and the seconds it took; it exits non-zero if any rank fails or hangs.
-The timing and the checks are ``chip_smoke.py``'s own.
+``--phase mesh`` (the default): the parser's mesh route.  On a machine with
+two cards or more it runs one rank a card over NCCL (up to 4, a (2, 2)
+('pod', 'data') mesh on four); on one card, two ranks share it in a gloo
+group.
+
+``--phase train``: zamba2-2.7b at full width and full depth (54 layers, 9
+shared-block applications, bf16 params) trained for ``TRAIN_STEPS`` steps
+of 4 x 2048 tokens by the ``Trainer`` on a (2, 2) ('data', 'model') mesh of
+4 ranks (one a card over NCCL on four cards: dp 2, so accum 2 x microbatch
+2), after the one-rank ``Trainer`` on card 0 with the same seed and batches
+(accum 4 x microbatch 1); every rank also profiles one more step.  Prints
+the ``train_mesh_full`` line: per rank the losses, step seconds, tokens/s,
+peak memory, idle share and K6 / K7 launches, and each step's largest loss
+gap to the one-rank run, gated at 2e-2 in bf16; then the same pair in f32
+compute over the bf16 params, gated at 1e-4.
+
+It builds the kernels first (one ``nvcc`` per source), then prints the
+``nvidia-smi`` line of every card, the phase's line and the seconds it
+took; it exits non-zero if any rank fails or hangs, or a gate fails.  The
+timing and the checks are ``chip_smoke.py``'s own.
 """
 
 from __future__ import annotations
@@ -21,10 +36,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+TRAIN_STEPS = 3
+TRAIN_TIMEOUT_S = 900
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase", choices=("mesh", "train"), default="mesh")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -46,8 +64,16 @@ def main() -> int:
     ops.build()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
     t0 = time.perf_counter()
-    chip_smoke.mesh_phase(args)
-    print(json.dumps({"phase": "mesh_total", "seconds": time.perf_counter() - t0}), flush=True)
+    if args.phase == "mesh":
+        chip_smoke.mesh_phase(args)
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        spec = dict(depth=54, seq=2048, batch=4, steps=TRAIN_STEPS, opt="warmup",
+                    profile=True, variants=("bfloat16", "float32"))
+        chip_smoke.train_mesh_phase(torch.device("cuda", 0), args.seed, spec,
+                                    label="train_mesh_full", timeout_s=TRAIN_TIMEOUT_S)
+    print(json.dumps({"phase": f"{args.phase}_total", "seconds": time.perf_counter() - t0}),
+          flush=True)
     return 0
 
 

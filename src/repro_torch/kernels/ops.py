@@ -39,6 +39,14 @@ under ``torch.enable_grad()`` and differentiates it, as the reference's
 ``_flash_bwd_vjp`` does (``repro/kernels/ops.py``; its SSD is differentiated
 as jnp, the same function).  Under ``torch.no_grad()`` nothing is saved and
 the launches are the same.
+
+On a mesh of several ranks the model's tensors are DTensors, and a kernel
+reached through ctypes must never see one: ``flash_attention_local`` (and
+the SSD's ``models/mamba.ssd_local``) call K6 (K7) through
+``torch.distributed.tensor.experimental.local_map`` on each rank's own
+batch rows and heads, so the kernel, its autograd Function and its launch
+count are per rank.  Plain tensors (one rank, the CPU) go through the same
+``local_map`` call, which then calls the function on them as they are.
 """
 
 from __future__ import annotations
@@ -282,6 +290,45 @@ KERNELS = (
     flash_attention,
     ssd_chunk,
 )
+
+
+def local_placements(t, keep: Sequence[int]) -> Optional[list]:
+    """``t``'s DTensor placements with every split of a dim outside ``keep``
+    (and any partial sum) made whole — the layout a kernel that runs
+    independently along the ``keep`` dims takes — or None for a plain
+    tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return None
+    return [p if p.is_shard() and p.dim in keep else Replicate() for p in t.placements]
+
+
+def on_local_shards(fn, out_places, in_places, grad_places=None, mesh=None):
+    """``fn`` mapped over each rank's local tensors (``local_map``): DTensor
+    arguments are laid out by ``in_places`` first (redistributed where they
+    differ); outputs become DTensors laid out by ``out_places``; the
+    gradients of the local inputs are read as laid out by ``grad_places``
+    (default ``in_places``).  With no DTensor argument ``fn`` runs on the
+    arguments as they are."""
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=out_places, in_placements=in_places,
+                     in_grad_placements=grad_places, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+def flash_attention_local(q, k, v, **static):
+    """K6 on each rank's batch rows (dim 0) and heads (dim 2) of (b, L, h, hd)
+    ``q``, ``k``, ``v``: the sequence and head_dim whole, the three laid out
+    as q; the output laid out so too.  Attention is independent across rows
+    and heads, so each rank's gradients are its own (no reduction)."""
+    places = local_placements(q, (0, 2))
+
+    def attend(q_, k_, v_):
+        return flash_attention(q_.contiguous(), k_.contiguous(), v_.contiguous(), **static)
+
+    return on_local_shards(attend, places, (places,) * 3)(q, k, v)
 
 
 def reset_launches() -> None:

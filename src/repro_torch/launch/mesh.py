@@ -16,7 +16,13 @@ programs still run.
 The collectives take tensors where they lie: NCCL (one rank a card) and
 gloo (CPU processes, or ranks that share one card — NCCL refuses two ranks
 on one device) both take tensors on the card; gloo copies them through the
-host itself.
+host itself.  DTensors (the LM stack's training and serve steps on a mesh)
+need a ``DeviceMesh`` of their tensors' device type: ``device_mesh_for``
+builds it.  Gloo's functional collectives, which DTensor calls, crash on
+tensors on the card (PyTorch 2.11, an H100: a segmentation fault in
+``wait_tensor``), so a gloo mesh for tensors on the card runs them through
+the host instead (``host_staged_collectives``, which counts the calls and
+the bytes each rank sends in ``STAGED_TRAFFIC``).
 
 ``make_production_mesh`` (the reference's 256 / 512-chip TPU shapes) waits
 for the LM stack's ``launch/`` tools.
@@ -77,6 +83,28 @@ class ParseMesh:
             self._ranks = np.zeros(shape, dtype=np.int64)
         self.size = n
         self.coordinate: Dict[str, int] = self.coordinate_of(self.rank)
+        self._device_meshes: Dict[str, object] = {}
+
+    def device_mesh_for(self, device_type: str):
+        """The ``DeviceMesh`` of this mesh for tensors on ``device_type``
+        ("cpu" or "cuda"): the mesh's own where the types agree, else one
+        built once, over the same ranks and axis names (collective: every
+        rank asks for it in the same order).  A gloo mesh for tensors on the
+        card installs ``host_staged_collectives`` first."""
+        if self.device_mesh is None:
+            raise ValueError("the 1-rank mesh places no DTensor")
+        if self.device_mesh.device_type == device_type:
+            return self.device_mesh
+        if device_type not in self._device_meshes:
+            if device_type != "cuda" or "gloo" not in self.backend:
+                raise ValueError(f"a {self.backend} mesh carries no {device_type} tensors")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            host_staged_collectives()
+            self._device_meshes[device_type] = DeviceMesh(
+                device_type, self.device_mesh.mesh, mesh_dim_names=self.axis_names
+            )
+        return self._device_meshes[device_type]
 
     def coordinate_of(self, rank: int) -> Dict[str, int]:
         """Mesh coordinate (name → index) of a global rank."""
@@ -114,6 +142,79 @@ class ParseMesh:
 
     def __repr__(self) -> str:
         return f"ParseMesh({self.shape}, rank={self.rank}, backend={self.backend})"
+
+
+_STAGED: list = []
+STAGED_TRAFFIC: Dict[str, Dict[str, int]] = {}   # op → calls, bytes this rank sent
+_REDUCE_OPS = {"sum": "SUM", "avg": "SUM", "max": "MAX", "min": "MIN", "product": "PRODUCT"}
+
+
+def host_staged_collectives(key: str = "CUDA") -> None:
+    """Run the functional collectives (``torch.ops._c10d_functional``, what
+    DTensor calls) on tensors on the card through the host, over gloo: each
+    copies its input to the host, runs gloo's collective there and copies
+    the result back; ``wait_tensor`` has nothing left to wait for.
+    Installed once per process, for the dispatch key ``key`` only (the
+    tests install it for "CPU" to run it there), so it is for processes
+    whose every group is gloo (ranks sharing one card): an NCCL group's
+    functional collectives would go through the host too."""
+    if _STAGED:
+        return
+    import torch
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def host(t):
+        return t.detach().to("cpu", copy=True).contiguous()
+
+    def reduce(t, op, group):
+        dist.all_reduce(t, getattr(dist.ReduceOp, _REDUCE_OPS[op.lower()]), group=group)
+        if op.lower() == "avg":
+            t /= dist.get_world_size(group)
+        return t
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        h = host(inp)
+        out = torch.empty((group_size * h.shape[0], *h.shape[1:]), dtype=h.dtype)
+        dist.all_gather_into_tensor(out, h, group=_resolve_process_group(group_name))
+        return out.to(inp.device)
+
+    def reduce_scatter_tensor(inp, reduce_op, group_size, group_name):
+        group = _resolve_process_group(group_name)
+        h = host(inp)
+        out = torch.empty((h.shape[0] // group_size, *h.shape[1:]), dtype=h.dtype)
+        dist.reduce_scatter_tensor(out, h, getattr(dist.ReduceOp, _REDUCE_OPS[reduce_op.lower()]),
+                                   group=group)
+        if reduce_op.lower() == "avg":
+            out /= group_size
+        return out.to(inp.device)
+
+    def all_reduce(inp, reduce_op, group_name):
+        return reduce(host(inp), reduce_op, _resolve_process_group(group_name)).to(inp.device)
+
+    def all_to_all_single(inp, output_split_sizes, input_split_sizes, group_name):
+        group = _resolve_process_group(group_name)
+        h = host(inp)
+        n_out = sum(output_split_sizes) if output_split_sizes else h.shape[0]
+        out = torch.empty((n_out, *h.shape[1:]), dtype=h.dtype)
+        dist.all_to_all_single(out, h, list(output_split_sizes) or None,
+                               list(input_split_sizes) or None, group=group)
+        return out.to(inp.device)
+
+    def counted(name, fn):
+        def run(inp, *args):
+            seen = STAGED_TRAFFIC.setdefault(name, {"calls": 0, "bytes": 0})
+            seen["calls"] += 1
+            seen["bytes"] += inp.numel() * inp.element_size()
+            return fn(inp, *args)
+        return run
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, fn in (("all_gather_into_tensor", all_gather_into_tensor),
+                     ("reduce_scatter_tensor", reduce_scatter_tensor),
+                     ("all_reduce", all_reduce), ("all_to_all_single", all_to_all_single)):
+        lib.impl(name, counted(name, fn), key)
+    lib.impl("wait_tensor", lambda t: t, key)
+    _STAGED.append(lib)
 
 
 def make_host_mesh(shape: Tuple[int, ...] = (1,), axes: Tuple[str, ...] = ("data",)) -> ParseMesh:

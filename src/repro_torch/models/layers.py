@@ -3,7 +3,8 @@
 Conventions (the reference's):
   * activations: (batch, seq, d_model) in ``cfg.dtype`` (bf16 by default);
   * params: nested dicts of tensors with the reference's names, declared via
-    ``ParamDecl`` so that shapes and initializers live in one place;
+    ``ParamDecl`` so that shapes, logical sharding axes and initializers live
+    in one place;
   * attention is GQA with RoPE, an optional sliding window and an optional
     logit softcap.  Prefill and training attention is K6
     (``kernels/ops.flash_attention``, its plain version on the CPU); decode
@@ -34,6 +35,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # logical sharding axis per dim
     init: str = "normal"                 # normal | zeros | ones | scaled
     scale: float = 0.02
 
@@ -55,6 +57,21 @@ def tree_init(decls: Any, gen: torch.Generator, dtype, device) -> Any:
     if isinstance(decls, ParamDecl):
         return decls.materialize(gen, dtype, device)
     return {k: tree_init(decls[k], gen, dtype, device) for k in sorted(decls)}
+
+
+def tree_abstract(decls: Any, dtype) -> Any:
+    """The declared params as tensors on the meta device: shapes and dtype,
+    no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    if isinstance(decls, ParamDecl):
+        return torch.empty(decls.shape, dtype=dtype, device="meta")
+    return {k: tree_abstract(v, dtype) for k, v in decls.items()}
+
+
+def tree_logical(decls: Any) -> Any:
+    """Every param's logical axes, in the tree's structure."""
+    if isinstance(decls, ParamDecl):
+        return decls.logical
+    return {k: tree_logical(v) for k, v in decls.items()}
 
 
 # ----------------------------------------------------------------- norms
@@ -88,7 +105,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ------------------------------------------------------------- attention
 
 
-def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     """(b, s, kv, hd) → (b, s, kv*groups, hd) by head repetition (GQA)."""
     if groups == 1:
         return k
@@ -119,8 +136,8 @@ def decode_attention(
     b, S, kv, hd = k_cache.shape
     h = q.shape[2]
     if not grouped:
-        k_cache = _repeat_kv(k_cache, groups)[:, :, :h]
-        v_cache = _repeat_kv(v_cache, groups)[:, :, :h]
+        k_cache = repeat_kv(k_cache, groups)[:, :, :h]
+        v_cache = repeat_kv(v_cache, groups)[:, :, :h]
         kv = h
         groups = 1
     assert h == kv * groups, (h, kv, groups)

@@ -13,20 +13,25 @@ paper's three-phase schema (``core/scan.py``):
          ``C_t · (decay · S_prev)`` — K7 again (``outputs="y"``), with the
          joined entry states.
 
-So a layer's prefill is two K7 launches.  Decode is the O(1) stepwise
+So a layer's prefill is two K7 launches.  On a mesh the SSD runs on each
+rank's batch rows and heads (``ssd_local``: heads are independent, so the
+chunked scan is too), K7 on local tensors; the fused input projection is
+split by 'mlp' over 'model', and its z / xBC / dt split crosses the shard
+boundaries, so DTensor gathers the projection there.  Decode is the O(1) stepwise
 recurrence against an (heads, head_dim, d_state) state cache plus a
 (d_conv-1)-deep convolution cache, with no kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..core.scan import exclusive_entries
 from ..kernels import ops
+from ..parallel.sharding import local_range
 from .config import SSMConfig
 from .layers import ParamDecl, rms_norm
 
@@ -43,14 +48,16 @@ def declare_ssm(d_model: int, cfg: SSMConfig) -> Dict[str, ParamDecl]:
     di, nh, cd = dims["d_inner"], dims["n_heads"], dims["conv_dim"]
     in_dim = 2 * di + 2 * cfg.n_groups * cfg.d_state + nh
     return {
-        "w_in": ParamDecl((d_model, in_dim), init="scaled"),
-        "conv_w": ParamDecl((cfg.d_conv, cd), init="scaled", scale=0.1),
-        "conv_b": ParamDecl((cd,), init="zeros"),
-        "A_log": ParamDecl((nh,), init="ones"),
-        "D": ParamDecl((nh,), init="ones"),
-        "dt_bias": ParamDecl((nh,), init="zeros"),
-        "norm_w": ParamDecl((di,), init="ones"),
-        "w_out": ParamDecl((di, d_model), init="scaled"),
+        # pure TP (no FSDP on the contracting d_model dim): the reference's
+        # choice, which replicates these weights over 'data'
+        "w_in": ParamDecl((d_model, in_dim), (None, "mlp"), init="scaled"),
+        "conv_w": ParamDecl((cfg.d_conv, cd), (None, "mlp"), init="scaled", scale=0.1),
+        "conv_b": ParamDecl((cd,), ("mlp",), init="zeros"),
+        "A_log": ParamDecl((nh,), ("heads",), init="ones"),
+        "D": ParamDecl((nh,), ("heads",), init="ones"),
+        "dt_bias": ParamDecl((nh,), ("heads",), init="zeros"),
+        "norm_w": ParamDecl((di,), ("mlp",), init="ones"),
+        "w_out": ParamDecl((di, d_model), ("mlp", None), init="scaled"),
     }
 
 
@@ -59,7 +66,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     d_conv = w.shape[0]
     out = x * w[-1]
     for i in range(1, d_conv):
-        shifted = F.pad(x, (0, 0, i, 0))[:, : x.shape[1]]
+        shifted = torch.cat([torch.zeros_like(x[:, :i]), x[:, : x.shape[1] - i]], dim=1)
         out = out + shifted * w[-1 - i]
     return out + b
 
@@ -89,15 +96,20 @@ def ssd_chunked(
     C: torch.Tensor,     # (b, l, g, n)
     chunk: int,
     initial_state: Optional[torch.Tensor] = None,   # (b, nh, hp, n)
+    head_offset: int = 0,
+    n_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD: returns (y (b,l,nh,hp) f32, final_state (b,nh,hp,n) f32).
 
     The chunks are flattened to programs p = (batch, chunk, head) with B and C
-    repeated per head, as K7 takes them.
+    repeated per head, as K7 takes them.  The nh heads given may be heads
+    ``head_offset`` … of a layer of ``n_heads`` (default nh): head h reads
+    group h // (n_heads // g).
     """
     b, l, nh, hp = xdt.shape
     g, n = B.shape[-2], B.shape[-1]
-    hpg = nh // g
+    hpg = (n_heads or nh) // g
+    group = (torch.arange(head_offset, head_offset + nh, device=B.device) // hpg)
     q = min(chunk, l)
     while l % q:
         q //= 2
@@ -111,8 +123,8 @@ def ssd_chunked(
         return t.permute(0, 1, 3, 2, 4).reshape(P, q, t.shape[-1])
 
     x_f = flat(xdt.reshape(b, nc, q, nh, hp))
-    B_f = flat(B.reshape(b, nc, q, g, 1, n).expand(b, nc, q, g, hpg, n).reshape(b, nc, q, nh, n))
-    C_f = flat(C.reshape(b, nc, q, g, 1, n).expand(b, nc, q, g, hpg, n).reshape(b, nc, q, nh, n))
+    B_f = flat(B.index_select(2, group).reshape(b, nc, q, nh, n))
+    C_f = flat(C.index_select(2, group).reshape(b, nc, q, nh, n))
     cs_f = flat(cs[..., None])
 
     # ---- reach: each chunk's state contribution (S_c does not depend on the
@@ -137,19 +149,51 @@ def ssd_chunked(
     return y, final_state
 
 
+def ssd_local(xdt, dA, B, C, chunk: int, initial_state=None):
+    """``ssd_chunked`` on each rank's batch rows and heads, through
+    ``ops.on_local_shards`` (one rank: the same call on plain tensors).  xdt
+    (b, l, nh, hp) keeps its split of dims 0 and 2, dA (b, l, nh) and the
+    state (b, nh, hp, n) follow it, B and C (b, l, g, n) are whole on the
+    axes that split the heads; their gradients are partial sums there (each
+    rank's heads add theirs)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x_pl = ops.local_placements(xdt, (0, 2))
+    if x_pl is None:
+        places = grads = s_pl = None
+        offset = 0
+    else:
+        s_pl = [Shard(1) if p.is_shard(2) else p for p in x_pl]
+        bc_pl = [p if p.is_shard(0) else Replicate() for p in x_pl]
+        bc_grad = [Partial() if p.is_shard(2) else p for p in x_pl]
+        state_pl = s_pl if initial_state is not None else None
+        places = (x_pl, x_pl, bc_pl, bc_pl, state_pl)
+        grads = (x_pl, x_pl, bc_grad, bc_grad, state_pl)
+        offset = local_range(xdt.shape, xdt.device_mesh, x_pl, 2)[0]
+    nh = xdt.shape[2]
+
+    def scan(x_, a_, b_, c_, s_):
+        return ssd_chunked(x_, a_, b_, c_, chunk, s_, head_offset=offset, n_heads=nh)
+
+    return ops.on_local_shards(scan, (x_pl, s_pl), places, grads)(xdt, dA, B, C, initial_state)
+
+
 def ssm_forward(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,                   # (b, l, d)
     cfg: SSMConfig,
     rms_eps: float,
+    shard: Callable = lambda t, logical: t,
 ) -> torch.Tensor:
-    """Full Mamba-2 block: in-proj → conv → SSD → gated norm → out-proj."""
+    """Full Mamba-2 block: in-proj → conv → SSD → gated norm → out-proj.
+    ``shard`` re-places the projection by 'mlp' and the output, as the
+    reference does."""
     b, l, d = x.shape
     dims = ssm_dims(d, cfg)
     di, nh = dims["d_inner"], dims["n_heads"]
     g, n, hp = cfg.n_groups, cfg.d_state, cfg.head_dim
 
-    zxbcdt = x @ params["w_in"]
+    zxbcdt = shard(x @ params["w_in"], ("batch", "seq", "mlp"))
     z, xBC, dt = _split_zxbcdt(zxbcdt, di, g, n, nh)
     xBC = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
     xs = xBC[..., :di].reshape(b, l, nh, hp)
@@ -161,11 +205,11 @@ def ssm_forward(
     dA = dt * A                                                       # (b, l, nh) f32
     xdt = xs * dt.to(xs.dtype)[..., None]
 
-    y, _ = ssd_chunked(xdt, dA, B, C, cfg.chunk)
+    y, _ = ssd_local(xdt, dA, B, C, cfg.chunk)
     y = y + params["D"][None, None, :, None] * xs
     y = y.reshape(b, l, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm_w"], rms_eps)
-    return y @ params["w_out"]
+    return shard(y @ params["w_out"], ("batch", "seq", None))
 
 
 def ssm_decode_step(

@@ -34,20 +34,25 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.engine import resolve_device
 from ..kernels import ops
+from ..parallel.sharding import assign, local_range, whole_dim, write_slot
 from .config import ModelConfig
 from .layers import (
     HeadPlan,
     ParamDecl,
     apply_rope,
     decode_attention,
+    repeat_kv,
     rms_norm,
     swiglu,
     torch_dtype,
+    tree_abstract,
     tree_init,
+    tree_logical,
 )
 from .mamba import declare_ssm, ssm_decode_step, ssm_dims, ssm_forward
 from .moe import declare_moe, moe_ffn
@@ -62,21 +67,21 @@ AUX_KEYS = ("moe_lb_loss", "moe_z_loss")
 def _attn_decls(cfg: ModelConfig, plan: HeadPlan) -> Dict[str, ParamDecl]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     return {
-        "norm1": ParamDecl((d,), init="ones"),
-        "wq": ParamDecl((d, plan.pad_q, hd), init="scaled"),
-        "wk": ParamDecl((d, plan.pad_kv, hd), init="scaled"),
-        "wv": ParamDecl((d, plan.pad_kv, hd), init="scaled"),
-        "wo": ParamDecl((plan.pad_q, hd, d), init="scaled"),
+        "norm1": ParamDecl((d,), (None,), init="ones"),
+        "wq": ParamDecl((d, plan.pad_q, hd), ("fsdp", "heads", None), init="scaled"),
+        "wk": ParamDecl((d, plan.pad_kv, hd), ("fsdp", "kv_heads", None), init="scaled"),
+        "wv": ParamDecl((d, plan.pad_kv, hd), ("fsdp", "kv_heads", None), init="scaled"),
+        "wo": ParamDecl((plan.pad_q, hd, d), ("heads", None, "fsdp"), init="scaled"),
     }
 
 
 def _mlp_decls(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "norm2": ParamDecl((d,), init="ones"),
-        "w_gate": ParamDecl((d, f), init="scaled"),
-        "w_up": ParamDecl((d, f), init="scaled"),
-        "w_down": ParamDecl((f, d), init="scaled"),
+        "norm2": ParamDecl((d,), (None,), init="ones"),
+        "w_gate": ParamDecl((d, f), ("fsdp", "mlp"), init="scaled"),
+        "w_up": ParamDecl((d, f), ("fsdp", "mlp"), init="scaled"),
+        "w_down": ParamDecl((f, d), ("mlp", "fsdp"), init="scaled"),
     }
 
 
@@ -86,82 +91,102 @@ def _layer_decls(cfg: ModelConfig, kind: str, plan: HeadPlan) -> Dict[str, Any]:
     if kind == "moe":
         return {
             **_attn_decls(cfg, plan),
-            "norm2": ParamDecl((cfg.d_model,), init="ones"),
+            "norm2": ParamDecl((cfg.d_model,), (None,), init="ones"),
             "moe": declare_moe(cfg.d_model, cfg.moe),
         }
     if kind == "ssm":
         return {
-            "norm1": ParamDecl((cfg.d_model,), init="ones"),
+            "norm1": ParamDecl((cfg.d_model,), (None,), init="ones"),
             "ssm": declare_ssm(cfg.d_model, cfg.ssm),
         }
     raise ValueError(kind)
 
 
 def _stack_decls(decls: Any, n: int) -> Any:
-    """Prepend a layer axis of size n to every decl."""
+    """Prepend a layer axis of size n (logical axis "stack") to every decl."""
     if isinstance(decls, ParamDecl):
-        return ParamDecl((n,) + decls.shape, decls.init, decls.scale)
+        return ParamDecl((n,) + decls.shape, ("stack",) + decls.logical, decls.init, decls.scale)
     return {k: _stack_decls(v, n) for k, v in decls.items()}
 
 
-def head_plan(cfg: ModelConfig) -> HeadPlan:
-    """The reference's plan at tensor-parallel degree 1 (the port runs on one
-    card): no padding."""
-    return HeadPlan.plan(cfg.n_heads, cfg.n_kv_heads, 1)
+def head_plan(cfg: ModelConfig, tp: int = 1) -> HeadPlan:
+    """The reference's plan at tensor-parallel degree ``tp``: query heads
+    zero-padded to a multiple of ``tp`` where they do not divide it."""
+    return HeadPlan.plan(cfg.n_heads, cfg.n_kv_heads, tp)
 
 
-def shared_attn_plan(cfg: ModelConfig) -> HeadPlan:
+def shared_attn_plan(cfg: ModelConfig, tp: int = 1) -> HeadPlan:
     h = cfg.shared_attn_heads or cfg.n_heads
-    return HeadPlan.plan(h, h, 1)  # shared block is MHA (zamba2)
+    return HeadPlan.plan(h, h, tp)  # shared block is MHA (zamba2)
 
 
-def declare_params(cfg: ModelConfig) -> Dict[str, Any]:
+def declare_params(cfg: ModelConfig, tp: int = 1) -> Dict[str, Any]:
     d = cfg.d_model
-    plan = head_plan(cfg)
+    plan = head_plan(cfg, tp)
     kinds = cfg.layer_kinds
     decls: Dict[str, Any] = {
-        "embed": ParamDecl((cfg.vocab_size, d), init="normal"),
-        "final_norm": ParamDecl((d,), init="ones"),
+        "embed": ParamDecl((cfg.vocab_size, d), ("vocab", None), init="normal"),
+        "final_norm": ParamDecl((d,), (None,), init="ones"),
     }
     if not cfg.tie_embeddings:
-        decls["lm_head"] = ParamDecl((d, cfg.vocab_size), init="scaled")
+        decls["lm_head"] = ParamDecl((d, cfg.vocab_size), (None, "vocab"), init="scaled")
     if cfg.frontend is not None:
-        decls["frontend_proj"] = ParamDecl((cfg.frontend.feature_dim, d), init="scaled")
+        decls["frontend_proj"] = ParamDecl(
+            (cfg.frontend.feature_dim, d), (None, None), init="scaled"
+        )
     decls["stacks"] = {
         kind: _stack_decls(_layer_decls(cfg, kind, plan), sum(1 for k in kinds if k == kind))
         for kind in sorted(set(kinds))
     }
     if cfg.shared_attn_every:
         decls["shared_attn"] = {
-            **_attn_decls(cfg, shared_attn_plan(cfg)),
+            **_attn_decls(cfg, shared_attn_plan(cfg, tp)),
             **_mlp_decls(cfg),
         }
     return decls
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, tp: int = 1) -> Params:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``, made
-    on ``device`` (None: the card; raises without one).  The reference's
-    initializers, not its numbers: a JAX key draws other values."""
+    on ``device`` (None: the card; raises without one), whole, with the
+    heads padded for tensor-parallel degree ``tp``.  The reference's
+    initializers, not its numbers: a JAX key draws other values.  On a mesh
+    every rank makes the same tree, and ``train/step.shard_params`` cuts it
+    to the rank's shards."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return tree_init(declare_params(cfg), gen, torch_dtype(cfg.param_dtype), dev)
+    return tree_init(declare_params(cfg, tp), gen, torch_dtype(cfg.param_dtype), dev)
 
 
-def params_from_jax(tree: Any, cfg: ModelConfig, device=None) -> Params:
+def abstract_params(cfg: ModelConfig, tp: int = 1) -> Params:
+    """The params' shapes and dtype on the meta device (no storage)."""
+    return tree_abstract(declare_params(cfg, tp), torch_dtype(cfg.param_dtype))
+
+
+def param_logical_axes(cfg: ModelConfig, tp: int = 1) -> Params:
+    """Every param's logical axes (the reference's tuples), in the params'
+    tree."""
+    return tree_logical(declare_params(cfg, tp))
+
+
+def params_from_jax(tree: Any, cfg: ModelConfig, device=None, tp: int = 1) -> Params:
     """The reference's parameter tree (nested dicts of numpy arrays, any float
-    dtype) as the port's, in ``cfg.param_dtype`` on ``device`` (None: the
-    card).  Both packages then compute the same function."""
+    dtype), made at tensor-parallel degree ``tp`` (its padded heads
+    included), as the port's, in ``cfg.param_dtype`` on ``device`` (None: the
+    card).  Both packages then compute the same function.  Raises if a
+    leaf's shape is not the one ``declare_params(cfg, tp)`` gives."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
 
-    def convert(x):
+    def convert(x, want, path):
         if isinstance(x, dict):
-            return {k: convert(v) for k, v in x.items()}
+            return {k: convert(v, want[k], f"{path}/{k}") for k, v in x.items()}
+        if tuple(np.shape(x)) != tuple(want.shape):
+            raise ValueError(f"{path}: shape {np.shape(x)}, expected {tuple(want.shape)} at tp {tp}")
         return torch.tensor(np.asarray(x, dtype=np.float32), device=dev).to(dtype)
 
-    return convert(tree)
+    return convert(tree, abstract_params(cfg, tp), "")
 
 
 def compute_params(params: Params, cfg: ModelConfig) -> Params:
@@ -198,6 +223,11 @@ def _unstack(tree: Any) -> list:
 # ================================================================ layer fwd
 
 
+def no_shard(t, logical):
+    """The ``shard`` hook of one rank: every tensor stays as it is."""
+    return t
+
+
 def _attention(
     p: Params,
     x: torch.Tensor,
@@ -205,42 +235,60 @@ def _attention(
     plan: HeadPlan,
     positions: torch.Tensor,
     window: Optional[int],
+    shard: Callable,
 ) -> torch.Tensor:
     """Project q/k/v, apply RoPE, repeat K/V to the query heads, and attend
-    through K6 (with ``cfg.attn_logit_softcap``).  K6 casts p to v's dtype,
+    through K6 (with ``cfg.attn_logit_softcap``) on each rank's batch rows
+    and heads (``ops.flash_attention_local``).  K6 casts p to v's dtype,
     which is the reference's ``attn_p_dtype`` whenever that equals
-    ``cfg.dtype``."""
-    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    ``cfg.dtype``.  The ``shard`` calls are the reference's: the weights
+    gathered at use to their tensor-parallel layout (FSDP's all-gather),
+    q / k / v and the repeated K/V by heads."""
+    wq = shard(p["wq"], (None, "heads", None))
+    wk = shard(p["wk"], (None, "kv_heads", None))
+    wv = shard(p["wv"], (None, "kv_heads", None))
+    wo = shard(p["wo"], ("heads", None, None))
+    q = shard(torch.einsum("bld,dhk->blhk", x, wq), ("batch", "seq", "heads", None))
+    k = shard(torch.einsum("bld,dhk->blhk", x, wk), ("batch", "seq", "kv_heads", None))
+    v = shard(torch.einsum("bld,dhk->blhk", x, wv), ("batch", "seq", "kv_heads", None))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    kr = torch.repeat_interleave(k, plan.groups, dim=2)[:, :, : plan.pad_q]
-    vr = torch.repeat_interleave(v, plan.groups, dim=2)[:, :, : plan.pad_q]
-    o = ops.flash_attention(
-        q.contiguous(), kr.contiguous(), vr.contiguous(), causal=True, window=window,
-        softcap=cfg.attn_logit_softcap,
+    kr = shard(repeat_kv(k, plan.groups)[:, :, : plan.pad_q], ("batch", "seq", "heads", None))
+    vr = shard(repeat_kv(v, plan.groups)[:, :, : plan.pad_q], ("batch", "seq", "heads", None))
+    o = ops.flash_attention_local(q, kr, vr, causal=True, window=window,
+                                  softcap=cfg.attn_logit_softcap)
+    o = shard(o, ("batch", "seq", "heads", None))
+    return torch.einsum("blhk,hkd->bld", o.to(x.dtype), wo)
+
+
+def _attn_block(p, x, cfg, plan, positions, window, shard):
+    h = x + _attention(
+        p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg, plan, positions, window, shard
     )
-    return torch.einsum("blhk,hkd->bld", o.to(x.dtype), p["wo"])
-
-
-def _attn_block(p, x, cfg, plan, positions, window):
-    h = x + _attention(p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg, plan, positions, window)
-    if "w_gate" in p:
-        h = h + swiglu(rms_norm(h, p["norm2"], cfg.rms_eps), p["w_gate"], p["w_up"], p["w_down"])
+    if "w_gate" in p:  # dense MLP, its weights gathered at use
+        h = h + swiglu(
+            rms_norm(h, p["norm2"], cfg.rms_eps),
+            shard(p["w_gate"], (None, "mlp")),
+            shard(p["w_up"], (None, "mlp")),
+            shard(p["w_down"], ("mlp", None)),
+        )
     return h
 
 
-def _moe_block(p, x, cfg, plan, positions, window):
-    h = x + _attention(p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg, plan, positions, window)
+def _moe_block(p, x, cfg, plan, positions, window, shard):
+    h = x + _attention(
+        p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg, plan, positions, window, shard
+    )
     b, l, d = h.shape
     flat = rms_norm(h, p["norm2"], cfg.rms_eps).reshape(b * l, d)
-    y, aux = moe_ffn(p["moe"], flat, cfg.moe)
+    y, aux = moe_ffn(p["moe"], flat, cfg.moe, constrain=shard)
     return h + y.reshape(b, l, d), aux
 
 
-def _ssm_block(p, x, cfg):
-    return x + ssm_forward(p["ssm"], rms_norm(x, p["norm1"], cfg.rms_eps), cfg.ssm, cfg.rms_eps)
+def _ssm_block(p, x, cfg, shard):
+    return x + ssm_forward(
+        p["ssm"], rms_norm(x, p["norm1"], cfg.rms_eps), cfg.ssm, cfg.rms_eps, shard=shard
+    )
 
 
 # ============================================================== full forward
@@ -272,6 +320,8 @@ def backbone(
     x: torch.Tensor,                 # (b, L, d) embedded inputs
     cfg: ModelConfig,
     positions: torch.Tensor,         # (b, L)
+    tp: int = 1,
+    shard: Callable = no_shard,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every layer in order, the shared block after every
     ``shared_attn_every`` core layers (zamba2); returns the hidden states and
@@ -281,14 +331,17 @@ def backbone(
     under ``torch.utils.checkpoint`` (non-reentrant): only its input is kept
     and its forward runs again in the backward, as the reference's
     ``jax.checkpoint`` of the scanned body (the shared block is not wrapped
-    there either)."""
-    plan = head_plan(cfg)
-    splan = shared_attn_plan(cfg)
+    there either).  ``tp`` sets the head plan (padded heads); ``shard``
+    re-places tensors at the reference's sites (``train/step.make_shard_fn``),
+    and the hidden states after each run of same-kind layers."""
+    plan = head_plan(cfg, tp)
+    splan = shared_attn_plan(cfg, tp)
     every = cfg.shared_attn_every
+    window = cfg.sliding_window
     bodies: Dict[str, Callable] = {
-        "attn": lambda p, h: _attn_block(p, h, cfg, plan, positions, cfg.sliding_window),
-        "moe": lambda p, h: _moe_block(p, h, cfg, plan, positions, cfg.sliding_window),
-        "ssm": lambda p, h: _ssm_block(p, h, cfg),
+        "attn": lambda p, h: _attn_block(p, h, cfg, plan, positions, window, shard),
+        "moe": lambda p, h: _moe_block(p, h, cfg, plan, positions, window, shard),
+        "ssm": lambda p, h: _ssm_block(p, h, cfg, shard),
     }
     remat = cfg.remat and torch.is_grad_enabled()
     aux = _zero_aux(x.device)
@@ -306,8 +359,37 @@ def backbone(
                 x = out
             layers_done += 1
             if every and layers_done % every == 0:
-                x = _attn_block(params["shared_attn"], x, cfg, splan, positions, None)
+                x = _attn_block(params["shared_attn"], x, cfg, splan, positions, None, shard)
+        x = shard(x, ("batch", "seq", None))
     return x, aux
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` (V, d) at ``tokens``.  On a mesh the table's
+    rows are split by vocab over 'model': each rank looks up the tokens in
+    its rows (zero for the others, through ``ops.on_local_shards``) and the
+    output is a partial sum over those ranks, the gradient of each rank's
+    rows its own (partial over the ranks that split the tokens)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    dm = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, dm, [Replicate()] * dm.ndim, run_check=False)
+    t_pl = ops.local_placements(table, (0,))
+    k_pl = ops.local_placements(tokens, (0,))
+    out_pl = [Partial() if t.is_shard() else k for t, k in zip(t_pl, k_pl)]
+    grad_pl = [t if t.is_shard() else (Partial() if k.is_shard() else t)
+               for t, k in zip(t_pl, k_pl)]
+    lo = local_range(table.shape, dm, t_pl, 0)[0]
+
+    def lookup(w, tok):
+        local = tok - lo
+        hit = (local >= 0) & (local < w.shape[0])
+        return F.embedding(local.clamp(0, w.shape[0] - 1), w) * hit[..., None].to(w.dtype)
+
+    return ops.on_local_shards(lookup, out_pl, (t_pl, k_pl), (grad_pl, k_pl))(table, tokens)
 
 
 def embed_inputs(
@@ -320,7 +402,7 @@ def embed_inputs(
     embeddings, after the projected frontend features when the config has a
     frontend and ``extra`` is given."""
     dt = torch_dtype(cfg.dtype)
-    emb = params["embed"][tokens].to(dt)
+    emb = embed_lookup(params["embed"], tokens).to(dt)
     if cfg.frontend is not None and extra is not None:
         fe = (extra.to(dt) @ params["frontend_proj"]).to(dt)
         emb = torch.cat([fe, emb], dim=1)
@@ -341,7 +423,7 @@ def lm_loss(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token cross-entropy over the labels ≥ 0 (f32), and their
     count."""
-    lf = logits.float()
+    lf = whole_dim(logits.float(), -1)          # on a mesh: gathered over 'model'
     m = lf.max(dim=-1, keepdim=True).values.detach()
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
     safe_labels = labels.clamp(min=0).long()
@@ -356,19 +438,26 @@ def forward_train(
     params: Params,
     batch: Dict[str, torch.Tensor],
     cfg: ModelConfig,
+    tp: int = 1,
+    shard: Callable = no_shard,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, metrics) of one microbatch: ``batch["tokens"]`` (b, L)
     and, for a frontend config, ``batch["extra"]`` (b, n_extra, feat).  The
     loss is over the text positions only (the frontend's are cut off), each
     predicting the next token, the last one ignored; the total adds the MoE
-    aux losses summed over the layers."""
+    aux losses summed over the layers.  On a mesh the params and the batch
+    are DTensors and ``shard`` places the activations (``train/step.py``);
+    the logits, split by vocab over 'model', are gathered whole there for the
+    loss (its max, log-sum-exp and the gold logits' gather then run on each
+    rank's rows alone)."""
     tokens = batch["tokens"]
     extra = batch.get("extra")
     params = compute_params(params, cfg)
     x, positions = embed_inputs(params, tokens, cfg, extra)
-    x, aux = backbone(params, x, cfg, positions)
+    x = shard(x, ("batch", "seq", None))
+    x, aux = backbone(params, x, cfg, positions, tp, shard)
     n_extra = 0 if extra is None else extra.shape[1]
-    logits = logits_from(params, x[:, n_extra:], cfg)
+    logits = shard(logits_from(params, x[:, n_extra:], cfg), ("batch", "seq", "vocab"))
     labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
     loss, n_tok = lm_loss(logits, labels)
     total = loss + aux["moe_lb_loss"] + aux["moe_z_loss"]
@@ -376,29 +465,34 @@ def forward_train(
 
 
 def prefill(
-    params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-    extra: Optional[torch.Tensor] = None,
+    params: Params, tokens: torch.Tensor, cfg: ModelConfig, tp: int = 1,
+    shard: Callable = no_shard, extra: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence forward producing last-position logits (b, 1, V): the
     compute-bound phase of serving.  Attention runs through K6 and every SSD
     layer through K7 (twice).  As in the reference, it populates no decode
     cache: the serving loop primes its caches step by step.  ``extra``: the
-    frontend's features, prepended (``pos`` counts them)."""
+    frontend's features, prepended (``pos`` counts them).  ``tp`` and
+    ``shard`` as in ``backbone``."""
     params = compute_params(params, cfg)
     x, positions = embed_inputs(params, tokens, cfg, extra)
-    x, _ = backbone(params, x, cfg, positions)
+    x = shard(x, ("batch", "seq", None))
+    x, _ = backbone(params, x, cfg, positions, tp, shard)
     return logits_from(params, x[:, -1:], cfg), {"pos": x.shape[1]}
 
 
 # ==================================================================== decode
 
 
-def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None) -> Dict[str, Any]:
-    """Zero-initialized decode caches on ``device`` (None: the card).  ``pos``
-    is a host int; the rest are tensors."""
+def make_cache(cfg: ModelConfig, batch: int, seq_len: int, tp: int = 1,
+               device=None) -> Dict[str, Any]:
+    """Zero-initialized decode caches on ``device`` (None: the card), with
+    the kv heads of the head plan at tensor-parallel degree ``tp``.  ``pos``
+    is a host int; the rest are tensors (``train/step.shard_caches`` places
+    them on a mesh)."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
-    plan = head_plan(cfg)
+    plan = head_plan(cfg, tp)
     hd = cfg.resolved_head_dim
     cache_len = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     kinds = cfg.layer_kinds
@@ -425,7 +519,7 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None) -> Dict[
             ),
         }
     if cfg.shared_attn_every:
-        splan = shared_attn_plan(cfg)
+        splan = shared_attn_plan(cfg, tp)
         n_shared = len(kinds) // cfg.shared_attn_every
         shape = (n_shared, batch, cache_len, splan.pad_kv, hd)
         caches["shared_attn"] = {
@@ -435,10 +529,11 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None) -> Dict[
     return caches
 
 
-def _decode_attn_block(p, x, cfg, plan, cache_k, cache_v, slot_pos, pos, window,
+def _decode_attn_block(p, x, cfg, plan, cache_k, cache_v, slot_pos, pos, window, shard,
                        row_start=None):
     """One attention (+ MLP or MoE) decode step; writes the new K/V into its
-    slot of ``cache_k`` / ``cache_v`` in place."""
+    slot of ``cache_k`` / ``cache_v`` in place (on a mesh, on the ranks whose
+    shard of the cache holds the slot)."""
     b = x.shape[0]
     xn = rms_norm(x, p["norm1"], cfg.rms_eps)
     q = torch.einsum("bld,dhk->blhk", xn, p["wq"])
@@ -448,8 +543,10 @@ def _decode_attn_block(p, x, cfg, plan, cache_k, cache_v, slot_pos, pos, window,
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
     slot = pos % cache_k.shape[1]
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    write_slot(cache_k, 1, slot, k[:, 0])
+    write_slot(cache_v, 1, slot, v[:, 0])
+    cache_k = shard(cache_k, ("batch", "cache_seq", "kv_heads", None))
+    cache_v = shard(cache_v, ("batch", "cache_seq", "kv_heads", None))
     o = decode_attention(
         q, cache_k, cache_v, slot_pos, pos,
         groups=plan.groups, grouped=plan.grouped,
@@ -471,21 +568,26 @@ def decode_step(
     caches: Dict[str, Any],
     token: torch.Tensor,            # (b, 1) int
     cfg: ModelConfig,
+    tp: int = 1,
+    shard: Callable = no_shard,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serving step: next-token logits (b, 1, V) and the caches.
 
     Unlike the reference, which returns new cache arrays, the port updates
     the cache tensors in place (one slot of K/V, the SSM state and conv rows)
     and returns the same dict with ``pos`` advanced.  ``attn`` and ``moe``
-    layers share the attention caches, in layer order."""
+    layers share the attention caches, in layer order.  On a mesh the caches
+    are DTensors laid out by ``train/step.cache_logical_axes`` (a full
+    attention cache split by slots over 'model': the softmax over the slots
+    then spans those ranks)."""
     pos = int(caches["pos"])
     params = compute_params(params, cfg)
-    plan = head_plan(cfg)
-    splan = shared_attn_plan(cfg)
-    x = params["embed"][token].to(torch_dtype(cfg.dtype))
+    plan = head_plan(cfg, tp)
+    splan = shared_attn_plan(cfg, tp)
+    x = embed_lookup(params["embed"], token).to(torch_dtype(cfg.dtype))
     if "attn" in caches:
         slot_pos = caches["attn"]["slot_pos"]
-        slot_pos[pos % slot_pos.shape[0]] = pos
+        write_slot(slot_pos, 0, pos % slot_pos.shape[0], torch.tensor(pos, dtype=torch.int32))
     elif "shared_attn" in caches:
         cache_len = caches["shared_attn"]["k"].shape[2]
         slot_pos = torch.arange(cache_len, dtype=torch.int32, device=x.device)
@@ -502,7 +604,7 @@ def decode_step(
             if cache == "attn":
                 x = _decode_attn_block(
                     p, x, cfg, plan, caches["attn"]["k"][j], caches["attn"]["v"][j],
-                    slot_pos, pos, cfg.sliding_window, row_start,
+                    slot_pos, pos, cfg.sliding_window, shard, row_start,
                 )
             else:
                 y, state, conv = ssm_decode_step(
@@ -510,15 +612,15 @@ def decode_step(
                     caches["ssm"]["state"][j], caches["ssm"]["conv"][j],
                 )
                 x = x + y
-                caches["ssm"]["state"][j] = state
-                caches["ssm"]["conv"][j] = conv
+                assign(caches["ssm"]["state"][j], state)
+                assign(caches["ssm"]["conv"][j], conv)
             used[cache] += 1
             layers_done += 1
             if every and layers_done % every == 0:
                 s = used["shared"]
                 x = _decode_attn_block(
                     params["shared_attn"], x, cfg, splan, caches["shared_attn"]["k"][s],
-                    caches["shared_attn"]["v"][s], slot_pos, pos, None, row_start,
+                    caches["shared_attn"]["v"][s], slot_pos, pos, None, shard, row_start,
                 )
                 used["shared"] += 1
     caches["pos"] = pos + 1

@@ -20,6 +20,12 @@ elements at a time along its leading axis, so that a full-width model's
 update needs no second copy of the state (zamba2-2.7b: 2.34 B parameters,
 ~47 GB of params, gradients and state).  The arithmetic is the reference's,
 operation for operation, in f32.
+
+On a mesh the leaves are DTensors: masters and moments are laid out like
+their params (``zeros_like``), so each rank updates its own shards in place
+(their local tensors), and ``global_norm`` adds each leaf's shards across
+the ranks that split it (not the copies of the ranks that replicate it):
+the global norm, the same on every rank.
 """
 
 from __future__ import annotations
@@ -86,8 +92,8 @@ def init_opt_state(params: Any) -> OptState:
     return OptState(
         step=torch.zeros((), dtype=torch.int32),
         master=tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
-        m=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
-        v=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
+        m=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+        v=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
     )
 
 
@@ -102,15 +108,30 @@ def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
         yield t[i : i + rows]
 
 
-def global_norm(grads: Any) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in f32 (a 0-d tensor on
-    the gradients' device)."""
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (its storage or a view of it: writes to it
+    are the DTensor's), or ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """The sum of the squares of a whole gradient leaf (f32, 0-d, plain)."""
     total = None
-    for g in tree_leaves(grads):
-        for piece in _slices(g):
-            sq = torch.sum(piece.float() ** 2)
-            total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    for piece in _slices(_local(g)):
+        sq = torch.sum(piece.float() ** 2)
+        total = sq if total is None else total + sq
+    if hasattr(g, "device_mesh"):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        places = [Partial() if p.is_shard() else Replicate() for p in g.placements]
+        total = DTensor.from_local(total, g.device_mesh, places, run_check=False).full_tensor()
+    return total
+
+
+def global_norm(grads: Any) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in f32 (a 0-d plain tensor
+    on the gradients' device)."""
+    return torch.sqrt(sum(_square_sum(g) for g in tree_leaves(grads)))
 
 
 @torch.no_grad()
@@ -149,7 +170,7 @@ def apply_updates(
 
     for leaves in zip(*(tree_leaves(t) for t in (params, grads, state.m, state.v,
                                                   state.master))):
-        upd(*leaves)
+        upd(*map(_local, leaves))
     new_state = OptState(step=torch.tensor(step, dtype=torch.int32), master=state.master,
                          m=state.m, v=state.v)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

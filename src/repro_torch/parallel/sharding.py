@@ -24,16 +24,26 @@ tensor dim (None, one axis name, or a tuple of them), trailing Nones
 trimmed, as ``resolve`` builds it; ``NamedSharding`` pairs one with its mesh.
 
 The model half (``logical_sharding``, ``constrain``, ``adapt_rules_for``)
-resolves the LM stack's logical axes as the reference does.  Placing model
-tensors across ranks (FSDP over 'data', TP over 'model') is ROADMAP item
-12d: on a mesh of one rank ``constrain`` is the identity, which is exact
-(the reference replicates there too), and on a larger mesh it raises.
+resolves the LM stack's logical axes as the reference does, and places
+tensors on a mesh of several ranks as DTensors (``torch.distributed.tensor``,
+the counterpart of GSPMD's sharded arrays): ``placements`` turns a spec into
+one DTensor placement per mesh axis, and ``place`` (``constrain``) lays a
+tensor out by it — a DTensor by ``redistribute`` (FSDP's gather at use is a
+redistribute that drops 'data', its backward the reduce-scatter; a
+replicated weight's gradient, partial over the data ranks, is all-reduced
+the same way), a plain tensor that every rank holds whole by cutting out the
+rank's shard.  On a mesh of one rank nothing becomes a DTensor and
+``constrain`` is the identity (the reference replicates there too).
+``write_slot`` and ``assign`` are the in-place cache writes of decoding,
+done on each rank's own shard.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -139,18 +149,116 @@ def logical_sharding(mesh, rules: MeshRules, logical: Sequence[Axis]) -> NamedSh
     return NamedSharding(mesh, rules.resolve(logical, mesh))
 
 
+def placements(spec: PartitionSpec, mesh) -> list:
+    """The DTensor placement of each axis of ``mesh`` (mesh order) for
+    ``spec``: ``Shard(d)`` where the axis appears at tensor dim d, else
+    ``Replicate()``.  A multi-axis entry such as ('pod', 'data') shards its
+    dim on each of its axes; DTensor splits the dim over them in mesh order,
+    the row-major order of the reference's entry, so the entry's axes must
+    come in mesh order.  An axis of size 1 splits nothing: ``Replicate()``
+    (the same layout, and one DTensor reshapes freely)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    order = list(mesh.axis_names)
+    where: Dict[str, int] = {}
+    for d in range(len(spec)):
+        axes = spec_axes(spec, d)
+        if [order.index(a) for a in axes] != sorted(order.index(a) for a in axes):
+            raise ValueError(f"spec entry {axes} is not in the mesh's axis order {order}")
+        where.update({a: d for a in axes})
+    return [Shard(where[a]) if a in where and mesh.shape[a] > 1 else Replicate()
+            for a in order]
+
+
+def place(t: torch.Tensor, mesh, spec: PartitionSpec):
+    """``t`` as a DTensor on ``mesh`` laid out by ``spec``.  A DTensor is
+    redistributed (the collectives its placements need); a plain tensor,
+    which every rank holds whole and alike, is cut to this rank's shard with
+    no collective, the shard copied so that ``t`` can be freed.  Both are
+    differentiable."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    want = placements(spec, mesh)
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, want)
+    dm = mesh.device_mesh_for(t.device.type)
+    out = DTensor.from_local(t, dm, [Replicate()] * dm.ndim, run_check=False)
+    out = out.redistribute(dm, want)
+    if any(p.is_shard() for p in want):
+        out = DTensor.from_local(out.to_local().clone(), dm, want, run_check=False,
+                                 shape=out.shape, stride=out.stride())
+    return out
+
+
 def constrain(x, mesh, rules: MeshRules, logical: Sequence[Axis]):
-    """Place ``x`` by its logical axes: the identity on a mesh of one rank;
-    a larger mesh raises (ROADMAP item 12d, model parallelism)."""
+    """Place ``x`` by its logical axes (``place``): the identity on a mesh of
+    one rank."""
     from ..launch.mesh import mesh_chips
 
-    sharding = logical_sharding(mesh, rules, logical)
-    if mesh_chips(mesh) > 1:
-        raise NotImplementedError(
-            f"placing model tensors over a mesh of {mesh_chips(mesh)} ranks ({sharding.spec}) "
-            "is not ported (ROADMAP item 12d)"
-        )
-    return x
+    if mesh_chips(mesh) == 1:
+        return x
+    return place(x, mesh, logical_sharding(mesh, rules, logical).spec)
+
+
+def local_range(shape: Sequence[int], device_mesh, places, dim: int) -> Tuple[int, int]:
+    """[lo, hi) of tensor dim ``dim`` that this rank holds under ``places``
+    (DTensor's split: each mesh axis that shards the dim, in mesh order,
+    cuts the part left into ``ceil(n / size)``-long chunks)."""
+    lo, n = 0, shape[dim]
+    for i, p in enumerate(places):
+        if p.is_shard(dim):
+            size, coord = device_mesh.size(i), device_mesh.get_local_rank(i)
+            chunk = -(-n // size)
+            start = min(coord * chunk, n)
+            lo, n = lo + start, min(chunk, n - start)
+    return lo, lo + n
+
+
+def whole_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with dim ``dim`` whole on every rank: a DTensor's mesh axes that
+    split it gathered (the rest of its layout kept); a plain tensor as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.ndim
+    return t.redistribute(t.device_mesh,
+                          [Replicate() if p.is_shard(dim) else p for p in t.placements])
+
+
+def write_slot(t: torch.Tensor, dim: int, index: int, value) -> None:
+    """``t.select(dim, index)[...] = value`` in place.  On a DTensor the ranks
+    whose shard holds the slot write it into their local tensor; a DTensor
+    ``value`` (laid out like the slot) is first replicated on the mesh axes
+    that split ``dim``, a plain one is the whole slot."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        t.select(dim, index).copy_(value)
+        return
+    if isinstance(value, DTensor):
+        slot_places = [Replicate() if p.is_shard(dim) else
+                       (type(p)(p.dim - 1) if p.is_shard() and p.dim > dim else p)
+                       for p in t.placements]
+        value = value.redistribute(t.device_mesh, slot_places).to_local()
+    lo, hi = local_range(t.shape, t.device_mesh, t.placements, dim)
+    if lo <= index < hi:
+        with torch.no_grad():
+            t.to_local().select(dim, index - lo).copy_(value)
+
+
+def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[...] = src`` in place; on DTensors ``src`` is first laid out as
+    ``dst``, and each rank copies its own shard."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(dst, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+        with torch.no_grad():
+            dst.to_local().copy_(src)
+        return
+    dst.copy_(src)
 
 
 def adapt_rules_for(cfg, mesh, rules: MeshRules) -> MeshRules:

@@ -16,9 +16,14 @@
   * ``async_save`` copies the leaves to the host before it returns, then
     writes on a background thread.
 
-``restore`` loads into the structure of ``like`` and puts each leaf on the
-device of ``like``'s leaf (the stored arrays are whole, so any device
-works).
+On a mesh the leaves are DTensors: ``save`` gathers each whole
+(``full_tensor``, a collective every rank makes), so the layout on disk is
+the same on any mesh; rank 0 alone writes, and the others wait for it at a
+barrier.  ``restore`` loads into the structure of ``like`` and puts each
+leaf on the device of ``like``'s leaf, then, where ``shardings`` gives a
+leaf a ``NamedSharding`` on a mesh of several ranks, cuts it to this rank's
+shard (the stored arrays are whole, so any mesh works: elastic restore,
+within one head plan — the padded shapes must match).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten(tree: Any) -> List[Any]:
@@ -72,8 +78,28 @@ def _describe(tree: Any) -> str:
     return "*"
 
 
+def _flatten_up_to(like: Any, tree: Any) -> List[Any]:
+    """``tree``'s entries at the places of ``like``'s leaves (``tree`` has
+    ``like``'s structure down to them; its entries may be None)."""
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _flatten_up_to(like[k], tree[k])]
+    if isinstance(like, (tuple, list)):
+        return [x for a, b in zip(like, tree) for x in _flatten_up_to(a, b)]
+    return [tree]
+
+
+def _spmd(leaves: List[Any]) -> bool:
+    """Are the leaves DTensors (a mesh of several ranks)?"""
+    return any(hasattr(leaf, "full_tensor") for leaf in leaves)
+
+
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
-    """(storable numpy array, dtype name): bf16 as its uint16 bits."""
+    """(storable numpy array, dtype name): bf16 as its uint16 bits.  A
+    DTensor is gathered whole first (a collective)."""
+    if hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)     # a copy even on the CPU: the caller may write
         if t.dtype == torch.bfloat16:
@@ -119,8 +145,17 @@ class CheckpointManager:
     # -------------------------------------------------------------- save
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> Path:
+        """Write ``tree`` as checkpoint ``step``.  With DTensor leaves every
+        rank must call it: each gathers the leaves, rank 0 writes, and all
+        meet at a barrier before returning."""
         self.wait()  # serialize with any in-flight async save
-        return self._write(step, self._snapshot(tree), extra)
+        snapshot = self._snapshot(tree)
+        spmd = _spmd(_flatten(tree))
+        if not spmd or dist.get_rank() == 0:
+            self._write(step, snapshot, extra)
+        if spmd:
+            dist.barrier()
+        return self._step_dir(step)
 
     def _snapshot(self, tree: Any) -> Tuple[List[Tuple[np.ndarray, str]], str]:
         return [_to_host(leaf) for leaf in _flatten(tree)], _describe(tree)
@@ -149,9 +184,14 @@ class CheckpointManager:
         return final
 
     def async_save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
-        # snapshot to host BEFORE returning: the caller may update the tensors in place
+        """``save`` on a background thread, after the leaves are copied to the
+        host (the caller may update the tensors in place): with DTensor
+        leaves every rank gathers them and rank 0 alone writes (no barrier:
+        a reader waits for the manifest)."""
         snapshot = self._snapshot(tree)
         self.wait()
+        if _spmd(_flatten(tree)) and dist.get_rank() != 0:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, snapshot, extra), daemon=True
         )
@@ -169,10 +209,15 @@ class CheckpointManager:
 
     # ------------------------------------------------------------ restore
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Tuple[int, Any, Dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> Tuple[int, Any, Dict]:
         """Load checkpoint ``step`` (None: the latest) into the structure of
         ``like``; each leaf goes to the device of ``like``'s leaf (a
-        non-tensor leaf of ``like`` gets a CPU tensor)."""
+        non-tensor leaf of ``like`` gets a CPU tensor), and where
+        ``shardings`` (``like``'s structure, entries ``NamedSharding`` or
+        None) places it on a mesh of several ranks, to this rank's shard."""
+        from ..launch.mesh import mesh_chips
+        from ..parallel.sharding import place
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -180,6 +225,8 @@ class CheckpointManager:
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
         like_leaves = _flatten(like)
+        places = _flatten_up_to(like, shardings) if shardings is not None else [None] * len(
+            like_leaves)
         if manifest["n_leaves"] != len(like_leaves):
             raise ValueError(
                 f"checkpoint has {manifest['n_leaves']} leaves, expected {len(like_leaves)}"
@@ -195,5 +242,8 @@ class CheckpointManager:
                     )
                 if isinstance(want, torch.Tensor):
                     stored = stored.to(want.device)
+                sh = places[i]
+                if sh is not None and mesh_chips(sh.mesh) > 1:
+                    stored = place(stored, sh.mesh, sh.spec)
                 leaves.append(stored)
         return step, _unflatten(like, iter(leaves)), manifest.get("extra", {})

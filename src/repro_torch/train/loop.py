@@ -2,21 +2,25 @@
 
   * resume-from-checkpoint: the loop is a function of (checkpoint, step);
     batches come from the seekable pipeline (``batch_at(step)``), so a
-    killed job restarted from its checkpoint reproduces the same parameter
-    trajectory;
+    killed job restarted on the same or a DIFFERENT mesh reproduces the same
+    parameter trajectory (elastic re-meshing: ``CheckpointManager.restore``
+    places the whole stored arrays by the new mesh's shardings);
   * crash injection: ``fail_at_step`` raises mid-run for the restart tests;
   * metrics stream to JSONL for offline inspection.
 
-The trainer runs on one rank, on the card unless ``device="cpu"``: given a
-``ParseMesh`` of more than one rank it raises ``NotImplementedError``
-(multi-rank training is ROADMAP item 12d), so it never trains one rank's
-share of a batch silently.  Its params, gradients and optimizer state live
-on that one device; ``checkpoint_every=0`` writes no checkpoint at all, for
-a state too large to go to disk (zamba2-2.7b at full width: ~47 GB).
+The trainer runs on any ``ParseMesh``, its tensors on the card unless
+``device="cpu"``.  On a mesh of several ranks every rank runs it alike:
+params are made whole from the seed and cut to the rank's shards by
+``param_shardings``, the optimizer state is laid out like the params, and
+every rank builds the same global batch from ``batch_at(step)`` and keeps
+its own rows (no scatter); rank 0 alone writes checkpoints and the metrics
+file.  ``checkpoint_every=0`` writes no checkpoint at all, for a state too
+large to go to disk (zamba2-2.7b at full width: ~47 GB).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -30,10 +34,10 @@ from ..core.engine import resolve_device
 from ..models.config import ModelConfig, ShapeSpec
 from ..models.layers import torch_dtype
 from ..models.model import init_params
-from ..optim.adamw import AdamWConfig, init_opt_state
-from ..parallel.sharding import MeshRules, adapt_rules_for
+from ..optim.adamw import AdamWConfig, OptState, init_opt_state
+from ..parallel.sharding import MeshRules, NamedSharding, adapt_rules_for
 from .checkpoint import CheckpointManager
-from .step import make_train_step, plan_for, require_one_rank
+from .step import make_train_step, param_shardings, place_tree, plan_for, shape_aware_spec
 
 
 @dataclasses.dataclass
@@ -58,7 +62,6 @@ class Trainer:
         pipeline=None,
         device=None,
     ):
-        require_one_rank(mesh, "Trainer")
         self.cfg = cfg
         self.shape = shape
         self.mesh = mesh
@@ -79,37 +82,51 @@ class Trainer:
                 seed=self.tcfg.seed,
             )
         self.pipeline = pipeline
+        self._shardings = param_shardings(cfg, mesh, self.rules, self.plan.tp)
         self._step = make_train_step(self.plan, mesh, self.rules)
 
     # ------------------------------------------------------------- state
 
     def init_state(self):
-        params = init_params(self.cfg, seed=self.tcfg.seed, device=self.device)
+        params = init_params(self.cfg, seed=self.tcfg.seed, device=self.device,
+                             tp=self.plan.tp)
+        params = place_tree(params, self._shardings)
         return params, init_opt_state(params)
 
     def restore_or_init(self):
         latest = self.ckpt.latest_step()
         if latest is None:
             return 0, *self.init_state()
-        step, (params, opt_state), _ = self.ckpt.restore(self.init_state())
+        sh = self._shardings
+        step, (params, opt_state), _ = self.ckpt.restore(
+            self.init_state(), shardings=(sh, OptState(step=None, master=sh, m=sh, v=sh)))
         return step, params, opt_state
+
+    def _place(self, t: torch.Tensor, logical) -> torch.Tensor:
+        """A whole batch tensor (the same on every rank) cut to this rank's
+        rows by ``logical``."""
+        spec = shape_aware_spec(tuple(t.shape), logical, self.mesh, self.rules)
+        return place_tree(t, NamedSharding(self.mesh, spec))
 
     # -------------------------------------------------------------- data
 
     def device_batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The step's batch as (accum, microbatch, seq) int64 tokens on the
         device; a frontend config gets the reference's zero ``extra``
-        features (accum, microbatch, n_extra, feat) in ``cfg.dtype``."""
+        features (accum, microbatch, n_extra, feat) in ``cfg.dtype``.  On a
+        mesh both are DTensors, the microbatch dim over ('pod', 'data')."""
         raw = self.pipeline.batch_at(step)
         accum, micro = self.plan.accum_steps, self.plan.microbatch
         toks = raw["tokens"].reshape(accum, micro, self.plan.seq_len)
-        batch = {"tokens": torch.from_numpy(toks.astype(np.int64)).to(self.device)}
+        tokens = torch.from_numpy(toks.astype(np.int64)).to(self.device)
+        batch = {"tokens": self._place(tokens, (None, "batch", None))}
         if self.cfg.frontend is not None:
             fe = self.cfg.frontend
-            batch["extra"] = torch.zeros(
+            extra = torch.zeros(
                 (accum, micro, fe.n_extra_tokens, fe.feature_dim),
                 dtype=torch_dtype(self.cfg.dtype), device=self.device,
             )
+            batch["extra"] = self._place(extra, (None, "batch", None, None))
         return batch
 
     # -------------------------------------------------------------- run
@@ -118,7 +135,8 @@ class Trainer:
         start, params, opt_state = self.restore_or_init()
         history = []
         every = self.tcfg.checkpoint_every
-        with self.metrics_path.open("a") as mf:
+        writer = self.mesh.rank == 0
+        with self.metrics_path.open("a") if writer else contextlib.nullcontext() as mf:
             for step in range(start, self.tcfg.total_steps):
                 if self.tcfg.fail_at_step is not None and step == self.tcfg.fail_at_step:
                     raise RuntimeError(f"injected failure at step {step}")
@@ -136,7 +154,7 @@ class Trainer:
                     "dt": time.time() - t0,
                 }
                 history.append(rec)
-                if (step + 1) % self.tcfg.log_every == 0 or step == start:
+                if writer and ((step + 1) % self.tcfg.log_every == 0 or step == start):
                     mf.write(json.dumps(rec) + "\n")
                     mf.flush()
         self.ckpt.wait()

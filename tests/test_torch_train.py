@@ -21,15 +21,9 @@
   and atol 2e-5 (each microbatch's gradients are rounded to bf16; one that
   rounds the other way in the two packages moves its Adam step by up to
   lr·2^-8 = 4e-6 a step at lr 1e-3).
-* A ``Trainer`` on a 2-rank gloo mesh raises ``NotImplementedError``
-  naming ROADMAP item 12d.
 """
 
 import dataclasses
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -55,7 +49,6 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.sharding import MeshRules  # noqa: E402
 from repro_torch.train import step  # noqa: E402
 
-SRC = Path(__file__).resolve().parents[1] / "src"
 TRAIN_ARCHS = ["zamba2-2.7b", "tinyllama-1.1b", "mamba2-2.7b", "mixtral-8x22b",
                "llama4-scout-17b-a16e", "internvl2-1b", "musicgen-medium"]
 F32 = dict(dtype="float32", param_dtype="float32", attn_p_dtype="float32")
@@ -316,44 +309,3 @@ def test_serve_steps_run_without_grad():
     for t in range(6):
         last, caches = dec(params, caches, toks[:, t : t + 1])
     assert logits.grad_fn is None and float((last - logits).abs().max()) < 2e-3
-
-
-# ------------------------------------------------------ more than one rank
-
-RANK_CODE = r"""
-import sys, tempfile, torch, torch.distributed as dist
-rank, store = int(sys.argv[1]), sys.argv[2]
-dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
-from repro_torch.configs import get_smoke
-from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.config import ShapeSpec
-from repro_torch.train.loop import Trainer
-mesh = make_host_mesh((2,), ("data",))
-assert mesh.size == 2
-try:
-    Trainer(get_smoke("tinyllama-1.1b"), ShapeSpec("t", 16, 2, "train"), mesh,
-            tempfile.mkdtemp(), device="cpu")
-except NotImplementedError as e:
-    print("RAISED", e)
-dist.destroy_process_group()
-"""
-
-
-def test_trainer_on_two_gloo_ranks_raises(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    store = tmp_path / "store"
-    procs = [subprocess.Popen([sys.executable, "-c", RANK_CODE, str(r), str(store)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(2)]
-    outs = []
-    try:
-        for proc in procs:
-            outs.append(proc.communicate(timeout=120))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    for proc, (out, err) in zip(procs, outs):
-        assert proc.returncode == 0, err[-3000:]
-        assert "RAISED" in out and "ROADMAP item 12d" in out, out

@@ -187,6 +187,20 @@ prefill); then training, MoE and the frontends:
                   (checked: one microbatch's count times the microbatches, the
                   same on every rank) and the staged collectives' calls and
                   bytes a step; a rank that fails or hangs fails it
+  dryrun          the launch tools (``repro_torch/launch/``):
+                  ``ParserEngine.phase_static_cost`` at TRAFFIC's and e125's
+                  buckets on ``cuda`` and on ``packed`` / ``sparse`` with
+                  ``kernel=True``, whose modeled launches by kernel must equal
+                  the launches of the same engine's real parse of the text
+                  (counted) and each kernel's modeled bound the sum of its
+                  launcher's ``cost`` over those real launches;
+                  ``stats()["hlo"]`` of a traced parser; the ``train`` phase's
+                  zamba2-2.7b step traced on meta tensors against one real step
+                  (modeled K6 / K7 launches equal to the real counts, traced
+                  dot flops within DRYRUN_FLOP_TOL of ``FlopCounterMode``'s,
+                  ``peak_bytes`` beside ``max_memory_allocated``); one
+                  production cell (DRYRUN_CELL: zamba2-2.7b x prefill_32k on
+                  the fake (16, 16) mesh) and its modeled record
 
 then the kernel table (K6 and K7 records also carry their launches in the
 ``train`` run, ``train_launches``, and on each rank of the ``train_mesh``
@@ -208,6 +222,7 @@ model run in full f32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -236,15 +251,6 @@ STREAM_SEAL = 65536
 TIMING_BATCHES = 5
 BATCH_MS = 20.0
 SLOW_CALL_MS = 1000.0
-
-# H100 SXM peaks (NVIDIA data sheet, dense): {0,1} products are exact on the
-# int8 tensor cores, the cheapest exact type, so the parser's bounds use their
-# rate; the LM kernels' bounds use the rate of their operands' type (bf16
-# tensor cores, or f32 outside the tensor cores: TF32 would not be exact)
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
 
 LM_ARCH = "zamba2-2.7b"
 LM_BATCH, LM_LEN = 2, 2048          # a multiple of the SSD chunk (256)
@@ -370,10 +376,11 @@ def time_ms(fn) -> float:
     return statistics.median(batch(n) for _ in range(TIMING_BATCHES))
 
 
-def bound_ms(ops: float, n_bytes: float, ops_per_s: float = INT8_OPS_PER_S):
-    t_ops = ops / ops_per_s * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound_ms(cost):
+    """A launch's bound in ms and what sets it ("operations" or "bytes"),
+    from its launcher's ``cost`` (``repro_torch.kernels.cost.Cost``): the
+    one formula the dry-run's modeled launches use too."""
+    return cost.seconds * 1e3, cost.bound_by
 
 
 def _device_us(ev) -> float:
@@ -553,12 +560,12 @@ def kernel_cases(parser, text: bytes):
     path (and the packed and sparse paths on the same text) gives it;
     returns one record per kernel (launch counts filled later).
 
-    Operations in ``bound_ms`` count what this text needs: its real (non-PAD)
-    steps and its ℓ states; the padded states are unreachable and PAD steps
-    are identities.  K5 folds only the feasible rows, w̄ of them per chunk on
-    average (the text's mean observed feasible width, which the sparse
-    run's ``speculation["width_mean"]`` reports).  Bytes count the tensors as
-    given, each read or written once."""
+    Each bound is its launcher's ``cost`` (``bound_ms``) at what this text
+    needs: its real (non-PAD) steps and its ℓ states (the padded states are
+    unreachable and PAD steps are identities); K5 folds only the feasible
+    rows, w̄ of them per chunk on average (the text's mean observed feasible
+    width, which the sparse run's ``speculation["width_mean"]`` reports).
+    Bytes count the tensors as given, each read or written once."""
     import torch
 
     from repro_torch.core.backend import SparseBackend, TorchBackend
@@ -567,7 +574,7 @@ def kernel_cases(parser, text: bytes):
         pack_transition_table_torch,
         sparse_init_rows,
     )
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops, packed_reach, reach, semiring, sparse_reach
 
     eng = parser.engine
     t = eng.tables
@@ -577,7 +584,6 @@ def kernel_cases(parser, text: bytes):
     ids = eng.chunks_tensor(grid)
     lp, ell, steps = t.ell_pad, t.ell, len(classes)
     A1 = t.N.shape[0]
-    W = lp // 32
     P = ops.reach_chunk_product.plain(t.N, ids)
     Jf, Jb = TorchBackend().join(P, t.I, t.F)
     a, b = P[1:].contiguous(), P[:-1].contiguous()   # the join's first level
@@ -590,37 +596,36 @@ def kernel_cases(parser, text: bytes):
     widths = feasible_start_widths(t.N.cpu().numpy(), grid)
     w_mean = float(widths[widths >= 0].mean())
 
+    real = {"steps": steps, "ell": ell}
     cases = [
         ("reach_chunk_product", "src/repro_torch/csrc/reach.cu",
          "src/repro/kernels/reach.py:49", ops.reach_chunk_product, (t.N, ids), None,
-         2.0 * steps * ell ** 3, 4.0 * (c * k + A1 * lp * lp + c * lp * lp)),
+         reach.cost(t.N, ids, **real)),
         ("build_merge_packed", "src/repro_torch/csrc/build_merge.cu",
          "src/repro/kernels/build.py:60", ops.build_merge_packed, (t.N, ids, Jf, Jb), None,
-         4.0 * steps * ell * ell, 4.0 * (c * k + A1 * lp * lp + 2 * c * lp + c * k * lp // 32)),
+         build.cost(t.N, ids, Jf, Jb, **real)),
         ("semiring_matmul", "src/repro_torch/csrc/semiring.cu",
          "src/repro/kernels/semiring.py:40", ops.semiring_matmul, (a, b),
-         lambda: torch.clamp(torch.bmm(a, b), max=1.0),
-         2.0 * (c - 1) * ell ** 3, 4.0 * 3 * (c - 1) * lp * lp),
+         lambda: torch.clamp(torch.bmm(a, b), max=1.0), semiring.cost(a, b, ell=ell)),
         ("packed_reach_chunk_product", "src/repro_torch/csrc/packed_reach.cu",
          "src/repro/kernels/packed_reach.py:74", ops.packed_reach_chunk_product, (Np, ids), None,
-         2.0 * steps * ell ** 3, 4.0 * (c * k + A1 * lp * W + c * lp * W)),
+         packed_reach.cost(Np, ids, **real)),
         ("sparse_reach_rows", "src/repro_torch/csrc/packed_reach.cu",
          "src/repro/kernels/sparse_reach.py:71", ops.sparse_reach_rows, (Np, ids, R0), None,
-         2.0 * steps * w_mean * ell ** 2, 4.0 * (c * k + A1 * lp * W + 2 * c * S * W)),
+         sparse_reach.cost(Np, ids, R0, rows=w_mean, **real)),
     ]
     # K3 at the join's mat-vec shapes too: the forward act (n = 1) and the
     # backward act (m = 1), on the join's own entries; reported, not listed
     v = Jf[:-1].contiguous()
     mv, vm = (a, v.unsqueeze(-1)), (v.unsqueeze(-2), b)
-    mv_ops, mv_bytes = 2.0 * (c - 1) * ell ** 2, 4.0 * (c - 1) * (lp * lp + 2 * lp)
     cases += [
         ("semiring_matmul", "src/repro_torch/csrc/semiring.cu", "src/repro/kernels/semiring.py:40",
          ops.semiring_matmul, args, lambda args=args: torch.clamp(torch.bmm(*args), max=1.0),
-         mv_ops, mv_bytes, case)
+         semiring.cost(*args, ell=ell), case)
         for case, args in (("matvec", mv), ("vecmat", vm))
     ]
     records = []
-    for name, source, replaces, kern, args, library, n_ops, n_bytes, *case in cases:
+    for name, source, replaces, kern, args, library, cost, *case in cases:
         got = kern(*args)
         torch.cuda.synchronize()
         want = kern.plain(*args)
@@ -629,7 +634,7 @@ def kernel_cases(parser, text: bytes):
         if not equal:
             raise AssertionError(f"{name} {case}: kernel != plain version, max |err| {err}")
         del got, want
-        b_ms, b_by = bound_ms(n_ops, n_bytes)
+        b_ms, b_by = bound_ms(cost)
         rec = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err,
@@ -766,7 +771,7 @@ def lm_kernel_cases(cfg, dev, seed: int):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention, ops
     from repro_torch.models.mamba import ssm_dims
 
     gen = torch.Generator(device=dev)
@@ -783,8 +788,6 @@ def lm_kernel_cases(cfg, dev, seed: int):
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
-        e = torch.finfo(dtype).bits // 8
-        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         recs = []
 
         qkv = [randn(b, L, h, hd).to(dtype) for _ in range(3)]
@@ -799,7 +802,7 @@ def lm_kernel_cases(cfg, dev, seed: int):
                                  f"row-relative {rel} (limit {rel_tol})")
         del got, want
         qt, kt, vt = (t.transpose(1, 2) for t in qkv)            # SDPA's (b, h, L, hd)
-        b_ms, b_by = bound_ms(2.0 * L * (L + 1) * hd * b * h, 4.0 * b * L * h * hd * e, rate)
+        b_ms, b_by = bound_ms(flash_attention.cost(*qkv, causal=True, window=None))
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
         recs.append({
             "name": "flash_attention", "route": "cuda",
@@ -825,7 +828,7 @@ def lm_kernel_cases(cfg, dev, seed: int):
         S_prev = randn(P, hp, n, scale=0.3)
         args = (xdt, cs, B, C, S_prev)
         emit("kernel", **recs[0])
-        recs += ssd_records(args, e, rate, tag)
+        recs += ssd_records(args, tag)
         del args, xdt, cs, B, C, S_prev
         torch.cuda.empty_cache()
         out[tag] = recs
@@ -838,7 +841,7 @@ def softcap_record(qkv, tag, tol, rel_tol) -> dict:
     path of zamba2 launches it and no PyTorch call computes it."""
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention, ops
 
     kw = dict(causal=True, window=None, softcap=SOFTCAP)
     got = ops.flash_attention(*qkv, **kw)
@@ -852,9 +855,7 @@ def softcap_record(qkv, tag, tol, rel_tol) -> dict:
         raise AssertionError(f"flash_attention softcap {tag}: max |err| {err} (limit {tol}), "
                              f"row-relative {rel} (limit {rel_tol}), cap moves {moved}")
     b, L, h, hd = qkv[0].shape
-    e = qkv[0].element_size()
-    rate = BF16_FLOPS if qkv[0].dtype == torch.bfloat16 else F32_FLOPS
-    b_ms, b_by = bound_ms(2.0 * L * (L + 1) * hd * b * h, 4.0 * b * L * h * hd * e, rate)
+    b_ms, b_by = bound_ms(flash_attention.cost(*qkv, **kw))
     return {"name": "flash_attention", "case": "softcap", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:96",
@@ -867,22 +868,7 @@ def softcap_record(qkv, tag, tol, rel_tol) -> dict:
                        "tolerance_atol": tol, "tolerance_row_rel": rel_tol}}
 
 
-def ssd_bound(P, q, hp, n, e, rate, outputs):
-    """K7's bound for ``outputs``: y reads xdt, cs, B, C, S_prev and writes y
-    with q(q+1)(n + hp) + 2qn·hp operations per program (C·Bᵀ and (L∘CB)·xdt
-    over the triangle, C·S_prevᵀ); S_c reads xdt, cs, B and writes S_c with
-    2qn·hp; both, the union."""
-    ops_y = q * (q + 1) * (n + hp) + 2.0 * q * n * hp
-    ops_s = 2.0 * q * n * hp
-    common = q * hp * e + 4 * q + q * n * e                     # xdt, cs, B
-    bytes_y = q * n * e + 4 * hp * n + 4 * q * hp                # C, S_prev, y
-    bytes_s = 4 * n * hp                                         # S_c
-    n_ops = P * ({"y": ops_y, "state": ops_s}.get(outputs, ops_y + ops_s))
-    n_bytes = P * (common + {"y": bytes_y, "state": bytes_s}.get(outputs, bytes_y + bytes_s))
-    return bound_ms(n_ops, n_bytes, rate)
-
-
-def ssd_records(args, e, rate, tag):
+def ssd_records(args, tag):
     """K7 against its plain version in each ``outputs`` mode (rtol = atol =
     2e-4), each timed with its own bound and emitted as a ``kernel`` line
     with the kernel its plan chose; returns the records of the modes the
@@ -911,7 +897,7 @@ def ssd_records(args, e, rate, tag):
             raise AssertionError(f"ssd_chunk {tag} {outputs}: not within rtol = atol = 2e-4 "
                                  f"(max |err| {err})")
         del got, want, pairs
-        b_ms, b_by = ssd_bound(P, q, hp, n, e, rate, outputs)
+        b_ms, b_by = bound_ms(ssd_launcher.cost(*args, outputs=outputs))
         rec = {
             "name": "ssd_chunk", "case": outputs, "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_chunk.cu",
@@ -1656,6 +1642,180 @@ def _map_leaves(tree, fn):
     return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+DRYRUN_CELL = ("zamba2-2.7b", "prefill_32k", "pod")
+DRYRUN_FLOP_TOL = 1e-3               # traced dot flops against FlopCounterMode's
+
+
+@contextlib.contextmanager
+def launch_bounds():
+    """Each real kernel launch's bound in seconds, summed by kernel, from its
+    launcher's ``cost`` on the launch's own tensors (the formula the dry-run's
+    modeled launches use); the launch counts are the wrappers' own."""
+    from repro_torch.kernels import ops
+
+    sums: dict = {}
+    run = ops.KernelWrapper.run
+
+    def bounded(self, *tensors, **static):
+        if all(t is None or t.is_cuda for t in tensors):
+            sums[self.name] = sums.get(self.name, 0.0) + \
+                self._launcher.cost(*tensors, **static).seconds
+        return run(self, *tensors, **static)
+
+    ops.KernelWrapper.run = bounded
+    try:
+        yield sums
+    finally:
+        ops.KernelWrapper.run = run
+
+
+def dryrun_parser(args, dev) -> None:
+    """``ParserEngine.phase_static_cost`` at TRAFFIC's and e125's buckets on
+    ``cuda`` and on ``packed`` / ``sparse`` with ``kernel=True``: the modeled
+    launches by kernel equal the launches of the same engine's real parse of
+    that text (counts set to 0 just before it), and each kernel's modeled
+    bound equals the sum of its launcher's ``cost`` over the real launches;
+    then ``stats()["hlo"]`` of a traced ``cuda`` parser."""
+    from repro_torch import ObsConfig, Parser, ParserConfig
+
+    traffic = traffic_log(TRAFFIC_BYTES, args.seed)
+    e125 = e125_text(E125_BYTES, args.seed + 1)
+    for label, regex, text in (("traffic", TRAFFIC_RE, traffic), ("e125", E125_RE, e125)):
+        for backend, kernel in (("cuda", False), ("packed", True), ("sparse", True)):
+            p = Parser(ParserConfig(regex=regex, backend=backend, kernel=kernel,
+                                    n_chunks=N_CHUNKS), device=dev)
+            eng = p.engine
+            c, k = eng.bucket_shape(len(eng.classes_of_text(text)), N_CHUNKS)
+            t0 = time.perf_counter()
+            traces = eng.phase_traces(c, k)
+            trace_s = time.perf_counter() - t0
+            cost = eng.phase_static_cost(c, k)
+            modeled, modeled_s = {}, {}
+            for st in traces.values():
+                for name, n in st.kernel_launches.items():
+                    modeled[name] = modeled.get(name, 0) + n
+                for name, sec in st.kernel_bound_s.items():
+                    modeled_s[name] = modeled_s.get(name, 0.0) + sec
+            with launch_bounds() as real_s:
+                _, _, counts = counted(lambda: p.parse(text))
+            real = {name: n for name, n in counts.items() if n}
+            if modeled != real:
+                raise AssertionError(f"dryrun {label} {backend}: modeled launches {modeled}, "
+                                     f"real {real}")
+            if set(modeled_s) != set(real_s) or any(
+                    abs(modeled_s[n] - real_s[n]) > 1e-9 * real_s[n] for n in real_s):
+                raise AssertionError(f"dryrun {label} {backend}: modeled bounds {modeled_s}, "
+                                     f"real launches' {real_s}")
+            emit("dryrun_parser", text=label, backend=backend, kernel=kernel, bucket=[c, k],
+                 trace_s=trace_s, modeled_launches=modeled, real_launches=real,
+                 modeled_bound_ms={n: v * 1e3 for n, v in modeled_s.items()},
+                 real_bound_ms={n: v * 1e3 for n, v in real_s.items()},
+                 phases={ph: {**cost[ph], "launches": traces[ph].kernel_launches}
+                         for ph in traces})
+            del p, eng
+    p = Parser(ParserConfig(regex=TRAFFIC_RE, backend="cuda", n_chunks=N_CHUNKS,
+                            obs=ObsConfig(enabled=True)), device=dev)
+    p.parse(traffic)
+    hlo = p.stats()["hlo"]
+    if not hlo:
+        raise AssertionError("dryrun: a traced parser's stats()['hlo'] is empty")
+    emit("dryrun_stats_hlo", hlo=hlo)
+
+
+def dryrun_train(dev, seed: int) -> None:
+    """The ``train`` phase's zamba2-2.7b step (full width, 2 x 2048 tokens:
+    accum 2 x microbatch 1, bf16 params, fp32 masters, remat on) traced on
+    meta tensors, against one real step on the card: the modeled K6 / K7
+    launches equal the real ones, the traced dot flops equal
+    ``FlopCounterMode``'s count of the real step within DRYRUN_FLOP_TOL, and
+    the trace's ``peak_bytes`` beside ``torch.cuda.max_memory_allocated``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.parallel.sharding import MeshRules, adapt_rules_for
+    from repro_torch.train.step import make_train_step, plan_for
+
+    cfg = get_config(LM_ARCH)
+    mesh = make_host_mesh()
+    shape = ShapeSpec("train", seq_len=TRAIN_LEN, global_batch=TRAIN_BATCH, kind="train")
+    plan = plan_for(cfg, shape, mesh, opt=AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS))
+    if (plan.accum_steps, plan.microbatch) != (2, 1):
+        raise AssertionError(f"dryrun train plan {plan}")
+    rules = adapt_rules_for(cfg, mesh, MeshRules())
+    t0 = time.perf_counter()
+    stats, _ = trace_step(cfg, shape, mesh, rules, plan=plan)
+    trace_s = time.perf_counter() - t0
+    params = init_params(cfg, seed=seed, device=dev)
+    state = init_opt_state(params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1, TRAIN_LEN), generator=gen, device=dev)
+    step = make_train_step(plan, mesh, rules)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        _, step_s, counts = counted(lambda: step(params, state, {"tokens": tokens}))
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, tokens
+    torch.cuda.empty_cache()
+    real = {n: v for n, v in counts.items() if v}
+    if stats.kernel_launches != real or not real.get("flash_attention"):
+        raise AssertionError(f"dryrun train: modeled launches {stats.kernel_launches}, "
+                             f"real {counts}")
+    dots = fc.get_total_flops()
+    rel = abs(stats.dot_flops - dots) / dots
+    if rel > DRYRUN_FLOP_TOL:
+        raise AssertionError(f"dryrun train: traced dot flops {stats.dot_flops}, "
+                             f"FlopCounterMode {dots} (rel {rel})")
+    emit("dryrun_train", model=cfg.name, seq=TRAIN_LEN, global_batch=TRAIN_BATCH,
+         accum_steps=plan.accum_steps, microbatch=plan.microbatch, trace_s=trace_s,
+         step_s=step_s, modeled_launches=stats.kernel_launches, real_launches=real,
+         traced_dot_flops=stats.dot_flops, flop_counter_flops=dots, dot_flops_rel_err=rel,
+         tolerance=DRYRUN_FLOP_TOL, traced_flops=stats.flops, traced_bytes=stats.bytes,
+         kernel_bound_ms={n: v * 1e3 for n, v in stats.kernel_bound_s.items()},
+         peak_bytes=stats.peak_bytes, max_memory_allocated=peak,
+         peak_over_measured=stats.peak_bytes / peak, nvidia_smi=nvidia_smi_line())
+
+
+def dryrun_cell() -> None:
+    """One production cell (DRYRUN_CELL: zamba2-2.7b x prefill_32k on the
+    fake (16, 16) 'pod' mesh), traced as ``python -m
+    repro_torch.launch.dryrun`` traces it; prints its record."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import SHAPE_BY_NAME
+
+    arch, shape, mesh_name = DRYRUN_CELL
+    mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
+    try:
+        rec = dryrun.run_cell(get_config(arch), SHAPE_BY_NAME[shape], mesh, mesh_name)
+    finally:
+        dist.destroy_process_group()
+    launches = rec["coll_detail"]["kernel_launches"]
+    if not (rec["ok"] and launches.get("flash_attention") and launches.get("ssd_chunk")):
+        raise AssertionError(f"dryrun cell {DRYRUN_CELL}: {rec}")
+    emit("dryrun_cell", key=dryrun.cell_key(arch, shape, mesh_name), modeled=True, **rec)
+
+
+def dryrun_phase(args, dev) -> None:
+    """The launch tools: ``phase_static_cost`` against real parses, the
+    train step's trace against a real step, one production cell."""
+    t0 = time.perf_counter()
+    dryrun_parser(args, dev)
+    dryrun_train(dev, args.seed)
+    dryrun_cell()
+    emit("dryrun_total", seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1692,6 +1852,7 @@ def main() -> int:
     lm_records = lm_phases(dev, args.seed)
     train_counts = train_phases(dev, args.seed)
     mesh_counts = train_mesh_phase(dev, args.seed)
+    dryrun_phase(args, dev)
     for rec in lm_records:
         rec["train_launches"] = train_counts.get(count_key(rec), 0)
         rec["train_mesh_launches_per_rank"] = mesh_counts.get(count_key(rec), 0)
@@ -2254,7 +2415,7 @@ def fleet_kernel_records(fleet, tenants, counts):
         pack_transition_table_torch,
         sparse_init_rows,
     )
-    from repro_torch.kernels import build, ops, packed_reach, reach
+    from repro_torch.kernels import build, ops, packed_reach, reach, sparse_reach
 
     engine = fleet.engine
 
@@ -2267,7 +2428,9 @@ def fleet_kernel_records(fleet, tenants, counts):
         rows, grid = runner.host_batch(c, k, per)
         N, I, F = runner.operands(rows)
         ids = torch.from_numpy(grid.reshape(-1, k)).to(N.device)
-        real = (grid != runner.pad_class).reshape(len(rows), -1).sum(axis=1)
+        # real steps of each tenant's row (the rows past the tenants pad the
+        # stack and are all PAD)
+        real = (grid != runner.pad_class).reshape(len(rows), -1).sum(axis=1)[:len(tids)]
         ells = [engine.tenant(t).tables.ell for t in tids]
         return runner, tids, grid, N, I, F, ids, real, ells
 
@@ -2282,7 +2445,7 @@ def fleet_kernel_records(fleet, tenants, counts):
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    def record(name, kern, args, n_ops, n_bytes, grid_xyz, runner, extra, case="fleet"):
+    def record(name, kern, args, cost, grid_xyz, runner, extra, case="fleet"):
         got, k_ms = once(lambda: kern(*args))
         want, p_ms = once(lambda: kern.plain(*args))
         if not torch.equal(got, want):
@@ -2298,7 +2461,7 @@ def fleet_kernel_records(fleet, tenants, counts):
                                    else (lambda: kern.plain(*args)), None)
             if p_ms >= SLOW_CALL_MS:
                 fields["plain_ms"] = p_ms
-        b_ms, b_by = bound_ms(n_ops, n_bytes)
+        b_ms, b_by = bound_ms(cost)
         rec = {"name": name, "case": case, "route": "cuda", "source": extra["source"],
                "replaces": extra["replaces"], "launches": counts.get((name, case), 0),
                "max_abs_err": 0.0,
@@ -2315,18 +2478,15 @@ def fleet_kernel_records(fleet, tenants, counts):
     runner, tids, grid, N, I, F, ids, real, ells = bucket_inputs("ab")
     T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
     C, k = ids.shape
-    ops3 = sum(2.0 * s * e ** 3 for s, e in zip(real, ells))
-    record("reach_chunk_product", ops.reach_chunk_product, (N, ids), ops3,
-           4.0 * (C * k + T * A1 * lp * lp + C * lp * lp), reach.grid(A1, lp, C, T), runner,
+    record("reach_chunk_product", ops.reach_chunk_product, (N, ids),
+           reach.cost(N, ids, steps=real, ell=ells), reach.grid(A1, lp, C, T), runner,
            {"source": "src/repro_torch/csrc/reach.cu", "replaces": "src/repro/kernels/reach.py:49"})
     P = ops.reach_chunk_product.plain(N, ids).reshape(grid.shape[:3] + (lp, lp))
     Jf, Jb = TorchBackend().join(P, I[:, None], F[:, None])
     Jf, Jb = Jf.reshape(C, lp).contiguous(), Jb.reshape(C, lp).contiguous()
     del P
     record("build_merge_packed", ops.build_merge_packed, (N, ids, Jf, Jb),
-           sum(4.0 * s * e ** 2 for s, e in zip(real, ells)),
-           4.0 * (C * k + T * A1 * lp * lp + 2 * C * lp + C * k * lp // 32),
-           build.grid(A1, lp, C, T), runner,
+           build.cost(N, ids, Jf, Jb, steps=real, ell=ells), build.grid(A1, lp, C, T), runner,
            {"source": "src/repro_torch/csrc/build_merge.cu", "replaces": "src/repro/kernels/build.py:60"})
     del Jf, Jb
 
@@ -2336,8 +2496,7 @@ def fleet_kernel_records(fleet, tenants, counts):
     T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
     C, k = ids.shape
     record("reach_chunk_product", ops.reach_chunk_product, (N, ids),
-           sum(2.0 * s * e ** 3 for s, e in zip(real, ells)),
-           4.0 * (C * k + T * A1 * lp * lp + C * lp * lp), reach.grid(A1, lp, C, T), runner,
+           reach.cost(N, ids, steps=real, ell=ells), reach.grid(A1, lp, C, T), runner,
            {"source": "src/repro_torch/csrc/reach.cu", "replaces": "src/repro/kernels/reach.py:49"},
            case="fleet_strip")
     P = ops.reach_chunk_product(N, ids).reshape(grid.shape[:3] + (lp, lp))
@@ -2345,9 +2504,7 @@ def fleet_kernel_records(fleet, tenants, counts):
     Jf, Jb = Jf.reshape(C, lp).contiguous(), Jb.reshape(C, lp).contiguous()
     del P
     record("build_merge_packed", ops.build_merge_packed, (N, ids, Jf, Jb),
-           sum(4.0 * s * e ** 2 for s, e in zip(real, ells)),
-           4.0 * (C * k + T * A1 * lp * lp + 2 * C * lp + C * k * lp // 32),
-           build.grid(A1, lp, C, T), runner,
+           build.cost(N, ids, Jf, Jb, steps=real, ell=ells), build.grid(A1, lp, C, T), runner,
            {"source": "src/repro_torch/csrc/build_merge.cu", "replaces": "src/repro/kernels/build.py:60"},
            case="fleet_rows")
     del Jf, Jb
@@ -2358,8 +2515,7 @@ def fleet_kernel_records(fleet, tenants, counts):
     W = lp // 32
     Np = pack_transition_table_torch(N)
     record("packed_reach_chunk_product", ops.packed_reach_chunk_product, (Np, ids),
-           sum(2.0 * s * e ** 3 for s, e in zip(real, ells)),
-           4.0 * (C * k + T * A1 * lp * W + C * lp * W), packed_reach.grid(A1, lp, lp, C, T),
+           packed_reach.cost(Np, ids, steps=real, ell=ells), packed_reach.grid(A1, lp, lp, C, T),
            runner, {"source": "src/repro_torch/csrc/packed_reach.cu",
                     "replaces": "src/repro/kernels/packed_reach.py:74"})
 
@@ -2370,12 +2526,11 @@ def fleet_kernel_records(fleet, tenants, counts):
                           lp).reshape(C, S, W).contiguous()
     Np = pack_transition_table_torch(N)
     Nh = N.cpu().numpy()
-    w_ops = 0.0
-    for t, (s, e) in enumerate(zip(real, ells)):
-        w = feasible_start_widths(Nh[t], grid[t].reshape(-1, k))
-        w_ops += 2.0 * s * float(w[w >= 0].mean() if (w >= 0).any() else 0.0) * e ** 2
-    record("sparse_reach_rows", ops.sparse_reach_rows, (Np, ids, R0), w_ops,
-           4.0 * (C * k + T * A1 * lp * W + 2 * C * S * W), packed_reach.grid(A1, lp, S, C, T),
+    widths = [feasible_start_widths(Nh[t], grid[t].reshape(-1, k)) for t in range(len(real))]
+    w_mean = [float(w[w >= 0].mean() if (w >= 0).any() else 0.0) for w in widths]
+    record("sparse_reach_rows", ops.sparse_reach_rows, (Np, ids, R0),
+           sparse_reach.cost(Np, ids, R0, steps=real, ell=ells, rows=w_mean),
+           packed_reach.grid(A1, lp, S, C, T),
            runner, {"source": "src/repro_torch/csrc/packed_reach.cu",
                     "replaces": "src/repro/kernels/sparse_reach.py:71"})
     return records
@@ -2791,11 +2946,32 @@ def train_mesh_config(depth: int, variant: str):
     return cfg
 
 
+@contextlib.contextmanager
+def trainer_init(init: str):
+    """The ``Trainer``'s params as initialized (``init`` "as initialized"),
+    or with unit-scale attention logits (``"unit_scale_attention"``:
+    ``_unit_scale_attention`` applied to the whole params before the
+    ``Trainer`` places them)."""
+    from repro_torch.train import loop
+
+    made = loop.init_params
+    if init == "unit_scale_attention":
+        loop.init_params = lambda cfg, **kw: _unit_scale_attention(made(cfg, **kw), cfg)
+    elif init != "as initialized":
+        raise ValueError(f"unknown init {init!r}")
+    try:
+        yield
+    finally:
+        loop.init_params = made
+
+
 def train_mesh_run(dev, mesh, spec: dict, variant: str, seed: int, workdir) -> dict:
     """``spec["steps"]`` counted ``Trainer`` steps on ``mesh`` (on a mesh of
     several ranks, this rank's share): losses, step seconds, tokens/s, peak
     memory and K6 / K7 launches (checked: one microbatch's count times the
-    microbatches), and with ``spec["profile"]`` one more step profiled."""
+    microbatches), and with ``spec["profile"]`` one more step profiled.
+    ``spec["init"]`` (default "as initialized") picks the params
+    (``trainer_init``)."""
     import torch
 
     from repro_torch.models.config import ShapeSpec
@@ -2811,7 +2987,8 @@ def train_mesh_run(dev, mesh, spec: dict, variant: str, seed: int, workdir) -> d
                       TrainerConfig(total_steps=steps, checkpoint_every=0, log_every=1,
                                     seed=seed), opt=opt, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    result, secs, counts = counted(trainer.run)
+    with trainer_init(spec.get("init", "as initialized")):
+        result, secs, counts = counted(trainer.run)
     per_micro = expected_train_launches(cfg)
     check_launches(f"train_mesh {variant}", counts,
                    {k: v * steps * trainer.plan.accum_steps for k, v in per_micro.items()})
@@ -2894,7 +3071,8 @@ def train_mesh_phase(dev, seed: int, spec: dict = TRAIN_MESH, label: str = "trai
     cfg = train_mesh_config(spec["depth"], spec["variants"][0])
     emit(label, model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          param_dtype=cfg.param_dtype, seq=spec["seq"], global_batch=spec["batch"],
-         steps=spec["steps"], optimizer=spec["opt"], world=4, group_backend=group_backend,
+         steps=spec["steps"], optimizer=spec["opt"], init=spec.get("init", "as initialized"),
+         world=4, group_backend=group_backend,
          mesh_shape=reports[0]["mesh_shape"], gate=TRAIN_MESH_GATE, loss_gaps_per_step=gaps,
          seconds=time.perf_counter() - t0, one_rank=single,
          ranks=[{k: v for k, v in rep.items() if k != "ok"} for rep in reports],

@@ -18,7 +18,10 @@ of 4 x 2048 tokens by the ``Trainer`` on a (2, 2) ('data', 'model') mesh of
 the ``train_mesh_full`` line: per rank the losses, step seconds, tokens/s,
 peak memory, idle share and K6 / K7 launches, and each step's largest loss
 gap to the one-rank run, gated at 2e-2 in bf16; then the same pair in f32
-compute over the bf16 params, gated at 1e-4.
+compute over the bf16 params, gated at 1e-4.  ``--unit-attention`` runs
+both from the same weights with unit-scale attention logits (the shared
+block's wq and wk scaled by sqrt(heads / d_model), ``chip_smoke.py``'s
+``_unit_scale_attention``): the line is then ``train_mesh_full_unit``.
 
 It builds the kernels first (one ``nvcc`` per source), then prints the
 ``nvidia-smi`` line of every card, the phase's line and the seconds it
@@ -44,6 +47,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("mesh", "train"), default="mesh")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--unit-attention", action="store_true",
+                    help="--phase train from weights with unit-scale attention logits")
     args = ap.parse_args()
 
     import torch
@@ -70,8 +75,12 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         spec = dict(depth=54, seq=2048, batch=4, steps=TRAIN_STEPS, opt="warmup",
                     profile=True, variants=("bfloat16", "float32"))
+        label = "train_mesh_full"
+        if args.unit_attention:
+            spec["init"] = "unit_scale_attention"
+            label += "_unit"
         chip_smoke.train_mesh_phase(torch.device("cuda", 0), args.seed, spec,
-                                    label="train_mesh_full", timeout_s=TRAIN_TIMEOUT_S)
+                                    label=label, timeout_s=TRAIN_TIMEOUT_S)
     print(json.dumps({"phase": f"{args.phase}_total", "seconds": time.perf_counter() - t0}),
           flush=True)
     return 0

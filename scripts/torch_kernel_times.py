@@ -94,6 +94,7 @@ def k3_records(label: str, regex: str, text: bytes, dev) -> None:
     from repro_torch import Parser, ParserConfig
     from repro_torch.core.backend import TorchBackend
     from repro_torch.kernels import ops
+    from repro_torch.kernels.cost import HBM_BW
 
     parser = Parser(ParserConfig(regex=regex, backend="torch", n_chunks=cs.N_CHUNKS), device=dev)
     eng = parser.engine
@@ -124,7 +125,7 @@ def k3_records(label: str, regex: str, text: bytes, dev) -> None:
         out_bytes = args[0].shape[0] * args[0].shape[1] * args[1].shape[2] * 4
         emit("k3", text=label, case=case, operands=[list(x.shape) for x in args],
              copies=len(copies), l2_bytes=l2,
-             hbm_bound_ms=(nbytes + out_bytes) / cs.HBM_BYTES_PER_S * 1e3, **rec)
+             hbm_bound_ms=(nbytes + out_bytes) / HBM_BW * 1e3, **rec)
         del copies, turn
         torch.cuda.empty_cache()
 

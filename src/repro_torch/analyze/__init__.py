@@ -11,10 +11,12 @@ Three modules, as in ``repro.analyze``:
                  each phase runs.
   ``roofline``   the H100's machine constants and the ``Roofline`` terms.
 
-The reference's HLO readers (``lint_hlo_text``, ``collective_bytes``,
-``analyze_compiled``) wait for the port's launch tools (ROADMAP Queue 1
-item 12); ``lint_trace`` over recorded ATen ops takes ``lint_jaxpr``'s
-place and ``NVLINK_BW`` that of ``ICI_BW``.
+The reference's HLO readers have their counterparts over the port's traced
+programs (``launch/op_stats.py``): ``collective_bytes`` and
+``analyze_compiled`` read an ``OpStats``, and
+``lint_trace`` over recorded ATen ops takes the place of both
+``lint_jaxpr`` and ``lint_hlo_text``; ``NVLINK_BW`` takes that of
+``ICI_BW``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,14 @@ from .program import (  # noqa: F401
     lint_trace,
     trace_ops,
 )
-from .roofline import HBM_BW, NVLINK_BW, PEAK_FLOPS, Roofline  # noqa: F401
+from .roofline import (  # noqa: F401
+    HBM_BW,
+    NVLINK_BW,
+    PEAK_FLOPS,
+    Roofline,
+    analyze_compiled,
+    collective_bytes,
+)
 
 __all__ = [
     "AnalysisReport",
@@ -50,11 +59,13 @@ __all__ = [
     "NVLINK_BW",
     "PEAK_FLOPS",
     "Roofline",
+    "analyze_compiled",
     "analyze_matrices",
     "analyze_pattern",
     "backend_cost_model",
     "cached_report",
     "choose_backend",
+    "collective_bytes",
     "density_profile",
     "feasible_width_bounds",
     "lint_engine",

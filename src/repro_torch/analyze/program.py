@@ -23,9 +23,16 @@ one rotted phase slows them all.  Three rules:
                one set a bucket.
 
 A kernel launch itself is a ctypes call, not an ATen op: the lint sees what
-the launchers do around it (their table preparation, their checks).  The
-reference's HLO scan (``lint_hlo_text``) has no counterpart here; it waits
-for the port's launch tools (ROADMAP Queue 1 item 12).
+the launchers do around it (their table preparation, their checks).
+
+``lint_trace`` is also the counterpart of the reference's HLO scan
+(``lint_hlo_text``: f64 / complex128 that survives into the compiled
+program, and a host callback): the dry-run's recorder
+(``launch/op_stats.OpRecorder``) keeps the ops of a traced step in the same
+``TracedOp`` form, so ``lint_trace(recorder.ops, name)`` applies the same
+rules to a whole train or serve step on the production mesh, where a host
+read of a value (``.item()``, ``int()`` of a tensor) is recorded and not
+run.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from typing import Callable, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..launch.op_stats import OpRecorder, TracedOp  # noqa: F401  (TracedOp: what the lint reads)
 
 _BAD_DTYPES = (torch.float64, torch.complex128)
 
@@ -57,54 +65,11 @@ class LintFinding:
         return f"[{self.rule}] {self.program}: {self.detail}"
 
 
-@dataclasses.dataclass(frozen=True)
-class TracedOp:
-    """One ATen op a program ran: its name, the tensors among its inputs
-    and outputs as (dtype, shape, device) and, for a copy, its target device."""
-
-    name: str
-    inputs: Tuple[Tuple[torch.dtype, Tuple, str], ...]
-    outputs: Tuple[Tuple[torch.dtype, Tuple, str], ...]
-    to_device: str = ""
-
-
-def _tensors(xs) -> List[torch.Tensor]:
-    out: List[torch.Tensor] = []
-    for x in xs:
-        if isinstance(x, torch.Tensor):
-            out.append(x)
-        elif isinstance(x, (list, tuple)):
-            out.extend(_tensors(x))
-    return out
-
-
-def _meta(ts) -> Tuple[Tuple[torch.dtype, Tuple, str], ...]:
-    return tuple((t.dtype, tuple(t.shape), t.device.type) for t in ts)
-
-
-class _Recorder(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.ops: List[TracedOp] = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        name = func._schema.name
-        to_device = ""
-        if name == "aten::_to_copy" and kwargs.get("device") is not None:
-            to_device = torch.device(kwargs["device"]).type
-        elif name == "aten::copy_" and isinstance(args[0], torch.Tensor):
-            to_device = args[0].device.type
-        outs = out if isinstance(out, (list, tuple)) else (out,)
-        self.ops.append(TracedOp(name, _meta(_tensors(list(args) + list(kwargs.values()))),
-                                 _meta(_tensors(outs)), to_device))
-        return out
-
-
 def trace_ops(fn: Callable, args: Sequence) -> List[TracedOp]:
-    """Run ``fn(*args)`` once and return the ATen ops it ran, in order."""
-    rec = _Recorder()
+    """Run ``fn(*args)`` once and return the ATen ops it ran, in order:
+    the dry-run's recorder (``launch/op_stats.OpRecorder``) over every op,
+    storage or none."""
+    rec = OpRecorder(meta_only=False)
     with rec:
         fn(*args)
     return rec.ops

@@ -17,10 +17,15 @@ Three terms per (arch × shape × mesh), in seconds:
     memory     = bytes       / (cards · HBM_BW)
     collective = coll_bytes  / (cards · NVLINK_BW)
 
-The reference fills these from XLA's compiled HLO (``collective_bytes``,
-``analyze_compiled``); their counterparts read what the port's launch tools
-will compile and wait for them (ROADMAP Queue 1 item 12).  Here the
-dataclass, its terms and the model-FLOP helpers are ported as they are.
+The reference fills these from XLA's compiled, partitioned HLO
+(``hlo_stats.py``); the port from one traced call of the eager program,
+per rank (``launch/op_stats.py``): ``analyze_compiled`` turns its
+``OpStats`` into a ``Roofline`` and
+``collective_bytes`` reads its collectives by kind.  Its bytes are an eager
+model (every ATen op reads its operands and writes its outputs: nothing is
+fused) and its collectives are the ones DTensor chooses, not XLA's
+partitioner's.  The dataclass, its terms and the model-FLOP helpers are
+ported as they are.
 """
 
 from __future__ import annotations
@@ -28,9 +33,9 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass, field
 from typing import Dict, Optional
 
-PEAK_FLOPS = 989e12          # bf16, tensor cores, dense, per card
-INT8_OPS = 1979e12           # int8, tensor cores, dense, per card
-HBM_BW = 3.35e12             # bytes/s per card
+from ..kernels.cost import BF16_FLOPS, F32_FLOPS, HBM_BW, INT8_OPS  # noqa: F401  (the card's rates)
+
+PEAK_FLOPS = BF16_FLOPS      # bf16, tensor cores, dense, per card
 NVLINK_BW = 450e9            # bytes/s per card, one direction over all its links
 
 
@@ -123,3 +128,45 @@ def model_attn_flops(cfg, seq_len: int, n_tokens: int, *, train: bool, decode: b
     eff_ctx = ctx if decode else ctx / 2.0  # causal averaging over positions
     per_token = 4.0 * eff_ctx * d_attn * n_attn
     return per_token * n_tokens * (3.0 if train else 1.0)
+
+
+def collective_bytes(stats) -> Dict[str, object]:
+    """Output bytes of a traced program's collectives by kind, per rank, and
+    their counts by kind under ``"_counts"`` (the reference's return shape,
+    read from an ``OpStats`` in place of HLO text)."""
+    out: Dict[str, object] = dict(stats.coll)
+    out["_counts"] = dict(stats.coll_counts)
+    return out
+
+
+def analyze_compiled(
+    stats, *, arch: str, shape: str, mesh_name: str, chips: int, model_flops: float
+) -> Roofline:
+    """The ``Roofline`` of one traced program (``launch/op_stats.OpStats``
+    of one rank): flops, bytes and collective bytes are the rank's totals ×
+    ``chips`` (DTensor programs are SPMD: every rank runs rank 0's);
+    ``coll_detail`` holds the collective bytes by kind (× chips), the
+    collectives a rank issues (``coll_ops_per_device``) and the modeled
+    kernel launches a rank makes by kernel (``kernel_launches``, in place of
+    the reference's trip-count and XLA cost keys), with their bounds'
+    seconds by kernel (``kernel_bound_s``); ``memory_per_device`` is the trace's
+    ``peak_bytes``."""
+    return Roofline(
+        arch=arch,
+        shape=shape,
+        mesh=mesh_name,
+        chips=chips,
+        hlo_flops=stats.flops * chips,
+        hlo_bytes=stats.bytes * chips,
+        coll_bytes=stats.coll_bytes * chips,
+        coll_detail={
+            **{k: v * chips for k, v in stats.coll.items()},
+            "coll_ops_per_device": stats.coll_count,
+            "kernel_launches": dict(stats.kernel_launches),
+            "kernel_bound_s": dict(stats.kernel_bound_s),
+            "dot_flops_per_device": stats.dot_flops,
+        },
+        model_flops=model_flops,
+        memory_per_device=float(stats.peak_bytes),
+    )
+

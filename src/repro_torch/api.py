@@ -43,8 +43,10 @@ single process with no group is the 1-rank mesh): run one process a rank,
 each building the same ``Parser`` and making the same calls.  ``parse`` then
 shards one text's chunks over every rank, ``parse_batch`` batch slots over
 'data' and chunks over 'pod' (``core/distributed.py``).  Fleet tenants run
-on one device and refuse ``mesh``.  ``stats()["hlo"]`` is None (ROADMAP
-Queue 1 item 12).
+on one device and refuse ``mesh``.  ``stats()["hlo"]`` is the per-bucket
+static modeled cost of the phase programs (``ParserEngine.phase_static_cost``,
+traced by ``launch/op_stats.py``) where the reference attaches it: tracing
+on, ``ObsConfig.hlo`` on, and no mesh.
 """
 
 from __future__ import annotations
@@ -858,6 +860,20 @@ class Parser:
             out[bucket] = grade
         return out
 
+    def _hlo_static_cost(self, ps: Optional[Dict]) -> Optional[Dict[str, Any]]:
+        """Per-bucket static modeled cost of the phase programs
+        (``ParserEngine.phase_static_cost``: one trace of each phase a
+        bucket, memoized on the engine), keyed ``"<c>x<k>"`` — attached
+        only when tracing is on and the ObsConfig keeps ``hlo`` enabled.
+        Mesh engines skip it, as the reference's do: their phases run
+        between collectives in one device program, with no per-phase
+        program to attribute."""
+        cfg = self.obs.config
+        if not (self.obs.enabled and cfg.hlo) or self.engine.mesh is not None:
+            return None
+        buckets = ps["buckets"] if ps else {}
+        return {f"{c}x{k}": self.engine.phase_static_cost(c, k) for c, k in buckets}
+
     def stats(self) -> Dict[str, Any]:
         """One view over both services, the metrics registry and the SLO
         targets, with the reference's keys.
@@ -869,8 +885,8 @@ class Parser:
         ``speculation`` (sparse backend only, else None) reports the carried
         product rows S against ℓp and the per-bucket observed widths.
         ``analysis`` is the static analyzer's report (``analysis`` as a
-        dict), computed lazily and memoized; ``hlo`` is None until the
-        counterpart of the reference's HLO cost model is ported (item 12).
+        dict), computed lazily and memoized; ``hlo`` is the static cost of
+        every observed bucket (``_hlo_static_cost``), or None.
         """
         slo = self.config.slo
         ps = self._parse_service.stats if self._parse_service is not None else None
@@ -891,7 +907,7 @@ class Parser:
             "parse": ps,
             "stream": ss,
             "metrics": self.obs.metrics.snapshot(),
-            "hlo": None,
+            "hlo": self._hlo_static_cost(ps),
             "analysis": self._analyze().to_dict(),
             "speculation": speculation,
             "slo": {

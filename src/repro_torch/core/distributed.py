@@ -196,13 +196,35 @@ class DistributedEngine:
 
     # -------------------------------------------------------------- program
 
+    def device_program(self, N, I, F, grid: torch.Tensor, b_axes, c_axes) -> List[torch.Tensor]:
+        """A dispatch's device program, tensors in and out, with no host
+        work: on this rank's (Bl, f, k) chunk ids (``grid``, batch rows over
+        ``b_axes``, chunks over ``c_axes``), reach, the product all-gather
+        over ``c_axes``, the join, build&merge on the rank's chunks and the
+        gather of the packed C₀ and columns over ``b_axes`` + ``c_axes``:
+        every rank's int32 payload (Bl·W words of C₀, then Bl·f·k·W of
+        columns) in ``linear_index`` order.  The dry-run traces it
+        (``launch/dryrun.py``)."""
+        backend = self.engine.backend
+        f = grid.shape[1]
+        r = linear_index(self.mesh, c_axes)
+        P_local = backend.reach(N, grid)                   # (Bl, f, …) shard-local
+        P_all = self._gather(P_local, c_axes, dim=1)       # (Bl, c, …) every rank
+        Jf, Jb, col0p = join_with_col0(backend, P_all, I, F)
+        # the entry slices are strided; the phases hand the kernels
+        # contiguous copies (backend._flat)
+        M = backend.build_merge_packed(
+            N, grid, Jf[:, r * f:(r + 1) * f], Jb[:, r * f:(r + 1) * f]
+        )                                                  # (Bl, f, k, W)
+        payload = torch.cat([col0p.reshape(-1), M.reshape(-1)])
+        return self._gather_list(payload, tuple(b_axes) + tuple(c_axes))
+
     def _run(self, batch: np.ndarray, b_axes, c_axes) -> Tuple[np.ndarray, np.ndarray]:
         """One dispatch of a (B, c, k) host grid, batch rows over ``b_axes``
         and chunks over ``c_axes``: (packed C₀ (B, W), packed columns
         (B, c, k, W)) int32 host arrays, the same on every rank."""
         eng = self.engine
         t = eng.tables
-        backend = eng.backend
         B, c, k = batch.shape
         bsz, csz = mesh_axes_size(self.mesh, b_axes), mesh_axes_size(self.mesh, c_axes)
         Bl, f = B // bsz, c // csz
@@ -210,19 +232,11 @@ class DistributedEngine:
         eng._note_phase_shape(("mesh", (B, c, k), tuple(b_axes), tuple(c_axes)))
         # every rank range-checks the whole grid, so all raise or none does
         grid = eng.chunks_tensor(batch)[b * Bl:(b + 1) * Bl, r * f:(r + 1) * f]
-        P_local = backend.reach(t.N, grid)                 # (Bl, f, …) shard-local
-        P_all = self._gather(P_local, c_axes, dim=1)       # (Bl, c, …) every rank
-        Jf, Jb, col0p = join_with_col0(backend, P_all, t.I, t.F)
-        # the entry slices are strided; the phases hand the kernels
-        # contiguous copies (backend._flat)
-        M = backend.build_merge_packed(
-            t.N, grid, Jf[:, r * f:(r + 1) * f], Jb[:, r * f:(r + 1) * f]
-        )                                                  # (Bl, f, k, W)
-        W = col0p.shape[-1]
-        payload = torch.cat([col0p.reshape(-1), M.reshape(-1)])
+        parts = self.device_program(t.N, t.I, t.F, grid, b_axes, c_axes)
+        W = t.ell_pad // 32
         col0s = np.empty((B, W), dtype=np.int32)
         colss = np.empty((B, c, k, W), dtype=np.int32)
-        for j, part in enumerate(self._gather_list(payload, tuple(b_axes) + tuple(c_axes))):
+        for j, part in enumerate(parts):
             bj, rj = divmod(j, csz)
             part = part.cpu().numpy()
             col0s[bj * Bl:(bj + 1) * Bl] = part[:Bl * W].reshape(Bl, W)

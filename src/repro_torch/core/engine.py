@@ -218,7 +218,7 @@ class ParserEngine:
         self.table = matrices.table
         self.backend = get_backend(backend)
         self.device = resolve_device(device)
-        if self.backend.needs_cuda and self.device.type != "cuda":
+        if self.backend.needs_cuda and self.device.type not in ("cuda", "meta"):
             raise ValueError(
                 f"backend {self.backend.name!r} runs only on the card, got "
                 f"device {str(self.device)!r} (use backend='torch' on the CPU)"
@@ -238,6 +238,7 @@ class ParserEngine:
         self._seen_phase_shapes: set = set()
         self.phases = PhasePrograms(self.backend, on_shape=self._note_phase_shape)
         self._core = make_parse_core(self.backend)
+        self._cost_memo: Dict[Tuple[int, int], Dict[str, object]] = {}
 
     @property
     def compile_count(self) -> int:
@@ -395,6 +396,59 @@ class ParserEngine:
         with obs.span("phase.host_build", n_chars=len(classes)):
             slpf = self._assemble(col0p.cpu().numpy(), cols.cpu().numpy(), classes)
         return slpf
+
+    def phase_traces(self, c: int, k: int) -> Dict[str, "OpStats"]:
+        """Each phase program's ``launch/op_stats.OpStats`` at bucket (c, k),
+        memoized: reach, join and build&merge (the ``phases``' bodies)
+        traced once each on inputs with no storage (chunks (c, k) int32, the
+        product stack (c,) + the identity product's shape, entries (c, ℓp)
+        f32, and the tables, all on the meta device), modeling the card for
+        a kernel path (its K1–K5 launches, with their cost functions'
+        operations and bytes) and the engine's device otherwise."""
+        key = (int(c), int(k))
+        if key not in self._cost_memo:
+            from ..launch.op_stats import meta_like, trace
+
+            t = self.tables
+            N, I, F = meta_like((t.N, t.I, t.F))
+            eye = self.backend.identity_product(t.ell_pad, device="meta")
+            chunks = torch.empty(key, dtype=torch.int32, device="meta")
+            P = torch.empty((key[0],) + tuple(eye.shape), dtype=eye.dtype, device="meta")
+            J = torch.empty((key[0], t.ell_pad), dtype=torch.float32, device="meta")
+            backend = self.backend
+            programs = {
+                "reach": (backend.reach, (N, chunks)),
+                "join": (lambda P, I, F: join_with_col0(backend, P, I, F), (P, I, F)),
+                "build_merge": (backend.build_merge_packed, (N, chunks, J, J)),
+            }
+            device = "cuda" if backend.needs_cuda else self.device.type
+            self._cost_memo[key] = {
+                phase: trace(prog, *args, device=device, keep_ops=False)[0].stats
+                for phase, (prog, args) in programs.items()
+            }
+        return self._cost_memo[key]
+
+    def phase_static_cost(self, c: int, k: int) -> Dict[str, Dict[str, float]]:
+        """Static modeled cost of one bucket's phase programs: the
+        reference's dict, ``{phase: {flops, bytes, collective_bytes},
+        "total": …}``, from :meth:`phase_traces`; each call sets the
+        ``hlo_flops`` / ``hlo_bytes`` / ``hlo_collective_bytes`` gauges of
+        each phase."""
+        out: Dict[str, Dict[str, float]] = {}
+        total = {"flops": 0.0, "bytes": 0.0, "collective_bytes": 0.0}
+        m = self.obs.metrics
+        bucket = f"{int(c)}x{int(k)}"
+        for phase, s in self.phase_traces(c, k).items():
+            entry = {"flops": s.flops, "bytes": s.bytes, "collective_bytes": s.coll_bytes}
+            for name in total:
+                total[name] += entry[name]
+            m.gauge("hlo_flops", bucket=bucket, phase=phase).set(entry["flops"])
+            m.gauge("hlo_bytes", bucket=bucket, phase=phase).set(entry["bytes"])
+            m.gauge("hlo_collective_bytes", bucket=bucket, phase=phase).set(
+                entry["collective_bytes"])
+            out[phase] = entry
+        out["total"] = total
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

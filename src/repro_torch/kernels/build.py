@@ -24,6 +24,7 @@ from ..core.matrices import pack_bits_torch
 from .checks import (
     MAX_SMEM_BYTES, check_ids, check_status, check_table, derived, require, stream, tenants,
 )
+from .cost import INT8_OPS, Cost, total
 from .reach import GROUPS, MAX_GROUP_W
 
 SOURCE = "build_merge"
@@ -127,6 +128,23 @@ def plan(n_classes: int, lp: int, n_chunks: int) -> Plan:
                 continue
             return Plan("walk", g, LANES, ROUNDS[-1], False, class_stride(lp, g, LANES))
     return ROWS
+
+
+def shapes(N, ids, entry_f, entry_b):
+    """The output's (shape, dtype): (C, k, ℓp/32) int32 packed columns."""
+    return (*ids.shape, N.shape[-1] // 32), torch.int32
+
+
+def cost(N, ids, entry_f, entry_b, *, steps=None, ell=None) -> Cost:
+    """4·ℓ² operations a step (a forward and a backward ℓ × ℓ mat-vec) over
+    ``steps`` steps (default all C·k) and ℓ live states (default ℓp); bytes:
+    the ids, N, both entries and the packed columns, each once."""
+    C, k = ids.shape
+    lp = N.shape[-1]
+    steps = C * k if steps is None else steps
+    ell = lp if ell is None else ell
+    return Cost(total(lambda s, e: 4 * s * e * e, steps, ell),
+                4.0 * (C * k + N.numel() + 2 * C * lp + C * k * lp // 32), INT8_OPS)
 
 
 def launch(

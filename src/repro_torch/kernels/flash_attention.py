@@ -14,9 +14,11 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .checks import check_status, require, stream
+from .cost import Cost, float_rate
 
 SOURCE = "flash_attention"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -27,6 +29,31 @@ SIGNATURES = {
 }
 MAX_GRID_Y = 65535   # query tiles of one launch
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pairs(Lq: int, Lk: int, causal: bool = True, window: Optional[int] = None) -> int:
+    """(query, key) pairs the mask keeps: key j ≤ query i where causal, and
+    j > i − window where a window is set."""
+    i = np.arange(Lq)
+    hi = np.minimum(i, Lk - 1) if causal else np.full(Lq, Lk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Lq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def shapes(q, k, v, *, causal=True, window=None, softcap=None):
+    """The output's (shape, dtype): q's."""
+    return tuple(q.shape), q.dtype
+
+
+def cost(q, k, v, *, causal=True, window=None, softcap=None) -> Cost:
+    """QKᵀ and PV over the pairs the mask keeps, 4·hd operations a pair
+    (2·L(L+1)·hd a (batch, head) for causal L × L) at the rate of the
+    operands' type; bytes: q, k, v and the output, each once."""
+    b, Lq, h, hd = q.shape
+    Lk = k.shape[1]
+    e = q.element_size()
+    return Cost(4.0 * pairs(Lq, Lk, causal, window) * hd * b * h,
+                float(e * (2 * b * Lq * h * hd + 2 * b * Lk * h * hd)), float_rate(q.dtype))
 
 
 def launch(

@@ -28,7 +28,11 @@ keyword arguments (K6's ``causal``, ``window`` and ``softcap``, K7's
 tensors it checks them, launches the kernel on the current stream, raises
 if the launch fails, and adds one to its ``launches`` count (K7's also to
 the count of its ``outputs`` mode).  A CUDA tensor never falls back to the
-plain version.
+plain version.  Given tensors with no storage (meta, or a ``FakeTensor``
+that names the card), it launches nothing: it returns empty outputs of the
+launcher's ``shapes`` and tells the active recorder (``MODELED``, the
+dry-run's ``launch/op_stats.py``) one modeled launch with the launcher's
+``cost``; ``launches`` counts real launches only.
 
 K6 and K7 are differentiable: where autograd records (grad mode on and an
 input that requires grad), their wrappers go through the
@@ -60,6 +64,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build as _build
 from . import flash_attention as _flash
@@ -195,8 +200,12 @@ class KernelWrapper:
 
     def run(self, *tensors: Optional[torch.Tensor], **static):
         """The plain version on CPU tensors, else one counted kernel launch;
-        never recorded by autograd as such (the Functions' forward)."""
+        never recorded by autograd as such (the Functions' forward).
+        Tensors with no storage go to :meth:`model` first, whatever device
+        they name."""
         given = [t for t in tensors if t is not None]
+        if any(abstract(t) for t in given):
+            return self.model(*tensors, **static)
         if all(t.device.type == "cpu" for t in given):
             return self.plain(*tensors, **static)
         check_cuda(self.name, *given)
@@ -208,6 +217,44 @@ class KernelWrapper:
             key = static.get(*self._case)
             self.case_launches[key] = self.case_launches.get(key, 0) + 1
         return out
+
+    def model(self, *tensors: Optional[torch.Tensor], **static):
+        """A launch on tensors with no storage (``abstract``): under a
+        recorder that models the CPU (``MODELED``, device "cpu") the plain
+        version on them, its ATen ops; else empty outputs of the launcher's
+        ``shapes``, and the recorder, if any, told of one modeled launch
+        with the launcher's ``cost``.  No kernel is built or launched, and
+        ``launches`` keeps counting the card's real launches only."""
+        sink = MODELED[-1] if MODELED else None
+        if sink is not None and sink.device == "cpu":
+            return self.plain(*tensors, **static)
+        like = next(t for t in tensors if t is not None)
+        out = _empty_like_spec(like, self._launcher.shapes(*tensors, **static))
+        if sink is not None:
+            case = None if self._case is None else static.get(*self._case)
+            sink.kernel(self.name, case, self._launcher.cost(*tensors, **static))
+        return out
+
+
+#: the active recorders of modeled launches, innermost last
+#: (``launch/op_stats.OpRecorder`` enters and leaves it)
+MODELED: list = []
+
+
+def abstract(t: torch.Tensor) -> bool:
+    """True for a tensor with no storage to launch on: on the meta device,
+    or a ``FakeTensor`` (which names the device it stands for)."""
+    return t.device.type == "meta" or isinstance(t, FakeTensor)
+
+
+def _empty_like_spec(like: torch.Tensor, spec):
+    """Empty tensors on ``like``'s device for a ``shapes`` spec: one
+    (shape, dtype), or a tuple of them and None."""
+    if spec is None:
+        return None
+    if isinstance(spec[1], torch.dtype):
+        return like.new_empty(spec[0], dtype=spec[1])
+    return tuple(_empty_like_spec(like, s) for s in spec)
 
 
 reach_chunk_product = KernelWrapper("reach_chunk_product", reach_chunk_product_ref, _reach)

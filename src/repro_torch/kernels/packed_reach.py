@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from .checks import MAX_SMEM_BYTES, check_fold, check_ids, check_status, require, stream, tenants
+from .cost import INT8_OPS, Cost, total
 from .reach import GROUPS, MAX_GROUP_W
 
 SOURCE = "packed_reach"
@@ -102,6 +103,23 @@ def grid(n_classes: int, lp: int, rows: int, n_chunks: int, n_tenants: int = 1,
     wpb = min(max(min(-(-tenant_units * n_tenants // sms), tenant_units), 1), 32)
     blocks = min(-(-tenant_units // wpb), max(sms * per_sm // n_tenants, 1))
     return blocks, n_tenants, 32 * wpb
+
+
+def shapes(Np, ids):
+    """The output's (shape, dtype): (C, ℓp, W) int32 packed products."""
+    return (ids.shape[0], Np.shape[-2], Np.shape[-1]), torch.int32
+
+
+def cost(Np, ids, *, steps=None, ell=None) -> Cost:
+    """2·ℓ³ operations a step (K1's product, on words) over ``steps`` steps
+    (default all C·k) and ℓ live states (default ℓp); bytes: the ids, Np and
+    the products, each once."""
+    C, k = ids.shape
+    lp, W = Np.shape[-2], Np.shape[-1]
+    steps = C * k if steps is None else steps
+    ell = lp if ell is None else ell
+    return Cost(total(lambda s, e: 2 * s * e ** 3, steps, ell),
+                4.0 * (C * k + Np.numel() + C * lp * W), INT8_OPS)
 
 
 def fold_rows(

@@ -25,6 +25,7 @@ from ..core.matrices import pack_bits_torch
 from .checks import (
     MAX_SMEM_BYTES, check_ids, check_status, check_table, derived, require, stream, tenants,
 )
+from .cost import INT8_OPS, Cost, total
 
 SOURCE = "reach"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -111,6 +112,24 @@ def tenant_group_tables(N: torch.Tensor, g: int) -> torch.Tensor:
     T = 1 if N.dim() == 3 else N.shape[0]
     flat = group_table(N, g).reshape(T, -1)
     return F.pad(flat, (0, -flat.shape[1] % 4)).contiguous()
+
+
+def shapes(N, ids):
+    """The output's (shape, dtype): (C, ℓp, ℓp) f32 products."""
+    lp = N.shape[-1]
+    return (ids.shape[0], lp, lp), torch.float32
+
+
+def cost(N, ids, *, steps=None, ell=None) -> Cost:
+    """2·ℓ³ operations a step (one ℓ × ℓ Boolean product) over ``steps``
+    steps (default every one of the C·k) and ℓ live states (default ℓp);
+    bytes: the ids, N and the products, each once."""
+    C, k = ids.shape
+    lp = N.shape[-1]
+    steps = C * k if steps is None else steps
+    ell = lp if ell is None else ell
+    return Cost(total(lambda s, e: 2 * s * e ** 3, steps, ell),
+                4.0 * (C * k + N.numel() + C * lp * lp), INT8_OPS)
 
 
 def launch(lib: ctypes.CDLL, N: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

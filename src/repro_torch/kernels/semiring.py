@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from .checks import check_status, require, stream
+from .cost import INT8_OPS, Cost
 
 SOURCE = "semiring"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -43,6 +44,22 @@ def plan(m: int, n: int) -> Tuple[str, int]:
         return "vecmat", 0
     cover = {t: -(-m // t) * -(-n // t) * t * t for t in TILES}
     return "tiled", min(TILES, key=lambda t: (cover[t], -t))
+
+
+def shapes(a, b):
+    """The output's (shape, dtype): (n, m, n') f32."""
+    return (a.shape[0], a.shape[1], b.shape[2]), torch.float32
+
+
+def cost(a, b, *, ell=None) -> Cost:
+    """2·m·k·n' operations a product of the batch, each of m, k, n' that is
+    not 1 counted at ``ell`` live states where given (the parser's ℓ of ℓp);
+    bytes: both operands and the output, each once."""
+    batch, m, k = a.shape
+    n = b.shape[2]
+    live = [d if ell is None or d == 1 else ell for d in (m, k, n)]
+    return Cost(2.0 * batch * live[0] * live[1] * live[2],
+                4.0 * batch * (m * k + k * n + m * n), INT8_OPS)
 
 
 def launch(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,33 @@ import torch
 
 from . import packed_reach
 from .checks import check_ids, require
+from .cost import INT8_OPS, Cost, total
 
 SOURCE = "packed_reach"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "repro_sparse_reach_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
+
+
+def shapes(Np, ids, R0):
+    """The output's (shape, dtype): (C, S, W) int32 folded rows."""
+    return tuple(R0.shape), torch.int32
+
+
+def cost(Np, ids, R0, *, steps=None, ell=None, rows=None) -> Cost:
+    """2·w̄·ℓ² operations a step (w̄ rows through an ℓ × ℓ table) over
+    ``steps`` steps (default all C·k), ℓ live states (default ℓp) and w̄
+    rows a chunk (default all S, the run's mean feasible width where it is
+    known); bytes: the ids, Np, R0 and the output, each once."""
+    C, k = ids.shape
+    S, W = R0.shape[1], R0.shape[2]
+    lp = Np.shape[-2]
+    steps = C * k if steps is None else steps
+    ell = lp if ell is None else ell
+    rows = S if rows is None else rows
+    return Cost(total(lambda s, w, e: 2 * s * w * e * e, steps, rows, ell),
+                4.0 * (C * k + Np.numel() + 2 * C * S * W), INT8_OPS)
 
 
 def launch(

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from .checks import MAX_SMEM_BYTES, check_status, require, stream
+from .cost import Cost, float_rate
 
 SOURCE = "ssd_chunk"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,6 +35,33 @@ KERNELS = {"simt": 0, "mma": 1, "tf32": 2}
 # the tensor-core kernel of each operand type, and the C function that sizes it
 TENSOR_CORE = {torch.bfloat16: ("mma", "repro_ssd_chunk_tc_smem_bytes"),
                torch.float32: ("tf32", "repro_ssd_chunk_tf32_smem_bytes")}
+
+
+def shapes(xdt, cs, B, C, S_prev, *, outputs="both"):
+    """The outputs' (shape, dtype): y (P, q, hp) f32 and S_c (P, n, hp)
+    f32, each None where ``outputs`` does not ask for it."""
+    P, q, hp = xdt.shape
+    n = B.shape[2]
+    return ((P, q, hp), torch.float32) if outputs in ("both", "y") else None, \
+        ((P, n, hp), torch.float32) if outputs in ("both", "state") else None
+
+
+def cost(xdt, cs, B, C, S_prev, *, outputs="both") -> Cost:
+    """By ``outputs``: y reads xdt, cs, B, C, S_prev and writes y with
+    q(q+1)(n + hp) + 2qn·hp operations a program (C·Bᵀ and (L∘CB)·xdt over
+    the triangle, C·S_prevᵀ); S_c reads xdt, cs, B and writes S_c with
+    2qn·hp; ``"both"``, the union; at the rate of the operands' type."""
+    P, q, hp = xdt.shape
+    n = B.shape[2]
+    e = xdt.element_size()
+    ops_y = q * (q + 1) * (n + hp) + 2.0 * q * n * hp
+    ops_s = 2.0 * q * n * hp
+    common = q * hp * e + 4 * q + q * n * e                     # xdt, cs, B
+    bytes_y = q * n * e + 4 * hp * n + 4 * q * hp                # C, S_prev, y
+    bytes_s = 4 * n * hp                                         # S_c
+    n_ops = P * {"y": ops_y, "state": ops_s}.get(outputs, ops_y + ops_s)
+    n_bytes = P * (common + {"y": bytes_y, "state": bytes_s}.get(outputs, bytes_y + bytes_s))
+    return Cost(float(n_ops), float(n_bytes), float_rate(xdt.dtype))
 
 
 def plan(lib, xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

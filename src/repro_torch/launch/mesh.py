@@ -24,8 +24,15 @@ tensors on the card (PyTorch 2.11, an H100: a segmentation fault in
 the host instead (``host_staged_collectives``, which counts the calls and
 the bytes each rank sends in ``STAGED_TRAFFIC``).
 
-``make_production_mesh`` (the reference's 256 / 512-chip TPU shapes) waits
-for the LM stack's ``launch/`` tools.
+``make_production_mesh`` gives the reference's production shapes, (16, 16)
+('data', 'model') and (2, 16, 16) ('pod', 'data', 'model'), in one process:
+it initializes PyTorch's fake process group of 256 or 512 ranks (this
+process is rank 0; every collective returns at once and moves nothing), the
+counterpart of the reference's 512 placeholder XLA host devices.  A mesh
+over the fake group is the dry-run's (``launch/dryrun.py``): its
+``DeviceMesh`` is of the card's type, as the production mesh's would be,
+and it places tensors with no storage (the meta device), whose programs are
+traced and never run.
 """
 
 from __future__ import annotations
@@ -65,10 +72,18 @@ class ParseMesh:
             from torch.distributed.device_mesh import init_device_mesh
 
             self.backend: Optional[str] = str(dist.get_backend())
-            device_type = "cuda" if "nccl" in self.backend else "cpu"
-            self.device_mesh = init_device_mesh(
-                device_type, shape, mesh_dim_names=self.axis_names
-            )
+            if self.backend == "fake":
+                # the card's type without needing a card: no device is set
+                from torch.distributed.device_mesh import DeviceMesh
+
+                self.device_mesh = DeviceMesh(
+                    "cuda", np.arange(n).reshape(shape), mesh_dim_names=self.axis_names
+                )
+            else:
+                device_type = "cuda" if "nccl" in self.backend else "cpu"
+                self.device_mesh = init_device_mesh(
+                    device_type, shape, mesh_dim_names=self.axis_names
+                )
             self.rank = dist.get_rank()
             self._ranks = self.device_mesh.mesh.cpu().numpy().reshape(shape)
         else:
@@ -90,17 +105,23 @@ class ParseMesh:
         ("cpu" or "cuda"): the mesh's own where the types agree, else one
         built once, over the same ranks and axis names (collective: every
         rank asks for it in the same order).  A gloo mesh for tensors on the
-        card installs ``host_staged_collectives`` first."""
+        card installs ``host_staged_collectives`` first.  A mesh over the
+        fake process group places meta tensors (and the card's) on its own
+        ``DeviceMesh``, and tensors of any other type on one of theirs."""
         if self.device_mesh is None:
             raise ValueError("the 1-rank mesh places no DTensor")
-        if self.device_mesh.device_type == device_type:
+        if self.device_mesh.device_type == device_type or (
+            self.backend == "fake" and device_type == "meta"
+        ):
             return self.device_mesh
         if device_type not in self._device_meshes:
-            if device_type != "cuda" or "gloo" not in self.backend:
+            fake = self.backend == "fake"
+            if not fake and (device_type != "cuda" or "gloo" not in self.backend):
                 raise ValueError(f"a {self.backend} mesh carries no {device_type} tensors")
             from torch.distributed.device_mesh import DeviceMesh
 
-            host_staged_collectives()
+            if not fake:
+                host_staged_collectives()
             self._device_meshes[device_type] = DeviceMesh(
                 device_type, self.device_mesh.mesh, mesh_dim_names=self.axis_names
             )
@@ -126,12 +147,16 @@ class ParseMesh:
             return None
         if len(axes) == 1:
             return self.device_mesh.get_group(axes[0])
-        if int(np.prod([self.shape[a] for a in axes])) != self.size:
+        if int(np.prod([self.shape[a] for a in axes])) == self.size:
+            return dist.group.WORLD
+        if self.backend != "fake":
             raise ValueError(
                 f"a group of the axes {axes} would leave out ranks of {self.shape}: "
                 "several axes make a group only where they span every rank"
             )
-        return dist.group.WORLD
+        # the production mesh's chunk axes ('pod', 'data') beside 'model':
+        # their flattened sub-mesh's group
+        return self.device_mesh[axes]._flatten().get_group()
 
     def members(self, axes: Sequence[str]) -> List[int]:
         """Global ranks of ``group(axes)`` in group-rank order."""
@@ -215,6 +240,34 @@ def host_staged_collectives(key: str = "CUDA") -> None:
         lib.impl(name, counted(name, fn), key)
     lib.impl("wait_tensor", lambda t: t, key)
     _STAGED.append(lib)
+
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ParseMesh:
+    """The reference's production mesh: (16, 16) ('data', 'model'), or
+    (2, 16, 16) ('pod', 'data', 'model') with ``multi_pod``, over the fake
+    process group of 256 or 512 ranks, which this initializes (rank 0)
+    when no group is, or in place of a fake group of the other size.  A
+    real group raises: it runs programs, and the production mesh is only
+    traced."""
+    shape, axes = PRODUCTION[bool(multi_pod)]
+    n = int(np.prod(shape))
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError(
+                f"the production mesh needs the fake process group of {n} ranks, but a "
+                f"{dist.get_backend()} group of {dist.get_world_size()} is initialized"
+            )
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    return ParseMesh(shape, axes)
 
 
 def make_host_mesh(shape: Tuple[int, ...] = (1,), axes: Tuple[str, ...] = ("data",)) -> ParseMesh:

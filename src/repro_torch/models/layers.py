@@ -22,6 +22,8 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import whole_dim
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -136,13 +138,21 @@ def decode_attention(
     b, S, kv, hd = k_cache.shape
     h = q.shape[2]
     if not grouped:
-        k_cache = repeat_kv(k_cache, groups)[:, :, :h]
-        v_cache = repeat_kv(v_cache, groups)[:, :, :h]
+        # repeat_kv(cache, groups)[:, :, :h] as one gather: its reshape
+        # flattens the kv heads beside slots split over 'model', which
+        # DTensor (torch 2.11) refuses
+        rep = torch.arange(h, device=k_cache.device) // groups
+        k_cache = k_cache.index_select(2, rep)
+        v_cache = v_cache.index_select(2, rep)
         kv = h
         groups = 1
     assert h == kv * groups, (h, kv, groups)
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(b, 1, kv, groups, hd)
+    # on a mesh q's heads are split over 'model' where h divides it, and kv
+    # groups of them need not line up with the split (mixtral at tp 16: 3
+    # heads a rank, groups of 6), which DTensor cannot reshape in place: one
+    # token's q is whole on every rank first (the identity on a plain tensor)
+    qg = whole_dim(q, 2).reshape(b, 1, kv, groups, hd)
     s = torch.einsum("bqcgd,bscd->bcgqs", qg.float(), k_cache.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)

@@ -245,11 +245,11 @@ def ssm_decode_step(
     a = torch.exp(dt * A)                                             # (b, nh)
     xdt = xs * dt.to(xs.dtype)[..., None]                             # (b, nh, hp)
 
-    new_state = (
-        a[..., None, None] * state
-        + torch.einsum("bhp,bhn->bhpn", xdt, Bh).float()
-    )
-    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch.float()) + params["D"][None, :, None] * xs
+    # products and a sum over n, not einsums: an einsum flattens (b, nh) into
+    # one batch dim, which DTensor (torch 2.11) cannot do where the batch is
+    # split over 'data' and the heads over 'model'
+    new_state = a[..., None, None] * state + (xdt[..., :, None] * Bh[..., None, :]).float()
+    y = (new_state * Ch.float()[..., None, :]).sum(-1) + params["D"][None, :, None] * xs
     y = y.reshape(b, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm_w"], rms_eps)
     return y @ params["w_out"], new_state, new_conv_cache

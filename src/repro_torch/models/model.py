@@ -536,9 +536,14 @@ def _decode_attn_block(p, x, cfg, plan, cache_k, cache_v, slot_pos, pos, window,
     shard of the cache holds the slot)."""
     b = x.shape[0]
     xn = rms_norm(x, p["norm1"], cfg.rms_eps)
-    q = torch.einsum("bld,dhk->blhk", xn, p["wq"])
-    k = torch.einsum("bld,dhk->blhk", xn, p["wk"])
-    v = torch.einsum("bld,dhk->blhk", xn, p["wv"])
+    # the weights at their tensor-parallel layout, as the prefill's
+    # attention takes them (``_attention``): used as stored (FSDP-split),
+    # DTensor may split the projection's flattened heads × head_dim unevenly
+    # over 'model', which it cannot view back as heads (internvl2's 3 kv
+    # heads at tp 16)
+    q = torch.einsum("bld,dhk->blhk", xn, shard(p["wq"], (None, "heads", None)))
+    k = torch.einsum("bld,dhk->blhk", xn, shard(p["wk"], (None, "kv_heads", None)))
+    v = torch.einsum("bld,dhk->blhk", xn, shard(p["wv"], (None, "kv_heads", None)))
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
@@ -552,7 +557,7 @@ def _decode_attn_block(p, x, cfg, plan, cache_k, cache_v, slot_pos, pos, window,
         groups=plan.groups, grouped=plan.grouped,
         window=window, softcap=cfg.attn_logit_softcap, row_start=row_start,
     )
-    h = x + torch.einsum("blhk,hkd->bld", o.to(x.dtype), p["wo"])
+    h = x + torch.einsum("blhk,hkd->bld", o.to(x.dtype), shard(p["wo"], ("heads", None, None)))
     if "w_gate" in p:
         h = h + swiglu(rms_norm(h, p["norm2"], cfg.rms_eps), p["w_gate"], p["w_up"], p["w_down"])
     elif "moe" in p:

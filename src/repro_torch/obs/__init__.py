@@ -58,9 +58,9 @@ class ObsConfig:
     O(1) host mutations); ``span_log`` adds a JSONL sink for finished spans;
     ``profiler`` wraps every span in a ``torch.profiler.record_function`` so
     phase names appear on profiler timelines; ``max_spans`` bounds the
-    tracer's in-memory ring buffer.  ``hlo`` keeps the reference's field and
-    default so configs round-trip; the port has no static cost to attach
-    yet (``Parser.stats()["hlo"]`` is None, ROADMAP Queue 1 item 12).
+    tracer's in-memory ring buffer.  ``hlo`` attaches the phase programs'
+    static modeled cost to ``Parser.stats()["hlo"]`` when tracing is on
+    (``ParserEngine.phase_static_cost``: one trace of each phase a bucket).
     """
 
     enabled: bool = False

@@ -92,7 +92,8 @@ METRIC_CATALOG: Dict[str, Tuple] = {
         "histogram", "observed feasible-start width per parse",
         (1, 2, 4, 8, 16, 32, 64, 128, 256, 512),
     ),
-    # static modeled cost (launch/hlo_stats.py, per compiled bucket + phase)
+    # static modeled cost (launch/op_stats.py, per traced bucket + phase; the
+    # help texts are the reference's, which the port's catalog equals)
     "hlo_flops": ("gauge", "static flops of one compiled phase program"),
     "hlo_bytes": ("gauge", "static HBM-model bytes of one compiled phase program"),
     "hlo_collective_bytes": (

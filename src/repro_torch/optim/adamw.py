@@ -97,6 +97,21 @@ def init_opt_state(params: Any) -> OptState:
     )
 
 
+def abstract_opt_state(abstract_params: Any) -> OptState:
+    """The state of params with no storage (``train/step.py``'s abstract
+    inputs): f32 masters and moments of the params' shapes and layouts (on
+    the meta device, DTensors where the params are), and a concrete step 0
+    (a host int), which ``apply_updates`` reads to schedule the learning
+    rate."""
+    f32 = lambda p: torch.empty_like(p, dtype=torch.float32)  # noqa: E731
+    return OptState(
+        step=0,
+        master=tree_map(f32, abstract_params),
+        m=tree_map(f32, abstract_params),
+        v=tree_map(f32, abstract_params),
+    )
+
+
 def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
     """Views of ``t`` along its leading axis, each of at most CHUNK elements
     (one view of the whole tensor when it is small or 0-d)."""

@@ -22,8 +22,11 @@ rank nothing is placed and ``shard`` is the identity.  Gradients come from
 SSD (K7) are ``torch.autograd.Function``s on each rank's local heads
 (``ops.flash_attention_local``, ``mamba.ssd_local``): the kernels run
 forward (and again in remat's recompute), the backward recomputes their
-plain versions.  The dry-run's ``abstract_*`` inputs wait for the
-``launch/`` tools (ROADMAP item 12c).
+plain versions.  The dry-run's inputs (``abstract_train_inputs``,
+``abstract_prefill_inputs``, ``abstract_decode_inputs``) have the real
+steps' shapes, dtypes and layouts and no storage: tensors on the meta
+device, placed as ``shard_params`` / ``shard_caches`` place real ones
+(``launch/dryrun.py`` traces the steps on them).
 """
 
 from __future__ import annotations
@@ -42,11 +45,19 @@ from ..models.model import (
     abstract_params,
     decode_step,
     forward_train,
+    make_cache,
     no_shard,
     param_logical_axes,
     prefill,
 )
-from ..optim.adamw import AdamWConfig, OptState, apply_updates, tree_leaves, tree_map
+from ..optim.adamw import (
+    AdamWConfig,
+    OptState,
+    abstract_opt_state,
+    apply_updates,
+    tree_leaves,
+    tree_map,
+)
 from ..parallel.sharding import MeshRules, NamedSharding, PartitionSpec, place
 
 Params = Any
@@ -282,3 +293,58 @@ def make_decode_step(cfg: ModelConfig, mesh, rules: MeshRules, tp: int = 1) -> C
             return decode_step(params, caches, token, cfg, tp, shard)
 
     return serve_step
+
+
+# -------------------------------------------------- abstract inputs (dry-run)
+
+
+def _abstract(shape: Tuple[int, ...], dtype, logical, mesh, rules: MeshRules):
+    """A meta tensor of ``shape`` placed by its logical axes."""
+    t = torch.empty(shape, dtype=dtype, device="meta")
+    return place_tree(t, NamedSharding(mesh, shape_aware_spec(shape, logical, mesh, rules)))
+
+
+def abstract_train_inputs(cfg: ModelConfig, plan: TrainPlan, mesh, rules: MeshRules):
+    """(params, opt_state, batch) of ``make_train_step`` with no storage:
+    params placed by ``param_shardings`` (``shard_params``), the optimizer
+    state laid out as the params (its step a concrete 0), the tokens
+    (accum, microbatch, seq) int32 with the microbatch over 'batch', and a
+    frontend config's features (accum, microbatch, n_extra, feat)."""
+    params = shard_params(abstract_params(cfg, plan.tp), mesh, rules, cfg, plan.tp)
+    opt_state = abstract_opt_state(params)
+    lead = (plan.accum_steps, plan.microbatch)
+    batch = {"tokens": _abstract(lead + (plan.seq_len,), torch.int32, (None, "batch", None),
+                                 mesh, rules)}
+    if cfg.frontend is not None:
+        fe = cfg.frontend
+        batch["extra"] = _abstract(lead + (fe.n_extra_tokens, fe.feature_dim),
+                                   torch_dtype(cfg.dtype), (None, "batch", None, None),
+                                   mesh, rules)
+    return params, opt_state, batch
+
+
+def abstract_prefill_inputs(cfg: ModelConfig, shape: ShapeSpec, mesh, rules: MeshRules, tp: int):
+    """(params, tokens (batch, seq) int32, extra or None) of
+    ``make_prefill_step`` with no storage, placed as the real ones."""
+    params = shard_params(abstract_params(cfg, tp), mesh, rules, cfg, tp)
+    tokens = _abstract((shape.global_batch, shape.seq_len), torch.int32, ("batch", None),
+                       mesh, rules)
+    extra = None
+    if cfg.frontend is not None:
+        fe = cfg.frontend
+        extra = _abstract((shape.global_batch, fe.n_extra_tokens, fe.feature_dim),
+                          torch_dtype(cfg.dtype), ("batch", None, None), mesh, rules)
+    return params, tokens, extra
+
+
+def abstract_decode_inputs(cfg: ModelConfig, shape: ShapeSpec, mesh, rules: MeshRules, tp: int):
+    """(params, caches, token (batch, 1) int32) of ``make_decode_step`` with
+    no storage: ``make_cache``'s caches on the meta device placed by
+    ``shard_caches``, at position seq_len − 1 (the context full: every
+    slot live)."""
+    params = shard_params(abstract_params(cfg, tp), mesh, rules, cfg, tp)
+    caches = make_cache(cfg, shape.global_batch, shape.seq_len, tp, device="meta")
+    caches["pos"] = shape.seq_len - 1
+    caches = shard_caches(caches, cfg, mesh, rules)
+    token = _abstract((shape.global_batch, 1), torch.int32, ("batch", None), mesh, rules)
+    return params, caches, token

@@ -3,8 +3,9 @@ PyTorch version, the ``cuda``, ``packed`` and ``sparse`` kernel backends
 against the ``torch`` backend (parses, and streams with splices), the
 grouped build&merge of a stream's ``result()`` against per-leaf launches,
 one reach launch a stream-service step, 1-rank mesh parses against the
-non-mesh parse, and the LM prefill through K6 and
-K7 against the same model on its plain versions.
+non-mesh parse, the LM prefill through K6 and K7 against the same model on
+its plain versions, and ``phase_static_cost``'s modeled launches against a
+real parse's.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports no JAX, so it runs on a host that has only PyTorch:
@@ -1186,3 +1187,27 @@ def test_forward_train_on_the_card_equals_the_plain_versions(dev, arch):
     for a, w in zip(got, want):
         rel = ((a.cpu() - w).norm() / w.norm().clamp_min(1e-30)).item()
         assert rel <= 1e-3
+
+
+@pytest.mark.parametrize("backend", ["cuda", "packed", "sparse"])
+def test_phase_static_cost_models_the_real_launches(dev, backend):
+    """``phase_static_cost`` at a TRAFFIC log's bucket: the modeled launches
+    by kernel (``phase_traces``) equal the launches of the same engine's real
+    parse of the log (counted from 0)."""
+    rng = np.random.default_rng(5)
+    lines = [f"{m} /{'x' * int(rng.integers(1, 9))} {int(rng.integers(100, 600))} ok\n"
+             for m in rng.choice(["GET", "POST", "PUT"], 400)]
+    text = "".join(lines).encode()
+    p = Parser(ParserConfig(regex=JOIN_PATTERNS["traffic"], backend=backend,
+                            kernel=backend != "cuda", n_chunks=64), device=dev)
+    eng = p.engine
+    c, k = eng.bucket_shape(len(eng.classes_of_text(text)), 64)
+    modeled: dict = {}
+    for stats in eng.phase_traces(c, k).values():
+        for name, n in stats.kernel_launches.items():
+            modeled[name] = modeled.get(name, 0) + n
+    assert set(eng.phase_static_cost(c, k)) == {"reach", "join", "build_merge", "total"}
+    ops.reset_launches()
+    assert p.parse(text).ok
+    torch.cuda.synchronize()
+    assert {name: n for name, n in ops.launch_counts().items() if n} == modeled

@@ -69,7 +69,8 @@ or ``repro``).  Phases, each printing one JSON line:
              (192 on the 8 patterns (a|b)*a(a|b){k}, 4 texts of 4 KiB each;
              48 on TRAFFIC, 16 each on ``cuda``, ``packed`` and ``sparse``
              with ``kernel=True``, 4 logs of 64 KiB each; 16 on e125, one
-             text of 16 KiB each: 15.3 MiB).  ``parse_batch`` (cold, counted)
+             text of 64 KiB each: 16 MiB; e125's ℓp-512 bucket walks its
+             window ℓ' = 288 in K1 and K2).  ``parse_batch`` (cold, counted)
              and a ``FleetParseService`` drain of the same requests through
              ``submit`` (warm); every tenant's result equals a solo
              ``Parser`` on its backend; each bucket dispatch makes one reach
@@ -79,8 +80,10 @@ or ``repro``).  Phases, each printing one JSON line:
              solo loop (and per bucket), the table cache's hits and misses,
              buckets, ``compile_count``, and each dispatch's grids; then K1,
              K2, K4 and K5 over the tenant stacks against their plain
-             versions (``kernel`` lines, ``case`` "fleet", K1's strip and K2's
-             row fallbacks on e125's ℓp-512 bucket)
+             versions (``kernel`` lines: ``case`` "fleet", "fleet_window" for
+             e125's bucket at its window, and K1's strip and K2's row kernels
+             on e125's stack with its block structure broken, "fleet_strip",
+             "fleet_rows")
   analysis   for TRAFFIC and e125: the static ``AnalysisReport``, the
              ``backend="auto"`` choice on the card (a parser built with it
              runs that path), whether the cost model's ranking agrees with
@@ -2299,7 +2302,8 @@ def obs_trace_phase(dev, cfg_t, traffic: bytes, r_traffic, host_secs) -> None:
 FLEET_AB_PATTERNS = [f"(a|b)*a(a|b){{{k}}}" for k in range(1, 9)]
 FLEET_AB, FLEET_AB_TEXTS, FLEET_AB_BYTES = 192, 4, 4 << 10
 FLEET_TRAFFIC, FLEET_TRAFFIC_TEXTS, FLEET_BYTES = 48, 4, 64 << 10
-FLEET_E125, FLEET_E125_BYTES = 16, 16 << 10
+FLEET_E125, FLEET_E125_BYTES = 16, 64 << 10
+FLEET_STRIP_K = 256         # steps a chunk of the strip / row kernels' records
 FLEET_MAX_BATCH = 1024      # a bucket's requests in one dispatch
 
 
@@ -2308,9 +2312,9 @@ def fleet_tenants(seed: int):
     in 5 automaton buckets: 192 on the 8 patterns (a|b)*a(a|b){k} (cuda, 4
     texts of 4 KiB of random a/b each), 48 on TRAFFIC (16 each on cuda,
     packed and sparse with kernel=True, 4 logs of 64 KiB each) and 16 on
-    e125 (cuda, one text of 16 KiB each: 64 KiB until the training phases
-    joined the script; its strip-kernel dispatch cost ~9.3 s); about 15.3
-    MiB a sweep.  Chunks of about 1024 characters."""
+    e125 (cuda, one text of 64 KiB each, in the ℓp-512 bucket whose window
+    ℓ' = 288 K1 and K2 walk); 16 MiB a sweep.  Chunks of about 1024
+    characters."""
     import numpy as np
 
     from repro_torch import ParserConfig
@@ -2338,7 +2342,8 @@ def fleet_tenants(seed: int):
 
 class DispatchLog:
     """Launch counts of each bucket dispatch of a fleet: ``run_bucket``
-    wrapped, the counts read before and after each (synchronized)."""
+    wrapped, the counts read before and after each (synchronized), with the
+    launches' grids, plans and the live window of the dispatch's stack."""
 
     KERNELS = ("reach_chunk_product", "packed_reach_chunk_product", "sparse_reach_rows",
                "build_merge_packed", "semiring_matmul")
@@ -2347,29 +2352,35 @@ class DispatchLog:
         import torch
 
         from repro_torch.core.backend import next_pow2
-        from repro_torch.kernels import build, ops, packed_reach, reach
+        from repro_torch.kernels import build, ops, packed_reach, reach, window
 
         self.records = []
         run = engine.run_bucket
 
         def grids(bucket, items):
-            """The bucket's reach and K2 launch grids (x, y = tenants, threads)."""
-            (key, A1, lp), (c, _) = bucket
+            """The bucket's reach and K2 launch grids (x, y = tenants,
+            threads) and plans, at the window ℓ' that the dispatch's gathered
+            stack carries (K1's group kernel and K2's walk visit ℓ' states)."""
+            (key, A1, lp), (c, k) = bucket
             per = {}
-            for tid, _ in items:
-                per[tid] = per.get(tid, 0) + 1
-            T = next_pow2(len(per))
-            C = T * next_pow2(max(per.values())) * c
-            backend = engine.runner(bucket[0]).backend
+            for tid, classes in items:
+                per.setdefault(tid, []).append(classes)
+            runner = engine.runner(bucket[0])
+            rows, _ = runner.host_batch(c, k, per)
+            lw = window.width(runner.operands(rows)[0])
+            T = len(rows)
+            C = T * next_pow2(max(len(v) for v in per.values())) * c
             if key.startswith("cuda"):
-                reach_grid, reach_kind = reach.grid(A1, lp, C, T), reach.plan(A1, lp)[0]
+                reach_grid = reach.grid(A1, lp, C, T, lw=lw)
+                reach_kind = reach.plan(A1, lp, lw)[0]
             else:
-                rows = backend._width if key.startswith("sparse") else lp
-                reach_grid = packed_reach.grid(A1, lp, rows, C, T)
-                reach_kind = packed_reach.plan(A1, lp, rows)[0]
-            return {"chunks": C, "reach": list(reach_grid), "reach_kernel": reach_kind,
-                    "build_merge": list(build.grid(A1, lp, C, T)),
-                    "build_merge_kernel": build.plan(A1, lp, C).kernel}
+                width = runner.backend._width if key.startswith("sparse") else lp
+                reach_grid = packed_reach.grid(A1, lp, width, C, T)
+                reach_kind = packed_reach.plan(A1, lp, width)[0]
+            return {"chunks": C, "ell_pad": lp, "window": lw, "reach": list(reach_grid),
+                    "reach_kernel": reach_kind,
+                    "build_merge": list(build.grid(A1, lp, C, T, lw=lw)),
+                    "build_merge_kernel": build.plan(A1, lp, C, lw).kernel}
 
         def run_bucket(bucket, items):
             torch.cuda.synchronize()
@@ -2401,11 +2412,15 @@ def fleet_kernel_records(fleet, tenants, counts):
     """K1, K2, K4 and K5 over a bucket's tenant stack, at the fleet run's
     shapes, against their plain versions (``torch.equal``): K1 and K2 on the
     192-tenant a/b bucket (their group kernel and walk, ``case`` "fleet")
-    and on e125's (ℓp 512: K1's strip and K2's row fallback,
-    "fleet_strip", "fleet_rows"), K4 and K5 on TRAFFIC's packed and sparse
-    buckets; one record a launch kind, with the warm run's launches of that
-    kind (``counts``) and the launch's grid.  Bounds count each tenant's real
-    steps at its own ℓ (K5 at its mean feasible width)."""
+    and on e125's (ℓp 512, window ℓ' = 288: the group kernel and the walk
+    over the live states, "fleet_window"), K4 and K5 on TRAFFIC's packed and
+    sparse buckets; then K1's strip and K2's row kernel ("fleet_strip",
+    "fleet_rows"), which no fleet dispatch takes any more, on e125's stack
+    with its block structure broken (an arc into the last padded state: ℓ'
+    = ℓp), its chunks cut to FLEET_STRIP_K steps.  One record a launch
+    kind, with the warm run's launches of that kind (``counts``) and the
+    launch's grid.  Bounds count each tenant's real steps at its own ℓ (K5
+    at its mean feasible width)."""
     import numpy as np
     import torch
 
@@ -2415,7 +2430,7 @@ def fleet_kernel_records(fleet, tenants, counts):
         pack_transition_table_torch,
         sparse_init_rows,
     )
-    from repro_torch.kernels import build, ops, packed_reach, reach, sparse_reach
+    from repro_torch.kernels import build, ops, packed_reach, reach, sparse_reach, window
 
     engine = fleet.engine
 
@@ -2462,14 +2477,18 @@ def fleet_kernel_records(fleet, tenants, counts):
             if p_ms >= SLOW_CALL_MS:
                 fields["plain_ms"] = p_ms
         b_ms, b_by = bound_ms(cost)
+        shapes = {"bucket": "|".join(map(str, runner.key)),
+                  "tenants": int(args[0].shape[0]), "chunks": int(args[1].shape[0]),
+                  "k": int(args[1].shape[1]), "operands": [list(x.shape) for x in args]}
+        if name in ("reach_chunk_product", "build_merge_packed"):
+            A1, lp, lw = args[0].shape[-3], args[0].shape[-1], window.width(args[0])
+            plan = (reach.plan(A1, lp, lw) if name == "reach_chunk_product"
+                    else build.plan(A1, lp, shapes["chunks"], lw))
+            shapes.update(ell_pad=lp, window=lw, plan=list(plan))
         rec = {"name": name, "case": case, "route": "cuda", "source": extra["source"],
                "replaces": extra["replaces"], "launches": counts.get((name, case), 0),
                "max_abs_err": 0.0,
-               **fields, "bound_ms": b_ms, "bound_by": b_by,
-               "shapes": {"bucket": "|".join(map(str, runner.key)),
-                          "tenants": int(args[0].shape[0]), "chunks": int(args[1].shape[0]),
-                          "k": int(args[1].shape[1]),
-                          "operands": [list(x.shape) for x in args]},
+               **fields, "bound_ms": b_ms, "bound_by": b_by, "shapes": shapes,
                "grid": list(grid_xyz)}
         emit("kernel", pattern="fleet", tolerance=0, **rec)
         records.append(rec)
@@ -2490,24 +2509,48 @@ def fleet_kernel_records(fleet, tenants, counts):
            {"source": "src/repro_torch/csrc/build_merge.cu", "replaces": "src/repro/kernels/build.py:60"})
     del Jf, Jb
 
-    # e125's bucket: ℓp 257 → 512, where no group table fits: K1's strip and
-    # K2's row fallbacks over the tenant stack
+    # e125's bucket: ℓ = 257 padded to ℓp 512; the gathered stack carries
+    # its window ℓ' = 288, so K1 takes the group kernel and K2 the walk over
+    # the live states, the padded part written from the block algebra
     runner, tids, grid, N, I, F, ids, real, ells = bucket_inputs("e125")
     T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
     C, k = ids.shape
+    lw = window.width(N)
+    if (lp, lw) != (512, 288) or reach.plan(A1, lp, lw)[0] != "group" \
+            or build.plan(A1, lp, C, lw).kernel != "walk":
+        raise AssertionError(f"e125's bucket: ℓp {lp}, window {lw}: not the group kernel, walk")
+    k1 = {"source": "src/repro_torch/csrc/reach.cu", "replaces": "src/repro/kernels/reach.py:49"}
+    k2 = {"source": "src/repro_torch/csrc/build_merge.cu",
+          "replaces": "src/repro/kernels/build.py:60"}
     record("reach_chunk_product", ops.reach_chunk_product, (N, ids),
-           reach.cost(N, ids, steps=real, ell=ells), reach.grid(A1, lp, C, T), runner,
-           {"source": "src/repro_torch/csrc/reach.cu", "replaces": "src/repro/kernels/reach.py:49"},
-           case="fleet_strip")
+           reach.cost(N, ids, steps=real, ell=ells), reach.grid(A1, lp, C, T, lw=lw), runner, k1,
+           case="fleet_window")
     P = ops.reach_chunk_product(N, ids).reshape(grid.shape[:3] + (lp, lp))
     Jf, Jb = TorchBackend().join(P, I[:, None], F[:, None])
     Jf, Jb = Jf.reshape(C, lp).contiguous(), Jb.reshape(C, lp).contiguous()
     del P
     record("build_merge_packed", ops.build_merge_packed, (N, ids, Jf, Jb),
-           build.cost(N, ids, Jf, Jb, steps=real, ell=ells), build.grid(A1, lp, C, T), runner,
-           {"source": "src/repro_torch/csrc/build_merge.cu", "replaces": "src/repro/kernels/build.py:60"},
-           case="fleet_rows")
-    del Jf, Jb
+           build.cost(N, ids, Jf, Jb, steps=real, ell=ells), build.grid(A1, lp, C, T, lw=lw),
+           runner, k2, case="fleet_window")
+
+    # the strip and row kernels, on the same stack with its block structure
+    # broken: an arc from state 0 into the last padded state in class 0 of
+    # every tenant leaves no window short of ℓp
+    Nb = N.clone()
+    Nb[:, 0, 0, lp - 1] = 1.0
+    lw = window.live_window(Nb).width
+    if lw != lp or reach.plan(A1, lp)[0] != "strip" or build.plan(A1, lp, C).kernel != "rows":
+        raise AssertionError(f"the broken stack: window {lw}, not the strip and row kernels")
+    ids_b = ids[:, :FLEET_STRIP_K].contiguous()
+    real_b = (grid.reshape(-1, k)[:, :FLEET_STRIP_K] != runner.pad_class).reshape(T, -1).sum(
+        axis=1)[:len(tids)]
+    record("reach_chunk_product", ops.reach_chunk_product, (Nb, ids_b),
+           reach.cost(Nb, ids_b, steps=real_b, ell=ells), reach.grid(A1, lp, C, T), runner, k1,
+           case="fleet_strip")
+    record("build_merge_packed", ops.build_merge_packed, (Nb, ids_b, Jf, Jb),
+           build.cost(Nb, ids_b, Jf, Jb, steps=real_b, ell=ells), build.grid(A1, lp, C, T),
+           runner, k2, case="fleet_rows")
+    del Jf, Jb, Nb
 
     runner, tids, grid, N, I, F, ids, real, ells = bucket_inputs("traffic-packed")
     T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
@@ -2646,7 +2689,8 @@ def fleet_phase(args, dev):
                                                    "launches": drain_counts},
          k3_launches_by_tenants={str(t): n for t, n in k3.items()}, table_cache=cache)
     # the warm run's launches by kernel and plan: the group kernels and
-    # walks ("fleet") apart from the fallbacks
+    # walks over all ℓp ("fleet") and over a window ("fleet_window") apart
+    # from the fallbacks
     case = {"group": "fleet", "walk": "fleet", "strip": "fleet_strip", "rows": "fleet_rows",
             "fold": "fleet_fold"}
     by_case = {}
@@ -2655,7 +2699,10 @@ def fleet_phase(args, dev):
         reach_name = next(k for k in DispatchLog.KERNELS[:3] if n[k])
         for name, kind in ((reach_name, g["reach_kernel"]),
                            ("build_merge_packed", g["build_merge_kernel"])):
-            by_case[(name, case[kind])] = by_case.get((name, case[kind]), 0) + n[name]
+            on_window = g["window"] < g["ell_pad"] and kind in ("group", "walk") \
+                and name in ("reach_chunk_product", "build_merge_packed")     # K4 / K5 take none
+            label = "fleet_window" if on_window else case[kind]
+            by_case[(name, label)] = by_case.get((name, label), 0) + n[name]
     records = fleet_kernel_records(fleet, tenants, by_case)
     emit("fleet_phase_total", seconds=time.perf_counter() - t_phase)
     del fleet, solos, got

@@ -48,6 +48,12 @@ on one card, one after another.  Prints one JSON line per record:
       version with ``within_tolerance`` (rtol = atol = 2e-4): a build with a
       planted fault reports its error rather than stopping.
   k7f  the same for f32 alone (the f32 consistency prefill's type).
+  fleet  K1 and K2 over e125's fleet bucket as ``chip_smoke.py``'s fleet
+      gathers it: 16 tenants of 64 KiB (FLEET_E125, FLEET_E125_BYTES), 1024
+      chunks × 1024 at ℓp 512, the stack's live window attached where the
+      tree's fleet keeps one: ``ms`` and ``device_ms`` (one call each where
+      a call takes over SLOW_CALL_MS), equality with the plain version, the
+      window and the plans.
   join  the ``cuda`` backend's join phase (K3's 23 launches and the scan's
       host code) on both texts' chunk products: host-clock seconds of
       JOIN_RUNS joins in a row, the first right after the allocator's cache
@@ -217,6 +223,64 @@ def k1_records(label: str, regex: str, text: bytes, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def fleet_records(dev) -> None:
+    import torch
+
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.fleet import FleetEngine, TenantSpec
+    from repro_torch.kernels import build as build_launcher
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import reach as reach_launcher
+
+    eng = FleetEngine(device=dev)
+    per = {}
+    for j in range(cs.FLEET_E125):
+        eng.add_tenant(f"e{j}", TenantSpec(regex=cs.E125_RE, backend="cuda",
+                                           n_chunks=cs.FLEET_E125_BYTES // 1024))
+        text = cs.e125_text(cs.FLEET_E125_BYTES, 1000 + j)
+        per[f"e{j}"] = [eng.tenant(f"e{j}").classes_of_text(text)]
+    ts = eng.tenant("e0")
+    runner = eng.runner(ts.bucket_key)
+    c, k = ts.text_bucket(len(per["e0"][0]))
+    rows, grid = runner.host_batch(c, k, per)
+    N, I, F = runner.operands(rows)
+    ids = torch.from_numpy(grid.reshape(-1, k)).to(dev)
+    T, A1, lp = N.shape[0], N.shape[1], N.shape[-1]
+    C = ids.shape[0]
+    try:
+        from repro_torch.kernels import window
+    except ImportError:                       # a tree from before the live window
+        window = None
+    lw = lp if window is None else window.width(N)
+    plans = {"reach": list(reach_launcher.plan(A1, lp) if window is None
+                           else reach_launcher.plan(A1, lp, lw)),
+             "build_merge": list(build_launcher.plan(A1, lp, C) if window is None
+                                 else build_launcher.plan(A1, lp, C, lw))}
+
+    def timed(fn):
+        first = cs.time_ms(fn)
+        if first >= cs.SLOW_CALL_MS:
+            return {"ms": first, "device_ms": first}
+        return {"ms": first, "device_ms": cs.device_ms(fn)}
+
+    got = ops.reach_chunk_product(N, ids)
+    want = ops.reach_chunk_product.plain(N, ids)
+    equal = torch.equal(got, want)
+    emit("fleet", kernel="reach_chunk_product", tenants=T, chunks=C, k=k, ell_pad=lp, window=lw,
+         plan=plans["reach"], equal_plain=equal,
+         **timed(lambda: ops.reach_chunk_product(N, ids)))
+    Jf, Jb = TorchBackend().join(want.reshape(T, -1, c, lp, lp), I[:, None], F[:, None])
+    Jf, Jb = Jf.reshape(C, lp).contiguous(), Jb.reshape(C, lp).contiguous()
+    del got, want
+    args = (N, ids, Jf, Jb)
+    equal = torch.equal(ops.build_merge_packed(*args), ops.build_merge_packed.plain(*args))
+    emit("fleet", kernel="build_merge_packed", tenants=T, chunks=C, k=k, ell_pad=lp, window=lw,
+         plan=plans["build_merge"], equal_plain=equal,
+         **timed(lambda: ops.build_merge_packed(*args)))
+    del args, Jf, Jb, N
+    torch.cuda.empty_cache()
+
+
 def word_records(part: str, label: str, regex: str, text: bytes, dev) -> None:
     """K4 (``part`` "k4") or K5 ("k5") at chip_smoke.py's shapes for one text."""
     import torch
@@ -370,6 +434,8 @@ def main() -> int:
         k3_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
     if "k6" in parts:
         k6_records(dev, 0)
+    if "fleet" in parts:
+        fleet_records(dev)
     if "join" in parts:
         join_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
         join_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)

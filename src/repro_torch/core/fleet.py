@@ -26,8 +26,13 @@ axis does.  Three pieces make that servable:
                         so a warm dispatch gathers nothing, and the kernels'
                         per-table derivatives (K1's group tables, the packed
                         tables) are kept with them (``kernels/checks.py``
-                        ``derived``), so it builds nothing either.  Sparse
-                        buckets bind the member-max feasible width
+                        ``derived``), so it builds nothing either.  So is
+                        each gathered stack's live window (``kernels/
+                        window.py``), from the members' tables tested on the
+                        host when the stack is built: a bucket whose ℓp
+                        pads past its live states (e125, ℓ = 257 at ℓp
+                        512) runs K1 and K2 over the live states alone.
+                        Sparse buckets bind the member-max feasible width
                         (``SparseBackend.bind_shape``): a width ≥ any
                         member's own bound stays exact, so a dense-fallback
                         tenant can share a bucket with a reduced one.
@@ -54,6 +59,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import window
 from ..kernels.checks import check_class_ids
 from ..obs import ObsHandle
 from .backend import PackedBackend, ParserBackend, SparseBackend, get_backend, next_pow2
@@ -257,6 +263,7 @@ class _BucketRunner:
         self.tenant_rows: Dict[str, int] = {}
         self._host: List[CompiledTenantTables] = []
         self._stack: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+        self._extents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None   # per (row, class)
         self._core = make_fleet_core(backend)
         self._seen_shapes: set = set()
         self._gather_cache: Dict[Tuple[int, ...], Tuple[torch.Tensor, ...]] = {}
@@ -298,17 +305,24 @@ class _BucketRunner:
             # pad rows replicate row 0: a valid automaton for every backend
             # (their chunks are all-PAD and their outputs dropped)
             N[T:], I[T:], F[T:] = N[0], I[0], F[0]
+            # the live window's test, on the host copy: nothing is read back
+            self._extents = window.class_extents(torch.from_numpy(N))
             self._stack = tuple(torch.from_numpy(a).to(self.device) for a in (N, I, F))
         return self._stack
 
     def operands(self, rows: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(N, I, F) of the tenant rows ``rows``, gathered from the resident
-        stack once per row set."""
+        stack once per row set, the gathered N with the rows' live window
+        attached (``kernels/window.py``)."""
         key = tuple(rows.tolist())
         ops = self._gather_cache.get(key)
         if ops is None:
             idx = torch.from_numpy(rows.astype(np.int64)).to(self.device)
             ops = tuple(x.index_select(0, idx).contiguous() for x in self._ensure_stack())
+            at = torch.from_numpy(rows.astype(np.int64))
+            extent, ident = (x.index_select(0, at) for x in self._extents)
+            win = window.window_of(extent, ident, self.ell_pad)
+            window.attach(ops[0], win._replace(ident=win.ident.to(self.device)))
             self._gather_cache[key] = ops
         return ops
 

@@ -57,6 +57,24 @@
 //
 // Both write the packed (n_chunks, k, W) words of the plain version.
 //
+// The live window (kernels/window.py; the fleet's buckets padded past their
+// live states): where every table is block-diagonal, N[x] = diag(A_x, D_x)
+// with A_x over the lw live states and D_x in {0, I}, the live states'
+// frontiers never meet the padded ones.  The launcher then runs the walk
+// kernel as it is on the live block (the tables of A_x, the entries' first
+// lw states; e125's bucket at lp = 512: lw = 288, the solo e125 walk) into
+// a (n_chunks, k, lw/32) scratch, and build_merge_pad_kernel writes the
+// (n_chunks, k, lp/32) output: the walk's words, then the padded words from
+// the algebra.  The padded forward frontier is entry_f's while every step
+// so far has D = I and 0 from the first other step, the backward one
+// likewise from entry_b, so every row's padded words are entry_f & entry_b
+// there when every step of the chunk has D = I, else 0.  One warp a chunk
+// finds that flag from the chunk's ids, 32 at a time, and a per-class bit
+// (ident), packs the entries' padded words by __ballot_sync, and writes the
+// chunk's k rows as one coalesced run.  (A walk that carried the output's
+// stride itself spilled in every width.)  The row kernel has no window: it
+// walks every state.
+//
 // The tenant axis (the fleet's bucket dispatch, core/fleet.py), as in K1
 // (csrc/reach.cu): T automata of one bucket shape, N stacked (T, A+1, lp,
 // lp), their chunks (and entries, and outputs) in T equal runs of cpt.  The
@@ -428,6 +446,49 @@ WalkKernel walk_kernel(int W, int g, int lanes) {
   }
 }
 
+// The window's output: out (n_chunks, k, lp/32) from the walk's live words
+// live (n_chunks, k, lw/32) and the padded words of entry_f & entry_b
+// (n_chunks, lp) where every step of the chunk has D = I (ident, the
+// chunk's tenant's (n_classes) flags), else 0.  One warp a chunk.
+__global__ void build_merge_pad_kernel(const int32_t* __restrict__ ids,
+                                       const int32_t* __restrict__ ident,
+                                       const float* __restrict__ entry_f,
+                                       const float* __restrict__ entry_b,
+                                       const uint32_t* __restrict__ live,
+                                       uint32_t* __restrict__ out, int n_chunks, int k, int lp,
+                                       int lw, int n_classes, int cpt) {
+  const int lane = threadIdx.x & 31;
+  const int wp = lp / 32, wl = lw / 32, pw = wp - wl;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long chunk = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+                         (threadIdx.x >> 5);
+       chunk < n_chunks; chunk += warps) {
+    const int32_t* cid = ids + chunk * k;
+    const int32_t* flags = ident + chunk / cpt * n_classes;
+    bool flag = true;
+    for (int t0 = 0; t0 < k && flag; t0 += 32) {
+      const int t = t0 + lane;
+      flag = __all_sync(FULL, t >= k || __ldg(flags + __ldg(cid + t)) != 0);
+    }
+    uint32_t mine = 0u;          // lane p < pw: padded word p of entry_f & entry_b
+    for (int p = 0; p < pw; ++p) {
+      const long long at = chunk * lp + lw + 32 * p + lane;
+      const uint32_t wf = __ballot_sync(FULL, __ldg(entry_f + at) != 0.f);
+      const uint32_t wb = __ballot_sync(FULL, __ldg(entry_b + at) != 0.f);
+      if (lane == p) mine = flag ? wf & wb : 0u;
+    }
+    const uint32_t* src = live + chunk * k * wl;
+    uint32_t* dst = out + chunk * k * wp;
+    const int n = k * wp;
+    for (int e0 = 0; e0 < n; e0 += 32) {
+      const int e = e0 + lane;
+      const int t = e / wp, w = e % wp;
+      const uint32_t pad = __shfl_sync(FULL, mine, w < wl ? 0 : w - wl);
+      if (e < n) dst[e] = w < wl ? __ldg(src + static_cast<long long>(t) * wl + w) : pad;
+    }
+  }
+}
+
 }  // namespace
 
 // The row kernel.  nr, nc (n_tenants, n_classes, lp, W) int32: N packed
@@ -503,5 +564,28 @@ extern "C" int repro_build_merge_walk(const float* N, const int32_t* ids, const 
   fn<<<grid, WALK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       N, ids, entry_f, entry_b, out, n_classes, cls_stride, cpt, k, rs, both,
       static_cast<int>(ww));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The window's output (see build_merge_pad_kernel): ids (n_chunks, k) in
+// n_tenants equal runs; ident (n_tenants, n_classes) int32 flags; entry_f,
+// entry_b (n_chunks, lp) f32; live (n_chunks, k, lw/32) the walk's words on
+// the lw live states; out (n_chunks, k, lp/32).  lp and lw multiples of 32,
+// lw < lp.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int repro_build_merge_pad(const int32_t* ids, const int32_t* ident,
+                                     const float* entry_f, const float* entry_b,
+                                     const uint32_t* live, uint32_t* out, int n_chunks, int k,
+                                     int lp, int lw, int n_classes, int n_tenants,
+                                     void* stream) {
+  if (n_chunks <= 0 || k <= 0) return 0;
+  if (lp % 32 != 0 || lw % 32 != 0 || lw <= 0 || lw >= lp || n_classes < 1 ||
+      n_tenants < 1 || n_chunks % n_tenants != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int THREADS = 256;                  // 8 warps, one chunk each
+  const long long blocks = (static_cast<long long>(n_chunks) + 7) / 8;
+  build_merge_pad_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      ids, ident, entry_f, entry_b, live, out, n_chunks, k, lp, lw, n_classes,
+      n_chunks / n_tenants);
   return static_cast<int>(cudaGetLastError());
 }

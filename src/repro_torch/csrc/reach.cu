@@ -45,6 +45,21 @@
 // Both write the product as f32 {0,1}, bit for bit the product of the plain
 // version.  PAD steps (N = identity) are folded like any other step.
 //
+// The live window (kernels/window.py; the fleet's buckets padded past their
+// live states): where every table is block-diagonal, N[x] = diag(A_x, D_x)
+// with A_x over the lw live states and D_x in {0, I}, a chunk's product is
+// diag(prod A, prod D), and prod D = I exactly when every step's class has
+// D = I.  The group kernel then walks the lw live columns over a table of the
+// lw live states (e125's bucket at lp = 512: lw = 288, 166 KB at g = 4, the
+// solo e125 table, where one of all 512 states would take 557 KB), and
+// before it reach_pad_kernel writes the rest of each product, one warp a
+// (chunk, 32-row band) unit over a grid of its own, float4 stores along
+// whole rows: zeros right of the live columns in the live rows, and in each
+// padded row zeros but its diagonal entry, the chunk's flag.  A warp finds
+// the flag from the chunk's ids, 32 at a time, and a per-class bit (ident).
+// (Inside the group kernel the same stores made one width spill.)  The
+// strip kernel has no window: it walks every state.
+//
 // The tenant axis (the fleet's bucket dispatch, core/fleet.py): one launch
 // may serve T automata of one bucket shape, their tables stacked (T, A+1,
 // ...) and their chunks in T equal runs of cpt = n_chunks / T, chunk c
@@ -125,13 +140,58 @@ reach_strip_kernel(const uint32_t* __restrict__ nr, const int32_t* __restrict__ 
   }
 }
 
-constexpr int MAX_GROUP_W = 16;     // lp <= 512 on the group kernel
+constexpr int MAX_GROUP_W = 16;     // lw <= 512 on the group kernel
 constexpr int GROUP_THREADS = 1024;
 
-// T: (tenants, t_words) words, tenant t's (A+1, lp/G, 2^G, W|1) group table
-// in its row (t_words a multiple of 4); ids (tenants * n_chunks, k); out
-// (tenants * n_chunks, lp, lp); n_chunks is a tenant's.  Block (x, t) serves
-// tenant t.  At least one block an SM lets ptxas give a thread 64
+// The padded part of the products (n_chunks, lp, lp) beyond the lw live
+// states, one warp a (chunk, band of 32 rows) unit.  ident (tenants,
+// n_classes): 1 where the class is the identity on the padded states; chunk
+// c is tenant c / cpt's.
+__global__ void reach_pad_kernel(const int32_t* __restrict__ ids,
+                                 const int32_t* __restrict__ ident, float* __restrict__ out,
+                                 int n_chunks, int k, int lp, int lw, int n_classes, int cpt) {
+  const int lane = threadIdx.x & 31;
+  const int bands = lp / 32;
+  const long long units = static_cast<long long>(n_chunks) * bands;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long u = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       u < units; u += warps) {
+    const long long chunk = u / bands;
+    const int r0 = static_cast<int>(u % bands) * 32;
+    float* o = out + chunk * lp * lp;
+    if (r0 < lw) {                     // live rows: columns lw .. lp - 1
+      const int n4 = (lp - lw) / 4;
+      for (int e = lane; e < 32 * n4; e += 32)
+        reinterpret_cast<float4*>(o + static_cast<long long>(r0 + e / n4) * lp + lw)[e % n4] =
+            zero;
+      continue;
+    }
+    // padded rows: 1 on the diagonal where every step's class has D = I
+    const int32_t* cid = ids + chunk * k;
+    const int32_t* flags = ident + chunk / cpt * n_classes;
+    bool flag = true;
+    for (int t0 = 0; t0 < k && flag; t0 += 32) {
+      const int t = t0 + lane;
+      flag = __all_sync(0xffffffffu, t >= k || __ldg(flags + __ldg(cid + t)) != 0);
+    }
+    const float d = flag ? 1.f : 0.f;
+    const int n4 = lp / 4;
+    for (int e = lane; e < 32 * n4; e += 32) {
+      const int r = r0 + e / n4;
+      const int c = 4 * (e % n4);
+      reinterpret_cast<float4*>(o + static_cast<long long>(r) * lp)[e % n4] =
+          make_float4(c == r ? d : 0.f, c + 1 == r ? d : 0.f, c + 2 == r ? d : 0.f,
+                      c + 3 == r ? d : 0.f);
+    }
+  }
+}
+
+// T: (tenants, t_words) words, tenant t's (A+1, lw/G, 2^G, W|1) group table
+// of the lw = 32 W live states in its row (t_words a multiple of 4); ids
+// (tenants * n_chunks, k); out (tenants * n_chunks, lp, lp), of which it
+// writes the live block [0, lw)^2; n_chunks is a tenant's.  Block (x, t)
+// serves tenant t.  At least one block an SM lets ptxas give a thread 64
 // registers, so that a column's words stay in them (left to itself it chose
 // 32 at W = 9, and spilled).
 template <int W, int G>
@@ -149,7 +209,7 @@ reach_group_kernel(const uint32_t* __restrict__ T, int t_words, const int32_t* _
     reinterpret_cast<uint4*>(sT)[e] = reinterpret_cast<const uint4*>(T)[e];
   __syncthreads();
 
-  const int cls_stride = (lp / G) * V * WS;
+  constexpr int cls_stride = W * 32 / G * V * WS;
   const int lane = threadIdx.x & 31;
   const int warps_per_block = blockDim.x >> 5;
   const long long warps = static_cast<long long>(gridDim.x) * warps_per_block;
@@ -265,18 +325,21 @@ extern "C" int repro_reach_products(const uint32_t* nr, const int32_t* ids,
 }
 
 // The group kernel.  T: the launcher's group tables, (n_tenants, t_words)
-// int32 words, each tenant's (A+1, lp/g, 2^g, W|1) table in its row (t_words
-// a multiple of 4, all in one block's shared memory); ids (n_chunks, k)
-// int32 class ids in [0, A], in n_tenants equal runs; out (n_chunks, lp, lp)
-// f32.  lp % 32 == 0, lp <= 512, g in {2, 4}, n_tenants <= 65535.  Returns
-// the cudaError_t of the launch (0 on success).
+// int32 words, each tenant's (A+1, lw/g, 2^g, lw/32|1) table of its lw live
+// states in its row (t_words a multiple of 4, all in one block's shared
+// memory); ids (n_chunks, k) int32 class ids in [0, A], in n_tenants equal
+// runs; out (n_chunks, lp, lp) f32; ident (n_tenants, n_classes) int32
+// flags (1: the class is the identity on the states lw .. lp - 1), needed
+// when lw < lp.  lp and lw multiples of 32, lw <= lp, lw <= 512, g in {2, 4},
+// n_tenants <= 65535.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_reach_group(const uint32_t* T, int t_words, const int32_t* ids, float* out,
-                                 int n_chunks, int k, int lp, int g, int n_tenants,
-                                 void* stream) {
+                                 int n_chunks, int k, int lp, int g, int n_tenants, int lw,
+                                 const int32_t* ident, int n_classes, void* stream) {
   if (n_chunks <= 0) return 0;
-  const GroupKernel fn = lp > 0 && lp % 32 == 0 ? group_kernel(lp / 32, g) : nullptr;
-  if (fn == nullptr || t_words % 4 != 0 || n_tenants < 1 || n_tenants > 65535 ||
-      n_chunks % n_tenants != 0)
+  const GroupKernel fn = lw > 0 && lw % 32 == 0 ? group_kernel(lw / 32, g) : nullptr;
+  if (fn == nullptr || lp % 32 != 0 || lw > lp ||
+      (lw < lp && (ident == nullptr || n_classes < 1)) || t_words % 4 != 0 || n_tenants < 1 ||
+      n_tenants > 65535 || n_chunks % n_tenants != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cpt = n_chunks / n_tenants;         // chunks a tenant
   const size_t smem = static_cast<size_t>(t_words) * 4;
@@ -290,8 +353,8 @@ extern "C" int repro_reach_group(const uint32_t* T, int t_words, const int32_t* 
     return static_cast<int>(err);
   // about as many warps an SM as there are units (of every tenant) for it,
   // up to one full block; the resident blocks shared out over the tenants
-  const long long units = static_cast<long long>(n_chunks) * (lp / 32);
-  const long long tenant_units = static_cast<long long>(cpt) * (lp / 32);
+  const long long units = static_cast<long long>(n_chunks) * (lw / 32);
+  const long long tenant_units = static_cast<long long>(cpt) * (lw / 32);
   long long wpb = (units + sms - 1) / sms;
   wpb = wpb > tenant_units ? tenant_units : wpb;   // no more warps than a tenant has units
   wpb = wpb < 1 ? 1 : wpb > GROUP_THREADS / 32 ? GROUP_THREADS / 32 : wpb;
@@ -303,6 +366,15 @@ extern "C" int repro_reach_group(const uint32_t* T, int t_words, const int32_t* 
   long long cap = static_cast<long long>(sms) * per_sm / n_tenants;
   cap = cap < 1 ? 1 : cap;
   if (blocks > cap) blocks = cap;
+  if (lw < lp) {                                // the padded part: 8 warps a block, 16 blocks an SM
+    const long long pad_units = static_cast<long long>(n_chunks) * (lp / 32);
+    long long pad_blocks = (pad_units + 7) / 8;
+    pad_blocks = pad_blocks < 16LL * sms ? pad_blocks : 16LL * sms;
+    reach_pad_kernel<<<static_cast<unsigned>(pad_blocks), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(ids, ident, out, n_chunks, k, lp, lw,
+                                                            n_classes, cpt);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_tenants));
   fn<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(T, t_words, ids, out, cpt, k,
                                                                  lp);

@@ -10,13 +10,19 @@ table's size: the walk kernel, 8 lanes a chunk walking the frontier over
 group tables that each block builds in shared memory from f32 N (nothing is
 packed per call); else the row kernel, one block a chunk and one thread a
 state row over N packed by this launcher (see the note at the top of the
-source).  The plain version is ``kernels/ref.py::build_merge_packed_ref``.
+source).  Where a window is kept with N (``kernels/window.py``), the walk
+runs on the live block (the tables and entries of the ℓ' live states) into a
+scratch of ℓ'/32 words a column, and the source's pad kernel writes the
+ℓp/32-word columns: the walk's words, then the padded words from the block
+algebra; so e125's ℓp-512 fleet bucket takes the walk at ℓ' = 288, as the
+solo e125 parse does.  The plain version is
+``kernels/ref.py::build_merge_packed_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,12 +32,14 @@ from .checks import (
 )
 from .cost import INT8_OPS, Cost, total
 from .reach import GROUPS, MAX_GROUP_W
+from .window import attached
 
 SOURCE = "build_merge"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "repro_build_merge_packed": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "repro_build_merge_walk": (_I, [_P, _P, _P, _P, _P] + [_I] * 10 + [_P]),
+    "repro_build_merge_pad": (_I, [_P] * 6 + [_I] * 6 + [_P]),
 }
 ROUNDS = (128, 64, 32, 16, 8)   # steps a round of staged ids and rows, longest first
 # lanes a chunk of the walk (the one count its source is built for): a step is
@@ -86,7 +94,8 @@ def walk_warps(n_chunks: int) -> int:
     return min(max(-(-units // SMS), 1), 32)
 
 
-def grid(n_classes: int, lp: int, n_chunks: int, n_tenants: int = 1) -> Tuple[int, int, int]:
+def grid(n_classes: int, lp: int, n_chunks: int, n_tenants: int = 1,
+         lw: Optional[int] = None) -> Tuple[int, int, int]:
     """(blocks a tenant, tenants, threads a block) of the launch that
     :func:`plan` picks, as the source's launcher sizes it on SMS SMs: the
     walk kernel's walking warps as :func:`walk_warps` counts them, at most
@@ -94,39 +103,42 @@ def grid(n_classes: int, lp: int, n_chunks: int, n_tenants: int = 1) -> Tuple[in
     over the tenants; the row
     kernel's one block a chunk of ℓp threads (tenants 1: its chunks find
     their tables)."""
-    p = plan(n_classes, lp, n_chunks)
+    p = plan(n_classes, lp, n_chunks, lw)
     if p.kernel == "rows":
         return n_chunks, 1, lp
-    table = (2 if p.both else 1) * table_bytes(n_classes, lp, p.g, p.lanes)
+    lw = lp if lw is None else lw
+    table = (2 if p.both else 1) * table_bytes(n_classes, lw, p.g, p.lanes)
     tenant_units = -(-(n_chunks // n_tenants) // (32 // p.lanes))
     ww = max(min(walk_warps(n_chunks), tenant_units,
-                 (MAX_SMEM_BYTES - table) // ring_bytes(lp, p.lanes, p.round)), 1)
+                 (MAX_SMEM_BYTES - table) // ring_bytes(lw, p.lanes, p.round)), 1)
     return min(-(-tenant_units // ww), max(SMS // n_tenants, 1)), n_tenants, 1024
 
 
-def plan(n_classes: int, lp: int, n_chunks: int) -> Plan:
+def plan(n_classes: int, lp: int, n_chunks: int, lw: Optional[int] = None) -> Plan:
     """Kernel for ``n_chunks`` chunks (the launch's, over all of its
-    tenants) over ``n_classes`` (ℓp, ℓp) tables a tenant: the
-    walk kernel (ℓp ≤ 512) at the widest g of ``GROUPS`` whose table fits in
+    tenants) over ``n_classes`` (ℓp, ℓp) tables a tenant whose live window
+    is ``lw`` states (default ℓp): the walk kernel over the ℓ' = ``lw``
+    live states (ℓ' ≤ 512) at the widest g of ``GROUPS`` whose table fits in
     one block's shared memory beside the rings of :func:`walk_warps` warps,
     with the longest round of ``ROUNDS`` that fits, both tables where they
     fit with it, else one rebuilt between the passes (on the H100 a round's
     staging costs microseconds, a table's rebuild next to nothing); else the
-    row kernel (ℓp ≤ 1024); raises beyond that."""
+    row kernel over all ℓp (ℓp ≤ 1024); raises beyond that."""
     require(0 < lp <= MAX_LP and lp % 32 == 0,
             f"build_merge_packed: ℓp={lp} must be a multiple of 32 up to {MAX_LP}")
-    if lp // 32 <= MAX_GROUP_W:
+    lw = lp if lw is None else lw
+    if lw // 32 <= MAX_GROUP_W:
         ww = walk_warps(n_chunks)
         for g in GROUPS:
-            table = table_bytes(n_classes, lp, g, LANES)
+            table = table_bytes(n_classes, lw, g, LANES)
             for rs in ROUNDS:
                 for both in (True, False):
-                    if (2 if both else 1) * table + ww * ring_bytes(lp, LANES, rs) <= MAX_SMEM_BYTES:
-                        return Plan("walk", g, LANES, rs, both, class_stride(lp, g, LANES))
+                    if (2 if both else 1) * table + ww * ring_bytes(lw, LANES, rs) <= MAX_SMEM_BYTES:
+                        return Plan("walk", g, LANES, rs, both, class_stride(lw, g, LANES))
             # not even the shortest round of one warp fits this g: try the next
-            if table + ring_bytes(lp, LANES, ROUNDS[-1]) > MAX_SMEM_BYTES:
+            if table + ring_bytes(lw, LANES, ROUNDS[-1]) > MAX_SMEM_BYTES:
                 continue
-            return Plan("walk", g, LANES, ROUNDS[-1], False, class_stride(lp, g, LANES))
+            return Plan("walk", g, LANES, ROUNDS[-1], False, class_stride(lw, g, LANES))
     return ROWS
 
 
@@ -156,7 +168,9 @@ def launch(
 ) -> torch.Tensor:
     """N (A+1, ℓp, ℓp) f32, or a tenant stack (T, A+1, ℓp, ℓp) whose tenants
     own equal runs of the chunks; ids (C, k) int32, entries (C, ℓp) f32 →
-    (C, k, ℓp/32) int32 packed clean columns."""
+    (C, k, ℓp/32) int32 packed clean columns.  The walk visits the window
+    kept with N (``window.attach``), if any, else all ℓp states; the live
+    block of N it walks is kept while N lives (``checks.derived``)."""
     name = "build_merge_packed"
     lp = check_table(name, N)
     check_ids(name, ids)
@@ -168,9 +182,24 @@ def launch(
             f"{name}: entries must be float32 ({C}, {lp}), got {e.dtype} {tuple(e.shape)}",
         )
     A1 = N.shape[-3]
-    p = plan(A1, lp, C)
+    win = attached(N)
+    lw = lp if win is None else win.width
+    p = plan(A1, lp, C, lw)
     out = torch.empty((C, k, lp // 32), dtype=torch.int32, device=N.device)
-    if p.kernel == "walk":
+    if p.kernel == "walk" and lw < lp:
+        live = derived(N, f"live/{lw}", lambda: N[..., :lw, :lw].contiguous())
+        ef, eb = entry_f[:, :lw].contiguous(), entry_b[:, :lw].contiguous()
+        words = torch.empty((C, k, lw // 32), dtype=torch.int32, device=N.device)
+        status = lib.repro_build_merge_walk(
+            live.data_ptr(), ids.data_ptr(), ef.data_ptr(), eb.data_ptr(), words.data_ptr(),
+            A1, C, k, lw, p.g, p.lanes, p.round, int(p.both), p.cls_stride, T, stream(N),
+        )
+        check_status(status, name)
+        status = lib.repro_build_merge_pad(
+            ids.data_ptr(), win.ident.data_ptr(), entry_f.data_ptr(), entry_b.data_ptr(),
+            words.data_ptr(), out.data_ptr(), C, k, lp, lw, A1, T, stream(N),
+        )
+    elif p.kernel == "walk":
         status = lib.repro_build_merge_walk(
             N.data_ptr(), ids.data_ptr(), entry_f.data_ptr(), entry_b.data_ptr(),
             out.data_ptr(), A1, C, k, lp, p.g, p.lanes, p.round, int(p.both),

@@ -89,13 +89,24 @@ def derived(src: torch.Tensor, key: str, build: Callable[[], torch.Tensor]) -> t
     """``build()``, kept on ``src`` itself for as long as it is unchanged: an
     in-place write (a new ``_version``) rebuilds it, and it goes with the
     tensor."""
-    cache = src.__dict__.setdefault("_repro_derived", {})
-    hit = cache.get(key)
-    if hit is not None and hit[0] == src._version:
-        return hit[1]
+    hit = kept(src, key)
+    if hit is not None:
+        return hit
     out = build()
-    cache[key] = (src._version, out)
+    keep(src, key, out)
     return out
+
+
+def keep(src: torch.Tensor, key: str, value) -> None:
+    """Keep ``value`` on ``src`` under ``key`` for the tensor as it now is."""
+    src.__dict__.setdefault("_repro_derived", {})[key] = (src._version, value)
+
+
+def kept(src: torch.Tensor, key: str):
+    """What :func:`keep` (or :func:`derived`) kept on ``src`` under ``key``,
+    or None once ``src`` has been written in place since."""
+    hit = src.__dict__.get("_repro_derived", {}).get(key)
+    return hit[1] if hit is not None and hit[0] == src._version else None
 
 
 def check_fold(name: str, Np: torch.Tensor, n_rows: int):

@@ -9,14 +9,18 @@ its tenant's table; the strip kernel reads each chunk's own tenant's table.
 table (:func:`group_table`) held in shared memory, with the widest group
 ``g`` of ``GROUPS`` whose table fits; else the strip kernel, a grid of
 (chunks) × (ℓp / 32 column strips) folding row-packed N (see the note at the
-top of the source).  The plain version is
-``kernels/ref.py::reach_chunk_product_ref``.
+top of the source).  Where a window is kept with N (``kernels/window.py``:
+the fleet's buckets padded past their live states), the group kernel walks
+and tabulates only the ℓ' live states and writes the padded part of each
+product from the block algebra; so e125's ℓp-512 bucket walks its 288 live
+states in a 166 KB table, where a table of all 512 would not fit.  The plain
+version is ``kernels/ref.py::reach_chunk_product_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,12 +30,13 @@ from .checks import (
     MAX_SMEM_BYTES, check_ids, check_status, check_table, derived, require, stream, tenants,
 )
 from .cost import INT8_OPS, Cost, total
+from .window import attached
 
 SOURCE = "reach"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "repro_reach_products": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "repro_reach_group": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "repro_reach_group": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
 }
 # group widths, widest (fewest lookups a step) first; g = 1 would need as
 # many table bytes as g = 2 (2^g / g entries a state) for twice the lookups
@@ -52,13 +57,16 @@ def strip_smem_bytes(lp: int) -> int:
     return (2 * lp * W + 2 * STRIP * W) * 4
 
 
-def plan(n_classes: int, lp: int) -> Tuple[str, int]:
-    """Kernel for ``n_classes`` (ℓp, ℓp) tables: ``("group", g)`` with the
-    widest g of ``GROUPS`` whose table fits in one block's shared memory
-    (ℓp ≤ 512), else ``("strip", 0)`` (ℓp ≤ 928); raises beyond that."""
-    if lp // 32 <= MAX_GROUP_W:
+def plan(n_classes: int, lp: int, lw: Optional[int] = None) -> Tuple[str, int]:
+    """Kernel for ``n_classes`` (ℓp, ℓp) tables whose live window is ``lw``
+    states (default ℓp): ``("group", g)`` with the widest g of ``GROUPS``
+    whose table of the ℓ' = ``lw`` live states fits in one block's shared
+    memory (ℓ' ≤ 512), else ``("strip", 0)`` over all ℓp (ℓp ≤ 928); raises
+    beyond that."""
+    lw = lp if lw is None else lw
+    if lw // 32 <= MAX_GROUP_W:
         for g in GROUPS:
-            if group_table_bytes(n_classes, lp, g) <= MAX_SMEM_BYTES:
+            if group_table_bytes(n_classes, lw, g) <= MAX_SMEM_BYTES:
                 return "group", g
     require(
         strip_smem_bytes(lp) <= MAX_SMEM_BYTES,
@@ -68,18 +76,18 @@ def plan(n_classes: int, lp: int) -> Tuple[str, int]:
 
 
 def grid(n_classes: int, lp: int, n_chunks: int, n_tenants: int = 1,
-         sms: int = 132, per_sm: int = 1) -> Tuple[int, int, int]:
+         sms: int = 132, per_sm: int = 1, lw: Optional[int] = None) -> Tuple[int, int, int]:
     """(grid x, grid y, threads a block) of the launch that :func:`plan`
     picks, as the source's launcher sizes it on ``sms`` SMs with ``per_sm``
     resident blocks an SM: the group kernel's (blocks a tenant, tenants),
-    about as many warps an SM as there are units of 32 columns (at most a
-    tenant's units a block), the resident blocks shared out over the
+    about as many warps an SM as there are units of 32 live columns (at
+    most a tenant's units a block), the resident blocks shared out over the
     tenants; the strip kernel's
     (chunks, ℓp / 32 strips)."""
-    kind, _ = plan(n_classes, lp)
+    kind, _ = plan(n_classes, lp, lw)
     if kind == "strip":
         return n_chunks, lp // STRIP, 128
-    W = lp // 32
+    W = (lp if lw is None else lw) // 32
     tenant_units = n_chunks // n_tenants * W
     wpb = min(max(min(-(-n_chunks * W // sms), tenant_units), 1), 32)
     blocks = -(-tenant_units // wpb)
@@ -136,19 +144,22 @@ def launch(lib: ctypes.CDLL, N: torch.Tensor, ids: torch.Tensor) -> torch.Tensor
     """N (A+1, ℓp, ℓp) f32, or a tenant stack (T, A+1, ℓp, ℓp) whose tenants
     own equal runs of the chunks; ids (C, k) int32 → (C, ℓp, ℓp) f32
     products.  What is derived from N (the group tables, the row-packed
-    table) is kept while N lives (``checks.derived``)."""
+    table) is kept while N lives (``checks.derived``); so is its window, if
+    one was attached (``window.attach``), which the group kernel walks."""
     name = "reach_chunk_product"
     lp = check_table(name, N)
     check_ids(name, ids)
     T, cpt = tenants(name, N, ids)
-    kind, g = plan(N.shape[-3], lp)
+    win = attached(N)
+    lw = lp if win is None else win.width
+    kind, g = plan(N.shape[-3], lp, lw)
     C, k = ids.shape
     out = torch.empty((C, lp, lp), dtype=torch.float32, device=N.device)
     if kind == "group":
-        tab = derived(N, f"reach/group{g}", lambda: tenant_group_tables(N, g))
+        tab = derived(N, f"reach/group{g}/{lw}", lambda: tenant_group_tables(N[..., :lw, :lw], g))
         status = lib.repro_reach_group(
             tab.data_ptr(), tab.shape[1], ids.data_ptr(), out.data_ptr(), C, k, lp, g, T,
-            stream(N),
+            lw, win.ident.data_ptr() if lw < lp else None, N.shape[-3], stream(N),
         )
     else:
         nr = derived(N, "rows", lambda: pack_bits_torch(N))     # ([T,] A+1, ℓp, W) row-packed

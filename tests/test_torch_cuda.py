@@ -167,7 +167,7 @@ def test_reach_kernel_every_plan_variant(dev, monkeypatch, lp, n_classes, densit
     """K1 bit for bit in each kernel the plan can choose, forced through the
     plan: random tables with PAD (the last class) the identity, chunks that
     end in PAD, ids above 255 where there are that many classes."""
-    monkeypatch.setattr(reach_launcher, "plan", lambda n, l: variant)
+    monkeypatch.setattr(reach_launcher, "plan", lambda n, l, lw=None: variant)
     rng = np.random.default_rng(lp + n_classes + k)
     N = (rng.random((n_classes, lp, lp)) < density).astype(np.float32)
     if n_classes > 1:
@@ -191,7 +191,7 @@ def test_reach_kernel_long_chunks(dev, monkeypatch, which, variant):
     """k = 8192 steps (TRAFFIC's chunk length at 8 MiB) on the repository's
     automata, random class ids, the last chunk ending in PAD."""
     t = _pattern_table(JOIN_PATTERNS[which], dev)
-    monkeypatch.setattr(reach_launcher, "plan", lambda n, l: variant)
+    monkeypatch.setattr(reach_launcher, "plan", lambda n, l, lw=None: variant)
     rng = np.random.default_rng(8192)
     ids = rng.integers(0, t.N.shape[0] - 1, size=(3, 8192))
     ids[-1, 5000:] = t.N.shape[0] - 1
@@ -292,7 +292,7 @@ def test_build_merge_kernel_every_plan_variant(dev, monkeypatch, lp, n_classes, 
     ``build.plan``, at ℓp from one word to the row kernel's 1024 and k from 1
     to TRAFFIC's 8192 steps."""
     args, want = _build_case(lp, n_classes, k, dev)
-    monkeypatch.setattr(build_launcher, "plan", lambda n, l, c: variant)
+    monkeypatch.setattr(build_launcher, "plan", lambda n, l, c, lw=None: variant)
     ops.reset_launches()
     got = ops.build_merge_packed(*args)
     torch.cuda.synchronize()
@@ -570,7 +570,7 @@ TENANT_REACH = [(lp, a, v) for lp, a in ((64, 19), (288, 4)) for v in _reach_var
 def test_reach_kernel_tenant_axis_every_plan_variant(dev, monkeypatch, lp, n_classes, variant, T):
     """K1 over T tenant tables in one launch, bit for bit the plain version,
     in each kernel the plan can choose (the strip fallback included)."""
-    monkeypatch.setattr(reach_launcher, "plan", lambda n, l: variant)
+    monkeypatch.setattr(reach_launcher, "plan", lambda n, l, lw=None: variant)
     N, ids = _tenant_case(np.random.default_rng(lp + T), T, n_classes, lp, 5, 33, dev)
     ops.reset_launches()
     got = ops.reach_chunk_product(N, ids)
@@ -589,7 +589,7 @@ def test_build_merge_kernel_tenant_axis_every_plan_variant(dev, monkeypatch, lp,
     """K2 over T tenant tables in one launch: 9 chunks a tenant (not a
     multiple of the 4 a warp walks, so a warp's chunks stay one tenant's),
     in each walk variant and the row fallback."""
-    monkeypatch.setattr(build_launcher, "plan", lambda n, l, c: variant)
+    monkeypatch.setattr(build_launcher, "plan", lambda n, l, c, lw=None: variant)
     rng = np.random.default_rng(lp * 3 + T)
     N, ids = _tenant_case(rng, T, n_classes, lp, 9, 65, dev)
     ef = torch.tensor((rng.random((ids.shape[0], lp)) < 0.3).astype(np.float32), device=dev)
@@ -625,6 +625,145 @@ def test_word_reach_kernels_tenant_axis_every_plan_variant(dev, monkeypatch, lp,
     torch.cuda.synchronize()
     assert kernel.launches == 1
     assert torch.equal(got, kernel.plain(*args))
+
+
+# ----------------------------------------------------------- live window
+#
+# K1's group kernel and K2's walk over a stack padded past its live states
+# (``kernels/window.py``): they walk the ℓ' live states and write the padded
+# part from the block algebra, bit for bit the plain versions over all ℓp.
+
+
+def _window_case(rng, T, lp, ell, n_real, n_ident, Ct, k, dev):
+    """T block-structured tables as the fleet pads them: ``n_real`` random
+    classes inside [0, ell)², then ``n_ident`` identities over all ℓp (PAD
+    last); T runs of Ct chunks: random ids, all-PAD chunks, chunks whose one
+    real step is the first or the last, chunks of identity classes alone."""
+    A1 = n_real + n_ident
+    N = np.zeros((T, A1, lp, lp), dtype=np.float32)
+    N[:, :n_real, :ell, :ell] = rng.random((T, n_real, ell, ell)) < 3.0 / ell
+    N[:, n_real:] = np.eye(lp, dtype=np.float32)
+    ids = rng.integers(0, A1, size=(T, Ct, k))
+    if k:
+        ids[:, 1] = A1 - 1
+        ids[:, 2] = rng.integers(n_real, A1, size=(T, k))
+        ids[:, 3, 1:] = A1 - 1
+        ids[:, 4, :-1] = A1 - 1
+        ids[:, 3, 0] = ids[:, 4, -1] = 0
+    N = torch.tensor(N, device=dev)
+    ids = torch.tensor(ids.reshape(T * Ct, k), dtype=torch.int32, device=dev)
+    ef = torch.tensor((rng.random((T * Ct, lp)) < 0.5).astype(np.float32), device=dev)
+    eb = torch.tensor((rng.random((T * Ct, lp)) < 0.5).astype(np.float32), device=dev)
+    return N, ids, ef, eb
+
+
+# (ℓp, ℓ, real classes, identity classes, k): e125's bucket (ℓ' = 288 of 512),
+# narrow and wide windows, ℓp past K1's group kernel and K2's walk (1024)
+WINDOW_CASES = [(512, 257, 3, 1, 1024), (512, 257, 3, 1, 33), (512, 20, 2, 2, 65),
+                (64, 17, 5, 3, 40), (1024, 100, 3, 1, 9), (512, 480, 1, 1, 7), (512, 257, 3, 1, 0)]
+
+
+@pytest.mark.parametrize("lp,ell,n_real,n_ident,k", WINDOW_CASES)
+@pytest.mark.parametrize("T", (1, 3, 16))
+def test_window_kernels_equal_plain_on_block_structured_stacks(dev, lp, ell, n_real, n_ident,
+                                                               k, T):
+    """K1 and K2 with the stack's window attached: the group kernel and the
+    walk at ℓ', one launch each, bit for bit the plain versions at ℓp."""
+    from repro_torch.kernels import window
+
+    rng = np.random.default_rng(lp + ell + k + T)
+    N, ids, ef, eb = _window_case(rng, T, lp, ell, n_real, n_ident, 6, k, dev)
+    win = window.live_window(N)
+    assert win.width == -(-ell // 32) * 32
+    window.attach(N, win)
+    A1 = n_real + n_ident
+    assert reach_launcher.plan(A1, lp, win.width)[0] == "group"
+    assert build_launcher.plan(A1, lp, ids.shape[0], win.width).kernel == "walk"
+    ops.reset_launches()
+    got = ops.reach_chunk_product(N, ids)
+    cols = ops.build_merge_packed(N, ids, ef, eb)
+    torch.cuda.synchronize()
+    assert ops.reach_chunk_product.launches == 1 and ops.build_merge_packed.launches == 1
+    assert torch.equal(got, ops.reach_chunk_product.plain(N, ids))
+    assert torch.equal(cols, build_merge_packed_ref(N, ids, ef, eb))
+
+
+@pytest.mark.parametrize("T", (1, 3, 16))
+def test_window_kernels_on_the_e125_fleet_stack(dev, T):
+    """e125's ℓp-512 stack as the fleet compiles it (ℓ' = 288), with ids of
+    e125 texts and join-like entries: the group kernel at g = 4 and the
+    walk, bit for bit."""
+    from repro_torch.core.fleet import _compile_tables
+    from repro_torch.kernels import window
+
+    ct = _compile_tables(build_matrices(compute_segments(JOIN_PATTERNS["e125"])), 32)
+    N = torch.tensor(np.stack([ct.N] * T), device=dev)
+    win = window.live_window(N)
+    assert (ct.ell_pad, win.width) == (512, 288)
+    window.attach(N, win)
+    assert reach_launcher.plan(4, 512, 288) == ("group", 4)
+    rng = np.random.default_rng(T)
+    ids = rng.integers(0, ct.pad_class, size=(T * 8, 1024))
+    ids[1::4, 700:] = ct.pad_class
+    ids[2::8] = ct.pad_class
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    got = ops.reach_chunk_product(N, ids)
+    want = ops.reach_chunk_product.plain(N, ids)
+    assert torch.equal(got, want)
+    F = torch.tensor(ct.F, device=dev).expand(ids.shape[0], 512).contiguous()
+    ef = (want[:, :, 0] > 0).float().contiguous()           # a frontier from state 0
+    assert torch.equal(ops.build_merge_packed(N, ids, ef, F),
+                       build_merge_packed_ref(N, ids, ef, F))
+
+
+def test_strip_and_row_kernels_still_serve_tables_without_the_structure(dev):
+    """A stack whose padded block is broken (an arc into the last padded
+    state) has ℓ' = ℓp: K1 takes the strip kernel and K2 the row kernel,
+    bit for bit."""
+    from repro_torch.kernels import window
+
+    rng = np.random.default_rng(5)
+    N, ids, ef, eb = _window_case(rng, 3, 512, 257, 3, 1, 6, 33, dev)
+    N[:, 0, 0, 511] = 1.0
+    win = window.live_window(N)
+    assert win.width == 512
+    window.attach(N, win)
+    assert reach_launcher.plan(4, 512, win.width) == ("strip", 0)
+    assert build_launcher.plan(4, 512, ids.shape[0], win.width) == build_launcher.ROWS
+    assert torch.equal(ops.reach_chunk_product(N, ids), ops.reach_chunk_product.plain(N, ids))
+    assert torch.equal(ops.build_merge_packed(N, ids, ef, eb),
+                       build_merge_packed_ref(N, ids, ef, eb))
+
+
+def test_fleet_e125_bucket_takes_the_window_on_the_card(dev):
+    """e125 tenants in the fleet's ℓp-512 bucket with a/b tenants beside
+    them: each result equals its solo Parser's, one K1 and one K2 launch a
+    dispatch, the gathered stack's window 288."""
+    from repro_torch import ParserFleet
+    from repro_torch.kernels import window
+
+    e125 = JOIN_PATTERNS["e125"]
+    cfgs = {f"e{i}": ParserConfig(regex=e125, n_chunks=8) for i in range(3)}
+    cfgs["ab"] = ParserConfig(regex="(a|b)*abb", n_chunks=8)
+    fleet = ParserFleet(cfgs, device=dev, max_batch=64)
+    rng = np.random.default_rng(11)
+    items = [(tid, bytes(rng.choice(list(b"ab"), size=int(n))))
+             for tid in cfgs for n in (0, 130, 3000)]
+    ops.reset_launches()
+    got = fleet.parse_batch(items)
+    dispatches = fleet.stats()["batches_run"]
+    assert ops.reach_chunk_product.launches == dispatches
+    assert ops.build_merge_packed.launches == dispatches
+    eng = fleet.engine
+    runner = eng.runner(eng.tenant("e0").bucket_key)
+    assert runner.ell_pad == 512
+    rows, _ = runner.host_batch(8, 512, {t: [np.zeros(1, np.int32)] for t in runner.tenant_rows})
+    assert window.attached(runner.operands(rows)[0]).width == 288
+    solos = {tid: Parser(cfg, device=dev) for tid, cfg in cfgs.items()}
+    for (tid, text), r in zip(items, got):
+        want = solos[tid].parse(text)
+        assert r.ok == want.ok
+        assert np.array_equal(r.forest.pack(), want.forest.pack())
 
 
 FLEET_PATTERNS = ["(a|b)*abb", "(a|b)" * 10, "a" * 40, "a?" * 6, "(a|b|ab)+"]

@@ -444,7 +444,7 @@ def test_build_launcher_sends_other_tables_to_the_row_kernel(monkeypatch, n_clas
 ])
 def test_build_launcher_follows_a_forced_plan(monkeypatch, variant):
     """The card tests force each plan variant through ``build.plan``."""
-    monkeypatch.setattr(build, "plan", lambda n, l, c: variant)
+    monkeypatch.setattr(build, "plan", lambda n, l, c, lw=None: variant)
     fn, args = _launch_build(monkeypatch, 3, 64)
     if variant.kernel == "walk":
         assert fn == "repro_build_merge_walk"
@@ -845,3 +845,129 @@ def test_derived_tables_are_kept_while_the_table_lives(monkeypatch):
     reach.launch(lib, N, ids)
     reach.launch(lib, N.clone(), ids)                    # another tensor: its own
     assert len(built) == 3
+
+
+# ------------------------------------------------------------ live window
+#
+# A table padded past its live states (the fleet's e125 bucket: ℓ = 257 at
+# ℓp 512) with its window attached (``kernels/window.py``): K1's group
+# kernel and K2's walk are planned, tabulated and launched at the ℓ' live
+# states, the ℓp-wide outputs kept; without a window, as before.
+
+
+def _window_stack(T, n_real, ell, lp, attach=True):
+    """T tables as the fleet pads them: ``n_real`` classes inside [0, ell)²,
+    the last class the identity over all ℓp; the window attached."""
+    from repro_torch.kernels import window
+
+    N = torch.zeros((T, n_real + 1, lp, lp))
+    N[:, :n_real, :ell, :ell] = (torch.arange(ell)[:, None] + torch.arange(ell) < ell).float()
+    N[:, -1] = torch.eye(lp)
+    if attach:
+        window.attach(N, window.live_window(N))
+    return N
+
+
+@pytest.mark.parametrize("n_classes,lp,lw,want", [
+    (4, 512, 288, ("group", 4)),      # e125's bucket at its window: the solo e125 table
+    (4, 512, 512, ("strip", 0)),      # no window: 557 KB at g = 4 does not fit
+    (3, 512, 480, ("group", 2)),
+    (4, 1024, 288, ("group", 4)),     # past the strip kernel's ℓp, inside the walk
+    (40, 512, 288, ("strip", 0)),     # no group width fits 40 classes even at ℓ'
+])
+def test_reach_plan_walks_the_window(n_classes, lp, lw, want):
+    assert reach.plan(n_classes, lp, lw) == want
+
+
+@pytest.mark.parametrize("n_classes,lp,C,lw,want", [
+    (4, 512, 1024, 288, build.Plan("walk", 4, 8, 64, False, 10376)),   # the solo e125 walk
+    (4, 512, 1024, 512, build.ROWS),
+    (4, 1024, 9, 64, build.Plan("walk", 4, 8, 128, True, 776)),
+])
+def test_build_plan_walks_the_window(n_classes, lp, C, lw, want):
+    assert build.plan(n_classes, lp, C, lw) == want
+    assert build.plan(n_classes, lp, C, None) == build.plan(n_classes, lp, C)
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_reach_launcher_passes_the_window(monkeypatch, T):
+    """e125's bucket with its window: the group kernel at g = 4 over a table
+    of the 288 live states, ℓp 512 outputs, the tenants' flags; without
+    the window the strip kernel."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(reach, "stream", lambda t: 0)
+    N = _window_stack(T, 3, 257, 512)
+    ids = torch.zeros((T * 3, 5), dtype=torch.int32)
+    out = reach.launch(lib, N, ids)
+    assert out.shape == (T * 3, 512, 512)
+    (fn, args), = lib.calls
+    assert fn == "repro_reach_group"
+    assert args[4:12] == (T * 3, 5, 512, 4, T, 288, N._repro_derived["window"][1].ident.data_ptr(), 4)
+    assert args[1] * 4 >= reach.group_table_bytes(4, 288, 4) and args[1] * 4 <= MAX_SMEM_BYTES
+    lib.calls.clear()
+    reach.launch(lib, N.clone(), ids)
+    (fn, args), = lib.calls
+    assert fn == "repro_reach_products"
+
+
+def test_reach_launcher_without_a_window_passes_lp_and_no_flags(monkeypatch):
+    fn, args = _launch_reach(monkeypatch, 4, 288)
+    assert fn == "repro_reach_group" and args[9:12] == (288, None, 4)
+
+
+def test_window_group_table_is_the_live_blocks():
+    """The group table K1 walks at ℓ' is that of the [0, ℓ')² block."""
+    N = _window_stack(2, 3, 257, 512)
+    live = N[..., :288, :288].contiguous()
+    assert torch.equal(reach.tenant_group_tables(N[..., :288, :288], 4),
+                       reach.tenant_group_tables(live, 4))
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_build_launcher_passes_the_window(monkeypatch, T):
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "stream", lambda t: 0)
+    N = _window_stack(T, 3, 257, 512)
+    C = T * 9
+    e = torch.zeros((C, 512))
+    out = build.launch(lib, N, torch.zeros((C, 5), dtype=torch.int32), e, e)
+    assert out.shape == (C, 5, 16)
+    (walk, args), (pad, pad_args) = lib.calls
+    p = build.plan(4, 512, C, 288)
+    assert walk == "repro_build_merge_walk"                # on the live block, into a scratch
+    assert args[5:15] == (4, C, 5, 288, p.g, p.lanes, p.round, int(p.both), p.cls_stride, T)
+    assert pad == "repro_build_merge_pad"                   # the ℓp-wide columns
+    assert pad_args[1] == N._repro_derived["window"][1].ident.data_ptr()
+    assert pad_args[4] == args[4] and pad_args[5] == out.data_ptr()
+    assert pad_args[6:12] == (C, 5, 512, 288, 4, T)
+    lib.calls.clear()
+    build.launch(lib, N.clone(), torch.zeros((C, 5), dtype=torch.int32), e, e)
+    (fn, args), = lib.calls
+    assert fn == "repro_build_merge_packed"
+
+
+@pytest.mark.parametrize("which,args,want", [
+    ("reach", (4, 512, 16 * 64, 16), (8, 16, 1024)),     # e125's bucket: 576 units a tenant
+    ("build", (4, 512, 16 * 64, 16), (8, 16, 1024)),     # 16 units a tenant, 2 walking warps
+])
+def test_tenant_grids_at_the_window(which, args, want):
+    fn = {"reach": reach.grid, "build": build.grid}[which]
+    assert fn(*args, lw=288) == want
+    assert fn(*args) != want                           # the strip / row fallback's
+
+
+@pytest.mark.parametrize("which", ["reach", "build"])
+def test_window_launchers_read_no_value_back(monkeypatch, which):
+    """A launch at an attached window reads nothing back: the window was
+    decided before, with the table."""
+    from repro_torch.analyze import lint_program
+
+    lib = _RecordingLib()
+    for mod in (reach, build):
+        monkeypatch.setattr(mod, "stream", lambda t: 0)
+    N, ids = _window_stack(3, 3, 40, 128), torch.zeros((9, 5), dtype=torch.int32)
+    e = torch.zeros((9, 128))
+    call = {"reach": lambda: reach.launch(lib, N, ids),
+            "build": lambda: build.launch(lib, N, ids, e, e)}
+    assert lint_program(call[which], (), which) == []
+    assert lib.calls[0][1][9 if which == "reach" else 8] == 64

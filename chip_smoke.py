@@ -205,6 +205,34 @@ prefill); then training, MoE and the frontends:
                   production cell (DRYRUN_CELL: zamba2-2.7b x prefill_32k on
                   the fake (16, 16) mesh) and its modeled record
 
+then the tooling, in this process:
+
+  examples        the nine ``examples/torch_*.py`` through ``main(argv)`` with
+                  ``--device cuda`` at their default sizes, each run counted
+                  (launch counts set to 0 just before, read just after) and
+                  required to return 0, one ``example`` line a run with its
+                  seconds, launches by kernel and key results: quickstart,
+                  traced_parse and regrep ``--demo`` on ``cuda``, batch_parse,
+                  stream_parse and edit_stream on ``cuda`` and on ``packed`` /
+                  ``sparse`` with ``--kernel`` (K1 and K2 must launch on
+                  ``cuda``; K4 or K5, and K2, with ``--kernel``), each one's
+                  lines equal to its ``--device cpu`` lines (backend names,
+                  timings, trace ids, program counts and the p99 verdict
+                  aside); regrep over
+                  the 8 MiB TRAFFIC log in a temporary file with three ``-e``
+                  patterns (TRAFFIC, e125 and REGREP_MISS, which cannot match)
+                  at 1024 chunks, its TRAFFIC group matches against a solo
+                  ``cuda`` parse, MB/s; sharded_parse on 2 ranks (gloo sharing
+                  the card; NCCL on two cards or more), K1 and K2 on every
+                  rank; constrained_serve (every output in L(e); the prompt
+                  goes through ``decode_step``, plain code: no launch);
+                  train_lm ``--preset 100m`` at 30 steps (K6 must launch),
+                  logged step seconds and losses
+  gates           ``scripts/torch_obs_smoke.py`` and
+                  ``scripts/torch_analyze_gate.py`` through ``main(["--device",
+                  "cuda"])``, counted: each must return 0; prints the checks
+                  each passed
+
 then the kernel table (K6 and K7 records also carry their launches in the
 ``train`` run, ``train_launches``, and on each rank of the ``train_mesh``
 run, ``train_mesh_launches_per_rank``) (one record a launch kind: K7's ``"state"`` and
@@ -1856,6 +1884,8 @@ def main() -> int:
     train_counts = train_phases(dev, args.seed)
     mesh_counts = train_mesh_phase(dev, args.seed)
     dryrun_phase(args, dev)
+    examples_phase(args, dev)
+    gates_phase()
     for rec in lm_records:
         rec["train_launches"] = train_counts.get(count_key(rec), 0)
         rec["train_mesh_launches_per_rank"] = mesh_counts.get(count_key(rec), 0)
@@ -3127,6 +3157,225 @@ def train_mesh_phase(dev, seed: int, spec: dict = TRAIN_MESH, label: str = "trai
     if failures:
         raise AssertionError(f"{label}: " + "; ".join(failures))
     return reports[0][spec["variants"][0]]["launches"]
+
+
+# ---------------------------------------------- the examples and the gates
+
+EXAMPLE_KERNELS = {"cuda": ("reach_chunk_product", "build_merge_packed"),
+                   "packed": ("packed_reach_chunk_product", "build_merge_packed"),
+                   "sparse": ("sparse_reach_rows", "build_merge_packed")}
+# regrep's 8 MiB run: the TRAFFIC pattern, e125's (the log is not a/b text)
+# and one that cannot match (a log of only /x paths that all answer 200 ok)
+REGREP_MISS = r"((GET|POST|PUT) /x* 200 ok\n)+"
+# The line parts of the parse examples that differ by design, between the
+# card and the CPU here and between the port and the JAX package's examples
+# in tests/test_torch_examples.py: (pattern, placeholder, why).  Both compare
+# every line after ``example_lines`` puts the placeholders in.
+EXAMPLE_DESIGNED = [
+    (r"backend=\w+", "backend=<b>",
+     "backend names: jnp / torch / cuda / packed / sparse"),
+    (r"'backend': '\w+'", "'backend': <b>", "the same, in a root span's attrs"),
+    (r"\d+ compiled program", "<n> compiled program",
+     "compile_count: the port counts the distinct shapes it ran"),
+    (r" *-?\d+\.\d+ ms", " <t> ms", "timings (and their padding)"),
+    (r"p99 targets met: \w+", "p99 targets met: <verdict>",
+     "a latency verdict: the wall time of a batch against its 5 s target"),
+    (r"\b[0-9a-f]{16}\b", "<trace_id>", "trace ids: random per request"),
+    (r"^static .* \(flops / bytes\):$", "<static cost header>",
+     "the JAX package reads XLA's HLO cost analysis, the port its modeled cost"),
+    (r"^(  bucket \d+x\d+:) .* flops, .* bytes \(.*\)$", r"\1 <static cost>",
+     "the same: the bucket keys are compared, not the costs"),
+]
+
+
+def example_lines(text: str) -> list:
+    """``text``'s lines with ``EXAMPLE_DESIGNED``'s placeholders put in."""
+    lines = []
+    for line in text.splitlines():
+        for pattern, placeholder, _ in EXAMPLE_DESIGNED:
+            line = re.sub(pattern, placeholder, line)
+        lines.append(line)
+    return lines
+
+
+def run_example(name: str, argv: list, folder: str = "examples"):
+    """``<folder>/<name>.py``'s ``main(argv)`` in this process, its stdout
+    captured, counted (``counted``): (exit code, stdout, seconds, nonzero
+    launches by kernel)."""
+    import importlib
+    import io
+
+    if str(ROOT / folder) not in sys.path:
+        sys.path.insert(0, str(ROOT / folder))
+    module = importlib.import_module(name)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, seconds, n = counted(lambda: module.main(list(argv)))
+    return rc, out.getvalue(), seconds, {k: v for k, v in n.items() if v}
+
+
+def _need(label: str, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"examples {label}: {missing} never launched: {launches}")
+
+
+def examples_phase(args, dev) -> None:
+    """The nine ``examples/torch_*.py`` through ``main(argv)`` with ``--device
+    cuda`` at their default sizes, each run counted and required to return
+    0: the parse examples on ``cuda`` (K1 and K2 must launch) and
+    batch_parse, stream_parse and edit_stream also on ``packed`` and
+    ``sparse`` with ``--kernel`` (K4 or K5, and K2); each parse example's
+    lines on ``cuda`` equal its ``--device cpu`` lines; regrep also over the
+    8 MiB TRAFFIC log (written to a temporary file) with the TRAFFIC, e125
+    and a non-matching pattern as one fleet, its TRAFFIC group matches
+    against a solo ``cuda`` parse; sharded_parse on 2 ranks (each rank's
+    launches from its line); constrained_serve (every output in L(e));
+    train_lm ``--preset 100m`` at its default 30 steps (K6 in every step)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import Parser, ParserConfig
+
+    t_phase = time.perf_counter()
+    runs = []
+
+    def record(label, argv, rc, out, seconds, launches, **results):
+        if rc != 0:
+            raise AssertionError(f"examples {label} {argv}: exit code {rc}\n{out[-2000:]}")
+        runs.append(label)
+        emit("example", run=label, argv=argv, seconds=seconds, launches=launches, **results)
+
+    # the six parse examples: each on the card against its CPU lines, and on
+    # the word kernels where it takes a backend
+    parse_runs = [("torch_quickstart", []), ("torch_traced_parse", []), ("torch_regrep", ["--demo"])]
+    for name in ("torch_batch_parse", "torch_stream_parse", "torch_edit_stream"):
+        parse_runs += [(name, []), (name, ["--backend", "packed", "--kernel"]),
+                       (name, ["--backend", "sparse", "--kernel"])]
+    for name, flags in parse_runs:
+        rc, out, secs, n = run_example(name, [*flags, "--device", "cuda"])
+        backend = flags[1] if flags[:1] == ["--backend"] else "cuda"
+        _need(f"{name} {backend}", n, EXAMPLE_KERNELS[backend])
+        cpu_flags = [f for f in flags if f not in ("--kernel",)]
+        rc_cpu, out_cpu, _, _ = run_example(name, [*cpu_flags, "--device", "cpu"])
+        same = example_lines(out) == example_lines(out_cpu) and rc_cpu == rc
+        if not same:
+            raise AssertionError(f"examples {name} {flags}: the card's lines != the CPU's\n"
+                                 f"{out[-2000:]}\n--- cpu ---\n{out_cpu[-2000:]}")
+        bits = re.findall(r"bit-identical=(\w+)", out)
+        if bits and set(bits) != {"True"}:
+            raise AssertionError(f"examples {name} {flags}: bit-identical flags {bits}")
+        record(f"{name} {backend}" + (" --kernel" if "--kernel" in flags else ""), flags,
+               rc, out, secs, n, lines_equal_cpu=True,
+               trees=[int(next(x for x in m if x)) for m in re.findall(
+                   r"trees=(\d+)|(\d+) syntax trees|(\d+) parse tree", out)],
+               ok=[w == "True" for w in re.findall(r"ok=(\w+)", out)],
+               bit_identical=len(bits))
+
+    # regrep over the 8 MiB TRAFFIC log: three patterns in one fleet
+    traffic = traffic_log(TRAFFIC_BYTES, args.seed)
+    patterns = [TRAFFIC_RE, E125_RE, REGREP_MISS]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_regrep_") as tmp:
+        path = Path(tmp) / "traffic.log"
+        path.write_bytes(traffic)
+        argv = [a for p in patterns for a in ("-e", p)] + [
+            "--chunks", str(N_CHUNKS), str(path), "--device", "cuda"]
+        rc, out, secs, n = run_example("torch_regrep", argv)
+    _need("torch_regrep 8 MiB", n, EXAMPLE_KERNELS["cuda"])
+    lines = out.splitlines()
+    if "[p0] " not in out or "[p1] " + repr(E125_RE) + ": text does not match" not in out \
+            or "[p2] " + repr(REGREP_MISS) + ": text does not match" not in out:
+        raise AssertionError(f"regrep 8 MiB: verdicts wrong:\n{out[:2000]}")
+    # the referee, timed by part: a solo parse, the tree count, the group
+    # matches, their lines
+    t0 = time.perf_counter()
+    solo = Parser(ParserConfig(regex=TRAFFIC_RE, backend="cuda", n_chunks=N_CHUNKS), device=dev)
+    want_r = solo.parse(traffic)
+    t1 = time.perf_counter()
+    trees = want_r.count_trees()
+    t2 = time.perf_counter()
+    spans = [(g, want_r.matches(g)) for g in solo.groups]
+    t3 = time.perf_counter()
+    want = [f"  group {g} [{a}:{b}] {traffic[a:b].decode(errors='replace')!r}"
+            for g, matches in spans for a, b in matches]
+    t4 = time.perf_counter()
+    got = [line for line in lines if line.startswith("  group ")]
+    if got != want or trees != 1 or "1 parse tree(s)" not in out:
+        raise AssertionError("regrep 8 MiB: the TRAFFIC group matches != a solo cuda parse's")
+    regrep = {"bytes": len(traffic), "patterns": len(patterns), "seconds": secs,
+              "mb_per_s": len(traffic) / secs / 1e6,
+              "pattern_mb_per_s": len(patterns) * len(traffic) / secs / 1e6,
+              "match_lines": len(got),
+              "solo_traffic_parse_s": t1 - t0, "count_trees_s": t2 - t1,
+              "matches_s": t3 - t2, "match_lines_s": t4 - t3}
+    record("torch_regrep 8 MiB TRAFFIC", argv[:-3] + ["<8 MiB log>"] + argv[-2:], rc, out,
+           secs, n, fleet=lines[0], matched=["p0"], group_matches_equal_solo_parse=True,
+           **{k: v for k, v in regrep.items() if k != "seconds"})
+    del traffic, solo, want_r, spans, want, got, out, lines
+    torch.cuda.empty_cache()
+
+    # sharded: two ranks sharing the card (one a card over NCCL on 2+ cards)
+    rc, out, secs, _ = run_example("torch_sharded_parse", ["--device", "cuda", "--ranks", "2"])
+    rank_launches = [json.loads(line.split(": ", 1)[1]) for line in out.splitlines()
+                     if line.startswith("rank ")]
+    if len(rank_launches) != 2:
+        raise AssertionError(f"sharded: {out}")
+    for r, n in enumerate(rank_launches):
+        _need(f"torch_sharded_parse rank {r}", n, EXAMPLE_KERNELS["cuda"])
+    bits = re.findall(r"bit-identical=(\w+)", out)
+    if bits != ["True"] * 6:
+        raise AssertionError(f"sharded: bit-identical flags {bits}")
+    record("torch_sharded_parse", ["--ranks", "2"], rc, out, secs, {}, group=out.split()[3],
+           rank_launches=rank_launches, bit_identical=len(bits))
+
+    # constrained serving: the prompt goes step by step through decode_step
+    # (plain tensor code), so no kernel launches; every output in L(e)
+    rc, out, secs, n = run_example("torch_constrained_serve", ["--device", "cuda"])
+    m = re.search(r"(\d+)/(\d+) outputs in L\(e\)", out)
+    if not m or m.group(1) != m.group(2) or "fullmatch=False" in out:
+        raise AssertionError(f"constrained_serve: {out}")
+    record("torch_constrained_serve", [], rc, out, secs, n,
+           in_language=f"{m.group(1)}/{m.group(2)}",
+           outputs=re.findall(r"^  ('.*?') +fullmatch", out, re.M))
+
+    # training at the reference's deliverable scale
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as tmp:
+        argv = ["--preset", "100m", "--device", "cuda", "--workdir", tmp]
+        rc, out, secs, n = run_example("torch_train_lm", argv)
+        history = [json.loads(line) for line in
+                   (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+    _need("torch_train_lm", n, ("flash_attention",))
+    # metrics.jsonl: the first step and every third (log_every = 30 // 10);
+    # every sixth step (checkpoint_every = 30 // 5) also writes a checkpoint
+    final = float(re.search(r"final loss: (\S+)", out).group(1))
+    if history[-1]["step"] != 30 or not all(math.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"train_lm: {history}")
+    plain = [h["dt"] for h in history if h["step"] > 1 and h["step"] % 6]
+    saving = [h["dt"] for h in history if h["step"] % 6 == 0]
+    train = {"steps": history[-1]["step"], "final_loss": history[-1]["loss"],
+             "first_step_s": history[0]["dt"], "step_s": plain, "checkpoint_step_s": saving,
+             "tokens_per_step": 64 * 8, "tokens_per_s": 64 * 8 / statistics.median(plain),
+             "k6_launches_per_step": n["flash_attention"] / 30}
+    record("torch_train_lm --preset 100m", argv[:2], rc, out, secs, n, printed_final_loss=final,
+           logged={h["step"]: h["loss"] for h in history}, **train)
+    emit("examples_total", runs=len(runs), seconds=time.perf_counter() - t_phase,
+         regrep_8mib=regrep, train_lm_100m=train)
+
+
+def gates_phase() -> None:
+    """``scripts/torch_obs_smoke.py`` and ``scripts/torch_analyze_gate.py``
+    through ``main(["--device", "cuda"])``, counted: each must return 0; the
+    checks each passed are printed."""
+    t_phase = time.perf_counter()
+    for name in ("torch_obs_smoke", "torch_analyze_gate"):
+        rc, text, secs, n = run_example(name, ["--device", "cuda"], folder="scripts")
+        if rc != 0:
+            raise AssertionError(f"gate {name}: exit code {rc}\n{text[-3000:]}")
+        emit("gate", gate=name, seconds=secs, exit_code=rc,
+             checks=[line[4:] for line in text.splitlines() if line.startswith("ok: ")],
+             last=text.splitlines()[-1], launches=n)
+    emit("gates_total", seconds=time.perf_counter() - t_phase)
 
 
 if __name__ == "__main__":

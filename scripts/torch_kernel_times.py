@@ -3,7 +3,7 @@
 ``chip_smoke.py`` times them, and read K6's and K7's errors against their
 plain versions.
 
-    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k2,k3,k4,k5,k6,k7,k7f,join]
+    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k2,k3,k4,k5,k6,k7,k7f,join,walk]
 
 ``--tree`` is the root of a checkout of this repository (default: the one
 holding this script).  Its ``src/repro_torch`` is imported and its kernels
@@ -60,6 +60,11 @@ on one card, one after another.  Prints one JSON line per record:
       is emptied (as chip_smoke.py's ``phases`` runs it), with the
       ``cudaMalloc`` segments each one made, and the device time of one
       more join's kernels by ``torch.profiler``.
+  walk  ``ParseResult.matches`` of every group of the TRAFFIC (8 MiB) text's
+      ``cuda`` parse, host-clock seconds on each route of the forest's
+      ``iter_trees``: the array route for a forest of one segment a column,
+      then the depth-first walk alone (that route turned off on the
+      forest), and whether the two give the same spans.
 """
 
 from __future__ import annotations
@@ -396,6 +401,23 @@ def join_records(label: str, regex: str, text: bytes, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def walk_records(label: str, regex: str, text: bytes, dev) -> None:
+    from repro_torch import Parser, ParserConfig
+
+    parser = Parser(ParserConfig(regex=regex, backend="cuda", n_chunks=cs.N_CHUNKS), device=dev)
+    result = parser.parse(text)
+    seconds, spans = {}, {}
+    for route in ("array", "walk"):
+        if route == "walk":
+            result.forest._one_segment_columns = lambda: None
+        t0 = time.perf_counter()
+        spans[route] = [result.matches(g) for g in parser.groups]
+        seconds[route] = time.perf_counter() - t0
+    emit("walk", text=label, bytes=len(text), groups=list(parser.groups),
+         spans=sum(map(len, spans["array"])), seconds=seconds,
+         equal=spans["array"] == spans["walk"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=REPO)
@@ -439,6 +461,8 @@ def main() -> int:
     if "join" in parts:
         join_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
         join_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
+    if "walk" in parts:
+        walk_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
     return 0
 
 

@@ -79,6 +79,9 @@ class SLPF:
         """Exact number of LSTs = number of C_0→C_n paths (python big ints)."""
         if not self.accepted:
             return 0
+        one = self._one_segment_columns()
+        if one is not None:
+            return int(one[1])
         t = self.table
         ell = self.n_segments
         f = [1 if self.columns[0][q] else 0 for q in range(ell)]
@@ -96,30 +99,66 @@ class SLPF:
 
     # ---------------------------------------------------------- enumeration
 
+    def _one_segment_columns(self) -> Optional[Tuple[np.ndarray, bool]]:
+        """Where every column holds exactly one segment (the clean forest of
+        a text with one parse): that segment per column and whether the
+        column series is an LST (every step an arc of the parser NFA, the
+        last segment final); else None.  ``count_trees`` and ``iter_trees``
+        take this case in O(n) array work instead of a walk of every
+        position in Python, with the same result."""
+        cols = self.columns
+        if self.n_segments == 0 or not (cols.sum(axis=1) == 1).all():
+            return None
+        path = cols.argmax(axis=1)
+        t = self.table
+        used = np.unique(self.classes)
+        reads = np.array([[int(c) in t.seg_classes[q] for c in used]
+                          for q in range(self.n_segments)], dtype=bool)
+        reads = reads.reshape(self.n_segments, used.size)
+        follows = np.zeros((self.n_segments, self.n_segments), dtype=bool)
+        for q in range(self.n_segments):
+            follows[q, list(t.folseg[q])] = True
+        steps = np.searchsorted(used, self.classes)
+        lst = bool(reads[path[:-1], steps].all() and follows[path[:-1], path[1:]].all()
+                   and t.final[int(path[-1])])
+        return path, lst
+
     def iter_trees(self, limit: Optional[int] = None) -> Iterator[Tuple[int, ...]]:
-        """Yield LSTs as tuples of segment ids (path through the columns)."""
+        """Yield LSTs as tuples of segment ids (path through the columns).
+
+        Depth first, a path kept as a chain of (segment, parent) nodes so
+        that a step costs O(1) and a yielded tree O(n)."""
         if not self.accepted:
+            return
+        one = self._one_segment_columns()
+        if one is not None:
+            if one[1]:
+                yield tuple(one[0].tolist())
             return
         t = self.table
         n = self.n
         emitted = 0
-        stack: List[Tuple[int, Tuple[int, ...]]] = [
-            (0, (int(q),)) for q in np.flatnonzero(self.columns[0])[::-1]
+        stack: List[Tuple[int, tuple]] = [
+            (0, (int(q), None)) for q in np.flatnonzero(self.columns[0])[::-1]
         ]
         while stack:
-            r, path = stack.pop()
+            r, node = stack.pop()
             if r == n:
-                if not t.final[path[-1]]:
+                if not t.final[node[0]]:
                     continue  # an LST must end with a ⊣ segment
-                yield path
+                path = []
+                while node is not None:
+                    path.append(node[0])
+                    node = node[1]
+                yield tuple(reversed(path))
                 emitted += 1
                 if limit is not None and emitted >= limit:
                     return
                 continue
             cls = int(self.classes[r])
-            for q in reversed(t.delta(path[-1], cls)):
+            for q in reversed(t.delta(node[0], cls)):
                 if self.columns[r + 1][q]:
-                    stack.append((r + 1, path + (q,)))
+                    stack.append((r + 1, (q, node)))
 
     def lst_string(self, path: Sequence[int], with_end: bool = False) -> str:
         """Render a segment path as the parenthesized LST string."""
@@ -155,19 +194,22 @@ class SLPF:
         open/close parens along each LST.  ``end`` is exclusive.
         """
         syms = self.table.numbered.symbols
+        # each segment's parens numbered ``num``, in meta-prefix order
+        parens = [[syms[sid].kind for sid in seg[:-1]
+                   if syms[sid].num == num and syms[sid].kind in (OPEN, CLOSE)]
+                  for seg in self.table.segs]
+        has = np.array([bool(k) for k in parens], dtype=bool)
         spans: Dict[Tuple[int, int], None] = {}
         for path in self.iter_trees(limit=limit):
             # path[r] ∈ C_r sits between x_r and x_{r+1}: parens in its metaprefix
             # lie at 0-based char boundary r (group spans are half-open [start, end)).
+            at = np.asarray(path, dtype=np.int64)
             starts: List[int] = []
-            for r, q in enumerate(path):
-                for sid in self.table.segs[q][:-1]:
-                    s = syms[sid]
-                    if s.num != num:
-                        continue
-                    if s.kind == OPEN:
+            for r in np.flatnonzero(has[at]).tolist():
+                for kind in parens[path[r]]:
+                    if kind == OPEN:
                         starts.append(r)
-                    elif s.kind == CLOSE:
+                    else:
                         st = starts.pop() if starts else 0
                         spans[(st, r)] = None
         return sorted(spans.keys())

@@ -109,9 +109,12 @@ def rank_main(rank: int, world: int, tmp: str, opts: dict) -> None:
             device = torch.device("cuda", rank if nccl else 0)
             torch.cuda.set_device(device)
             group_backend = "nccl" if nccl else "gloo"
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         else:
+            # one thread a rank: the parts are small, and with the cores' share
+            # each rank ran 3.7x slower beside eight busy processes (8 cores)
             device, group_backend = torch.device("cpu"), "gloo"
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+            torch.set_num_threads(1)
         dist.init_process_group(group_backend, init_method=f"file://{tmp}/store",
                                 rank=rank, world_size=world)
         from repro_torch.kernels import ops

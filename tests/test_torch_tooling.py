@@ -2,9 +2,10 @@
 lines (sharded, constrained serving, training), the obs and analysis gates,
 the CI script, and what every one of them may import.
 
-* ``torch_sharded_parse`` runs 2 gloo ranks as a subprocess with a time
-  limit of its own; every part must be bit-identical to the single-process
-  parser, and a rank that fails ends the run with exit code 1.
+* ``torch_sharded_parse`` runs 2 gloo ranks (one torch thread each) as a
+  subprocess with a time limit of its own; every part must be bit-identical
+  to the single-process parser, and a rank that fails ends the run with
+  exit code 1.
 * ``torch_constrained_serve``: every output in L(e).
 * ``torch_train_lm --smoke``: 3 steps; a run crashed at step 2 and invoked
   again on its ``--workdir`` resumes, and its final loss is within

@@ -1,0 +1,7 @@
+"""The mean of the program's ``phase.build_merge`` spans over the window's parses, in ms."""
+
+from bench.readers import span_mean_ms
+
+
+def read(run):
+    return span_mean_ms(run, "phase.build_merge")

@@ -3169,8 +3169,9 @@ EXAMPLE_KERNELS = {"cuda": ("reach_chunk_product", "build_merge_packed"),
 REGREP_MISS = r"((GET|POST|PUT) /x* 200 ok\n)+"
 # The line parts of the parse examples that differ by design, between the
 # card and the CPU here and between the port and the JAX package's examples
-# in tests/test_torch_examples.py: (pattern, placeholder, why).  Both compare
-# every line after ``example_lines`` puts the placeholders in.
+# in tests/test_torch_examples.py (which adds its ``PORT_DESIGNED`` for the
+# packages alone): (pattern, placeholder, why).  Both compare every line
+# after ``example_lines`` puts the placeholders in.
 EXAMPLE_DESIGNED = [
     (r"backend=\w+", "backend=<b>",
      "backend names: jnp / torch / cuda / packed / sparse"),
@@ -3181,6 +3182,7 @@ EXAMPLE_DESIGNED = [
     (r"p99 targets met: \w+", "p99 targets met: <verdict>",
      "a latency verdict: the wall time of a batch against its 5 s target"),
     (r"\b[0-9a-f]{16}\b", "<trace_id>", "trace ids: random per request"),
+    (r", 't_trace_ns': \d+", "", "the port's spans carry their start on the profiler's clock"),
     (r"^static .* \(flops / bytes\):$", "<static cost header>",
      "the JAX package reads XLA's HLO cost analysis, the port its modeled cost"),
     (r"^(  bucket \d+x\d+:) .* flops, .* bytes \(.*\)$", r"\1 <static cost>",
@@ -3188,11 +3190,11 @@ EXAMPLE_DESIGNED = [
 ]
 
 
-def example_lines(text: str) -> list:
-    """``text``'s lines with ``EXAMPLE_DESIGNED``'s placeholders put in."""
+def example_lines(text: str, designed=EXAMPLE_DESIGNED) -> list:
+    """``text``'s lines with ``designed``'s placeholders put in."""
     lines = []
     for line in text.splitlines():
-        for pattern, placeholder, _ in EXAMPLE_DESIGNED:
+        for pattern, placeholder, _ in designed:
             line = re.sub(pattern, placeholder, line)
         lines.append(line)
     return lines

@@ -11,11 +11,15 @@ the supported surface only:
 
   * ``ParserConfig(obs=ObsConfig(enabled=True, span_log=...))`` — tracing
     on, spans mirrored to a JSONL file;
-  * a direct ``parse`` (phase-split spans: reach / join / build&merge /
-    host build, each synchronizing the device) and a ``submit`` → ticket
-    round trip (queue-wait + batch-compute spans), both carrying a
-    ``trace_id`` on the result;
-  * the span tree, validated and pretty-printed from the JSONL log;
+  * a direct ``parse`` and a ``submit`` → ticket round trip, both carrying
+    a ``trace_id`` on the result.  Both run the same route as untraced
+    calls — the parse service, the engine's fused core — with a span at
+    each layer boundary; on the card the core's phases and the copy back
+    are timed by CUDA events, with no synchronize;
+  * the span trees, validated from the JSONL log: for the direct parse the
+    paper's phases (reach / join / build&merge / host build), for the
+    ticket its queue wait and batch compute (the log also holds the
+    finer spans: planning, admission, the batch grid, the copy back);
   * ``Parser.stats()`` as a metrics view: cataloged counters/gauges, the
     per-bucket queue/compute p50/p99 split, and the static modeled cost of
     each phase program (``stats()["hlo"]``, from the engine's
@@ -39,13 +43,19 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.obs import prometheus_text, read_spans_jsonl, validate_span_tree
 
 
-def print_tree(spans, trace_id):
+PHASES = ("phase.reach", "phase.join", "phase.build_merge", "phase.host_build")
+QUEUE_VS_COMPUTE = ("parse.queue_wait", "parse.batch_compute")
+
+
+def print_tree(spans, trace_id, names):
+    """The trace's root and its spans named in ``names``, by start."""
     tree = validate_span_tree(spans, trace_id)
     root = tree["root"]
     print(f"  trace {trace_id}  root={root['name']}  "
           f"{root['duration_s'] * 1e3:8.2f} ms  attrs={root['attrs']}")
     for c in sorted(tree["children"], key=lambda s: s["t_start_s"]):
-        print(f"    └─ {c['name']:<24s} {c['duration_s'] * 1e3:8.2f} ms")
+        if c["name"] in names:
+            print(f"    └─ {c['name']:<24s} {c['duration_s'] * 1e3:8.2f} ms")
 
 
 def main(argv=None) -> int:
@@ -80,7 +90,7 @@ def main(argv=None) -> int:
 
 
 def trace(parser, span_log: Path) -> None:
-    # direct route: phase-split spans around each phase program
+    # direct route: phase attribution
     direct = parser.parse("abab" * 64)
     print(f"parse ok={direct.ok} backend={direct.backend} "
           f"bucket={direct.bucket} trace_id={direct.trace_id}")
@@ -94,9 +104,9 @@ def trace(parser, span_log: Path) -> None:
     spans = read_spans_jsonl(span_log)
     print(f"\nspan log: {len(spans)} spans in {span_log.name}")
     print("\ndirect route (phase attribution):")
-    print_tree(spans, direct.trace_id)
+    print_tree(spans, direct.trace_id, PHASES)
     print("\nticket route (queue vs compute):")
-    print_tree(spans, served[0].trace_id)
+    print_tree(spans, served[0].trace_id, QUEUE_VS_COMPUTE)
 
     stats = parser.stats()
     print("\nper-bucket latency split (queue wait vs device compute):")

@@ -11,9 +11,10 @@ Checks 1–6 of ``scripts/obs_smoke.py``, all through the public facade
      ``parse`` route and the ``submit``/ticket route both leave a complete
      span tree in the JSONL log (one root, parents resolve, child durations
      bounded by the root: ``validate_span_tree``);
-  2. the span taxonomy holds — ``parse.request`` roots with phase children
+  2. the span taxonomy holds — ``parse.request`` roots with phase spans
      (reach/join/build&merge/host build) on the direct route, queue-wait +
-     batch-compute children on the ticket route;
+     batch-compute spans on the ticket route (both routes run the service,
+     so each carries the other's spans too);
   3. metric-name rot guard — every name in every registry snapshot is in
      ``METRIC_CATALOG`` (``validate_metric_names``), and ``prometheus_text``
      renders the snapshot;
@@ -32,8 +33,8 @@ Checks 1–6 of ``scripts/obs_smoke.py``, all through the public facade
      render in the Prometheus text.
 
 Check 7 of the reference (every ``BENCH_*.json`` against the perf-trajectory
-schema) waits for the port's own benchmark: the port writes no
-``BENCH_*.json`` yet.
+schema) has no port: the port's benchmark (``bench/``) prints one JSON result
+line a run, and the port keeps no ``BENCH_*.json`` exporter.
 
 Exits non-zero on the first violated invariant, printing which one.
 """

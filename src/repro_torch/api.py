@@ -21,9 +21,10 @@ It mirrors ``repro/api.py``:
   ``ParseResult``    the forest with ``ok``, ``matches``, ``children``,
                      ``trees`` and timing / backend / bucket / trace metadata.
 
-``Parser.parse`` goes through admission as ``submit`` does; with tracing on
-(``ParserConfig(obs=ObsConfig(enabled=True))``) it takes the engine's
-phase-split route, one ``parse.request`` span with a span per phase.
+``Parser.parse`` is ``submit(...).result()``, traced or not; with tracing on
+(``ParserConfig(obs=ObsConfig(enabled=True))``) it holds its ``parse.request``
+root open as a live span, and the route below records a span at each layer
+boundary (``obs/trace.py``'s taxonomy).
 
 ``kernel=True`` selects the kernel path of ``packed`` (K4, and K2 for
 build&merge) and ``sparse`` (K5 and K2); ``cuda`` is always kernels, as
@@ -398,14 +399,14 @@ class ParseTicket:
                 )
         self._service.reap(self._request)
         req = self._request
-        if req.trace_id is not None:
+        if req.began_at is not None:
             # the root span closes here — collection ends the request's
-            # lifetime; queue-wait/compute children were emitted at pickup
-            # against the pre-minted root id
+            # lifetime; its children were recorded against the pre-minted
+            # root id
             self._parser.engine.obs.emit(
                 "parse.request",
-                t_start_s=req.submitted_at,
-                duration_s=req.latency_s,
+                t_start_s=req.began_at,
+                duration_s=time.perf_counter() - req.began_at,
                 trace_id=req.trace_id,
                 span_id=req.root_span_id,
                 bucket=list(req.bucket) if req.bucket else None,
@@ -763,27 +764,40 @@ class Parser:
         queueing; ``max_pending`` overflow raises ``BudgetExceeded``.  No
         deadline (and no config default) admits unconditionally.
         """
+        return self._submit(text, deadline_s)
+
+    def _submit(self, text, deadline_s: Optional[float], root=None) -> ParseTicket:
         if deadline_s is None:
             deadline_s = self._default_deadline_s()
         svc = self.parse_service
-        req = svc.submit_request(text, deadline_s=deadline_s)
+        req = svc.submit_request(text, deadline_s=deadline_s, root=root)
         return ParseTicket(self, svc, req, deadline_s=deadline_s)
 
     def parse(self, text, *, deadline_s: Optional[float] = None) -> ParseResult:
-        """Parse one text synchronously through the same admission path as
-        ``submit`` (stats and SLO grades observe it).
+        """Parse one text synchronously: ``submit(...).result()``, so the
+        same admission, batching, stats and SLO grades as ``submit``.
+
+        With tracing on it runs that same route inside a live
+        ``parse.request`` span, the root of the request's trace.
 
         On a mesh config this is the long-text route, queue-free: the
         engine's single-text distributed program shards the chunk dim over
         every chunk mesh axis ('pod' × 'data'); ``parse_batch`` keeps batch
         slots over 'data' and chunks over 'pod'.
-
-        With tracing on the call runs queue-free through the engine's
-        phase-split route (the same bits as the fused core), so the span log
-        carries one ``parse.request`` root with a span per phase.
         """
-        if not self.obs.enabled and self.engine.mesh is None:
-            return self.submit(text, deadline_s=deadline_s).result()
+        if self.engine.mesh is not None:
+            return self._parse_on_mesh(text, deadline_s)
+        obs = self.obs
+        with obs.span("parse.request", trace_id=obs.new_trace_id(),
+                      backend=self.backend_name) as root:
+            ticket = self._submit(text, deadline_s, root=root)
+            root.set_attr("bucket", list(ticket._request.bucket))
+            root.set_attr("n_chars", len(ticket._request.classes))
+            return ticket.result()
+
+    def _parse_on_mesh(self, text, deadline_s: Optional[float]) -> ParseResult:
+        """The mesh's queue-free long-text route, with the service's
+        admission and stats; traced, one ``phase.device_parse`` span."""
         if deadline_s is None:
             deadline_s = self._default_deadline_s()
         svc = self.parse_service
@@ -794,17 +808,12 @@ class Parser:
         obs = self.obs
         trace_id = obs.new_trace_id()
         t0 = time.perf_counter()
-        if obs.enabled:
-            with obs.span(
-                "parse.request",
-                trace_id=trace_id,
-                bucket=list(bucket),
-                backend=self.backend_name,
-                n_chars=len(classes),
-            ):
-                slpf = self.engine.parse_traced(classes, n_chunks=self.config.n_chunks)
-        else:
-            slpf = self.engine.parse(classes, n_chunks=self.config.n_chunks)
+        # its phases are separated by collectives, not host seams: one span
+        # for the distributed program, ended when the forest is on the host
+        with obs.span("parse.request", trace_id=trace_id, bucket=list(bucket),
+                      backend=self.backend_name, n_chars=len(classes)):
+            with obs.span("phase.device_parse", n_chars=len(classes)):
+                slpf = self.engine.parse(classes, n_chunks=self.config.n_chunks)
         latency = time.perf_counter() - t0
         # admission and the SLO grades learn this route too; it never
         # queues, so the whole latency is compute

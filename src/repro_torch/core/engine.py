@@ -11,11 +11,16 @@ The reference's layers (``repro/core/engine.py``), in PyTorch:
   phases    ``PhasePrograms`` — the same phases as separate callables whose
             boundaries (products, entries, packed columns) are tensors; the
             seam the streaming layer (``core/stream.py``) caches across
-            calls, and the traced route (``parse_traced``) times.
+            calls.
   engine    ``ParserEngine`` — texts → classes → chunk grids bucketed to
             power-of-two chunk lengths, grouped into power-of-two batches,
-            one core call per bucket, SLPF assembly on the host.  Built
-            with ``mesh=`` (``launch/mesh.py``), its ``parse`` /
+            one core call per bucket, SLPF assembly on the host.  With
+            tracing on (``obs``), the same calls with a span at each
+            boundary: the grid (``phase.pad``), each of the core's three
+            phases, the copy back (``phase.d2h``) and each text's assembly
+            (``phase.host_build``); on the card the device's parts are
+            timed by CUDA events, with no synchronize.  Built with
+            ``mesh=`` (``launch/mesh.py``), its ``parse`` /
             ``parse_batch`` run through the mesh layer, ``dist``
             (``core/distributed.py``).
 
@@ -30,7 +35,10 @@ one also counts into the ``compiled_programs_total`` metric of the engine's
 
 from __future__ import annotations
 
+import contextlib
+import resource
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -112,14 +120,25 @@ def join_with_col0(backend: ParserBackend, P, I, F):
     return Jf, Jb, pack_columns_u32(col0)
 
 
+def _no_phase(name: str):
+    return contextlib.nullcontext()
+
+
 def make_parse_core(backend: ParserBackend):
     """``core(N, I, F, chunks) -> (packed C₀ (…, W), packed cols (…, c, k, W))``
-    over a (c, k) chunk grid or a (B, c, k) batch of them."""
+    over a (c, k) chunk grid or a (B, c, k) batch of them.
 
-    def parse_core(N, I, F, chunks):
-        P = backend.reach(N, chunks)
-        Jf, Jb, col0p = join_with_col0(backend, P, I, F)
-        return col0p, backend.build_merge_packed(N, chunks, Jf, Jb)
+    ``phase`` maps a phase's span name to a context manager around that
+    phase's calls (``ObsHandle.phase`` when traced; none by default)."""
+
+    def parse_core(N, I, F, chunks, phase=_no_phase):
+        with phase("phase.reach"):
+            P = backend.reach(N, chunks)
+        with phase("phase.join"):
+            Jf, Jb, col0p = join_with_col0(backend, P, I, F)
+        with phase("phase.build_merge"):
+            cols = backend.build_merge_packed(N, chunks, Jf, Jb)
+        return col0p, cols
 
     return parse_core
 
@@ -174,6 +193,11 @@ def resolve_device(device) -> torch.device:
             'pass device="cpu" (with backend="torch") to run on the CPU'
         )
     return dev
+
+
+def _minor_faults() -> int:
+    """Page faults served without I/O so far by this process (``getrusage``)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_minflt
 
 
 def unpack_columns(packed: np.ndarray, n: int) -> np.ndarray:
@@ -299,11 +323,12 @@ class ParserEngine:
         check_class_ids(chunks, self.tables.N.shape[0])
         return torch.from_numpy(chunks).to(self.device)
 
-    def run(self, chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def run(self, chunks: torch.Tensor, phase=_no_phase) -> Tuple[torch.Tensor, torch.Tensor]:
         """The fused core on a (c, k) or (B, c, k) grid already on the device:
-        returns (packed C₀ (…, W), packed columns (…, c, k, W)) int32."""
+        returns (packed C₀ (…, W), packed columns (…, c, k, W)) int32;
+        ``phase`` as ``make_parse_core``'s."""
         t = self.tables
-        return self._core(t.N, t.I, t.F, chunks)
+        return self._core(t.N, t.I, t.F, chunks, phase)
 
     # --------------------------------------------------------------- parse
 
@@ -328,7 +353,9 @@ class ParserEngine:
         for i, cls in enumerate(classes_list):
             groups.setdefault(self.bucket_shape(len(cls), n_chunks), []).append(i)
 
-        m = self.obs.metrics
+        obs = self.obs
+        m = obs.metrics
+        traced = obs.enabled
         results: List[Optional[SLPF]] = [None] * len(texts)
         for (c, k), idxs in sorted(groups.items()):
             B = next_pow2(len(idxs))
@@ -340,14 +367,30 @@ class ParserEngine:
                 self._seen_batch_shapes.add((B, c, k))
                 m.counter("bucket_cache_misses_total").inc()
                 self._bump_compiles()
-            batch = np.full((B, c, k), self.tables.pad_class, dtype=np.int32)
+            # with tracing on, a span at each boundary of the same calls: on
+            # the card the core's phases and the copy back are CUDA-event
+            # intervals, placed on the host's clock by an anchor recorded as
+            # the copy returns (the stream is then drained) and emitted once
+            # complete; on a host device each call has finished when it
+            # returns, and live spans time them
+            with obs.span("phase.pad", bucket=[c, k]) as sp:
+                batch = np.full((B, c, k), self.tables.pad_class, dtype=np.int32)
+                for row, i in enumerate(idxs):
+                    batch[row] = self._pad_to(classes_list[i], c, k)
+                chunks = self.chunks_tensor(batch)
+                sp.set_attr("bytes", batch.nbytes)
+            col0s, colss = self.run(chunks, partial(obs.phase, self.device, bucket=[c, k]))
+            with obs.phase(self.device, "phase.d2h", drains=True,
+                           bytes=col0s.nbytes + colss.nbytes):
+                col0s = col0s.cpu().numpy()
+                colss = colss.cpu().numpy()
             for row, i in enumerate(idxs):
-                batch[row] = self._pad_to(classes_list[i], c, k)
-            col0s, colss = self.run(self.chunks_tensor(batch))
-            col0s = col0s.cpu().numpy()
-            colss = colss.cpu().numpy()
-            for row, i in enumerate(idxs):
-                results[i] = self._assemble(col0s[row], colss[row], classes_list[i])
+                with obs.span("phase.host_build", n_chars=len(classes_list[i])) as sp:
+                    faults = _minor_faults() if traced else 0
+                    results[i] = self._assemble(col0s[row], colss[row], classes_list[i])
+                    if traced:
+                        sp.set_attr("minor_faults", _minor_faults() - faults)
+            obs.settle(self.device)
         return results  # type: ignore[return-value]
 
     def _assemble(self, col0, cols, classes) -> SLPF:
@@ -361,41 +404,6 @@ class ParserEngine:
         return SLPF(table=self.table, columns=columns, classes=classes)
 
     # -------------------------------------------------------- observability
-
-    def parse_traced(self, text, n_chunks: int = 8) -> SLPF:
-        """Parse one text with per-phase spans (the observability route).
-
-        Runs the phase programs — the same bodies the fused core composes,
-        so the same bits — with each phase in its own span:
-        ``phase.reach``, ``phase.join``, ``phase.build_merge`` and
-        ``phase.host_build``.  Each device span synchronizes the engine's
-        device before it closes, so it times the phase and not its launches.
-        A mesh engine runs its distributed program in one
-        ``phase.device_parse`` span instead: its phases are separated by
-        collectives, not by host seams.
-        """
-        obs = self.obs
-        classes = self.classes_of_text(text)
-        if self.mesh is not None:
-            with obs.span("phase.device_parse", n_chars=len(classes)):
-                slpf = self.dist.parse(classes, n_chunks=n_chunks)
-                self._sync()
-            return slpf
-        c, k = self.bucket_shape(len(classes), n_chunks)
-        chunks = self.chunks_tensor(self._pad_to(classes, c, k))
-        t = self.tables
-        with obs.span("phase.reach", bucket=[c, k], n_chars=len(classes)):
-            P = self.phases.reach(t.N, chunks)
-            self._sync()
-        with obs.span("phase.join", n_products=c):
-            Jf, Jb, col0p = self.phases.join(P, t.I, t.F)
-            self._sync()
-        with obs.span("phase.build_merge", bucket=[c, k]):
-            cols = self.phases.build_merge(t.N, chunks, Jf, Jb)
-            self._sync()
-        with obs.span("phase.host_build", n_chars=len(classes)):
-            slpf = self._assemble(col0p.cpu().numpy(), cols.cpu().numpy(), classes)
-        return slpf
 
     def phase_traces(self, c: int, k: int) -> Dict[str, "OpStats"]:
         """Each phase program's ``launch/op_stats.OpStats`` at bucket (c, k),
@@ -449,10 +457,6 @@ class ParserEngine:
             out[phase] = entry
         out["total"] = total
         return out
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def count_accepting(self, text, n_chunks: int = 8) -> int:
         return self.parse(text, n_chunks).count_trees()

@@ -3,26 +3,30 @@
 The port's copy of ``repro/obs``.  Every ``ParserEngine`` carries an
 ``ObsHandle`` — a (tracer, metrics registry) pair — and every layer built
 over that engine (phase spans, ``StreamingParser``, both services, the
-``Parser`` facade) records into it through two narrow seams:
+``Parser`` facade) records into it through narrow seams:
 
-    with engine.obs.span("phase.reach", bucket=[c, k]):
-        ...launch + torch.cuda.synchronize...
+    with engine.obs.span("parse.plan", n_chars=n):          # host work
+        ...
+    with engine.obs.phase(engine.device, "phase.reach"):    # device work
+        ...launches, not waited for...
     engine.obs.metrics.counter("stream_evictions_total").inc()
 
-The handle is always present (a disabled tracer + live registry by default),
-so instrumentation is unconditional and near-free when tracing is off;
-``ParserConfig(obs=ObsConfig(enabled=True, span_log=...))`` switches a
-parser's handle to a recording tracer with a JSONL sink and, with
-``profiler=True``, ``torch.profiler.record_function`` ranges.
+The handle is always present (a disabled tracer + live registry by default);
+the hot paths test ``enabled`` once and, when it is off, build no span and
+record no event.  ``ParserConfig(obs=ObsConfig(enabled=True,
+span_log=...))`` switches a parser's handle to a recording tracer with a
+JSONL sink and, with ``profiler=True``, ``torch.profiler.record_function``
+ranges.
 
 Submodules:
 
   trace.py     ``Span``/``Tracer`` — monotonic spans, trace IDs, the span
-               taxonomy (request / queue-wait / compute / phase spans).
+               taxonomy, the profiler timeline's clock (``t_trace_ns``).
+  device.py    ``DeviceTimer`` — device intervals from CUDA events, emitted
+               as spans once complete, with no synchronize.
   metrics.py   ``MetricsRegistry`` — cataloged counters/gauges/bounded
                histograms; process-wide ``aggregate_snapshot``.
-  export.py    JSONL span logs, Prometheus text, and the shared
-               ``BENCH_<name>.json`` schema.
+  export.py    JSONL span logs and Prometheus text.
 """
 
 from __future__ import annotations
@@ -30,16 +34,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
+from .device import DeviceTimer
 from .export import (
-    BENCH_SCHEMA_KEYS,
     SpanJsonlWriter,
     prometheus_text,
     read_spans_jsonl,
-    validate_bench_report,
     validate_span_dict,
     validate_span_tree,
-    write_bench_json,
-    write_spans_jsonl,
 )
 from .metrics import (
     METRIC_CATALOG,
@@ -55,9 +58,12 @@ class ObsConfig:
     """Declarative observability knobs (a ``ParserConfig`` field).
 
     ``enabled`` switches tracing on (metrics are ALWAYS collected — they are
-    O(1) host mutations); ``span_log`` adds a JSONL sink for finished spans;
-    ``profiler`` wraps every span in a ``torch.profiler.record_function`` so
-    phase names appear on profiler timelines; ``max_spans`` bounds the
+    O(1) host mutations); a traced parse runs the route an untraced one
+    does, with a span at each layer boundary and the device's phases timed
+    by CUDA events, never by a synchronize.  ``span_log`` adds a JSONL sink
+    for finished spans; ``profiler`` wraps every live span in a
+    ``torch.profiler.record_function`` so its name appears on profiler
+    timelines as a host range; ``max_spans`` bounds the
     tracer's in-memory ring buffer.  ``hlo`` attaches the phase programs'
     static modeled cost to ``Parser.stats()["hlo"]`` when tracing is on
     (``ParserEngine.phase_static_cost``: one trace of each phase a bucket).
@@ -94,6 +100,7 @@ class ObsHandle:
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.registry = registry if registry is not None else MetricsRegistry()
         self._span_sink: Optional[SpanJsonlWriter] = None
+        self._timer: Optional[DeviceTimer] = None
 
     @classmethod
     def from_config(cls, cfg: Optional[ObsConfig]) -> "ObsHandle":
@@ -130,14 +137,43 @@ class ObsHandle:
     def new_trace_id(self) -> Optional[str]:
         return self.tracer.new_trace_id()
 
+    def device_timer(self, device: torch.device) -> Optional[DeviceTimer]:
+        """The CUDA-event timer of ``device``; None when tracing is off or
+        the device is not a card (each call there has finished when it
+        returns, so a live span times it)."""
+        if not self.tracer.enabled or device.type != "cuda":
+            return None
+        if self._timer is None:
+            self._timer = DeviceTimer(self.tracer, device)
+        return self._timer
+
+    def phase(self, device: torch.device, name: str, *, drains: bool = False, **attrs):
+        """A span over device work enqueued in the block: CUDA events on
+        the card (``DeviceTimer.phase``; ``drains`` for a block that
+        returns with the stream drained, a device → host copy), a live span
+        on a host device, nothing when tracing is off."""
+        timer = self.device_timer(device)
+        if timer is None:
+            return self.span(name, **attrs)
+        return timer.phase(name, drains=drains, **attrs)
+
+    def settle(self, device: torch.device) -> None:
+        """Emit the device intervals that have completed, without waiting."""
+        timer = self.device_timer(device)
+        if timer is not None:
+            timer.anchor_if_idle()
+            timer.resolve()
+
     def close(self) -> None:
-        """Flush and close the JSONL sink, if any."""
+        """Emit the device intervals that have completed, then flush and
+        close the JSONL sink, if any."""
+        if self._timer is not None:
+            self._timer.close()
         if self._span_sink is not None:
             self._span_sink.close()
 
 
 __all__ = [
-    "BENCH_SCHEMA_KEYS",
     "METRIC_CATALOG",
     "MetricsRegistry",
     "NULL_TRACER",
@@ -151,10 +187,7 @@ __all__ = [
     "new_trace_id",
     "prometheus_text",
     "read_spans_jsonl",
-    "validate_bench_report",
     "validate_metric_names",
     "validate_span_dict",
     "validate_span_tree",
-    "write_bench_json",
-    "write_spans_jsonl",
 ]

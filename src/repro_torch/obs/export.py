@@ -1,7 +1,7 @@
-"""Exporters: JSONL span logs, Prometheus text snapshots, BENCH_*.json.
+"""Exporters: JSONL span logs and Prometheus text snapshots.
 
-The port's copy of ``repro/obs/export.py``; three machine-readable formats,
-host-only:
+The port's copy of ``repro/obs/export.py``; two machine-readable formats,
+host-only (the port's benchmark, ``bench/``, prints its own result lines):
 
   span JSONL        one span dict per line (``trace.SPAN_SCHEMA_KEYS``) —
                     ``SpanJsonlWriter`` is a tracer sink that appends+flushes
@@ -11,24 +11,17 @@ host-only:
                     snapshot in the exposition format (``repro_``-prefixed,
                     as the reference's, HELP/TYPE headers, label escaping,
                     histogram ``_bucket``/``_sum``/``_count`` expansion).
-
-  BENCH_<name>.json the perf-trajectory schema ``{name, timestamp, config,
-                    metrics}``, written by ``write_bench_json`` and checked
-                    by ``validate_bench_report``.
 """
 
 from __future__ import annotations
 
 import json
 import threading
-import time
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 from .metrics import METRIC_CATALOG, MetricsRegistry
 from .trace import SPAN_SCHEMA_KEYS, Span
-
-BENCH_SCHEMA_KEYS = ("name", "timestamp", "config", "metrics")
 
 
 # ----------------------------------------------------------- span JSONL
@@ -56,16 +49,6 @@ class SpanJsonlWriter:
         with self._lock:
             if not self._fh.closed:
                 self._fh.close()
-
-
-def write_spans_jsonl(spans: Iterable[Span], path: Union[str, Path]) -> Path:
-    """One-shot dump of a span collection (e.g. ``tracer.drain()``)."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with path.open("w", encoding="utf-8") as fh:
-        for sp in spans:
-            fh.write(json.dumps(sp.to_dict(), sort_keys=True) + "\n")
-    return path
 
 
 def read_spans_jsonl(path: Union[str, Path]) -> List[Dict[str, Any]]:
@@ -174,51 +157,3 @@ def prometheus_text(
             else:
                 lines.append(f"{pname}{_prom_labels(labels)} {value}")
     return "\n".join(lines) + "\n"
-
-
-# ------------------------------------------------------- BENCH_*.json
-
-
-def write_bench_json(
-    name: str,
-    *,
-    config: Mapping[str, Any],
-    metrics: Mapping[str, Any],
-    out_dir: Union[str, Path],
-    timestamp: Optional[float] = None,
-) -> Path:
-    """Write one perf-trajectory entry ``BENCH_<name>.json``.
-
-    Shared schema across every benchmark gate: ``name`` (the gate),
-    ``timestamp`` (unix seconds, host clock), ``config`` (the run's knobs —
-    quick/smoke sizes, backends), ``metrics`` (the measurements; the CSV rows
-    live under ``metrics["rows"]``, richer structures under their own keys).
-    """
-    report = {
-        "name": name,
-        "timestamp": float(timestamp if timestamp is not None else time.time()),
-        "config": dict(config),
-        "metrics": dict(metrics),
-    }
-    validate_bench_report(report)
-    out = Path(out_dir) / f"BENCH_{name}.json"
-    out.write_text(json.dumps(report, indent=2, sort_keys=True) + "\n")
-    return out
-
-
-def validate_bench_report(d: Mapping[str, Any]) -> None:
-    """Schema check for one BENCH_*.json report (raises ValueError)."""
-    missing = set(BENCH_SCHEMA_KEYS) - set(d)
-    if missing:
-        raise ValueError(f"bench report missing keys {sorted(missing)}")
-    extra = set(d) - set(BENCH_SCHEMA_KEYS)
-    if extra:
-        raise ValueError(f"bench report has unknown keys {sorted(extra)}")
-    if not isinstance(d["name"], str) or not d["name"]:
-        raise ValueError("bench report name must be a non-empty string")
-    if not isinstance(d["timestamp"], (int, float)) or d["timestamp"] <= 0:
-        raise ValueError(f"bench report timestamp invalid: {d['timestamp']!r}")
-    for key in ("config", "metrics"):
-        if not isinstance(d[key], dict):
-            raise ValueError(f"bench report {key} must be a dict")
-    json.dumps(d)  # must be round-trippable as-is

@@ -6,42 +6,71 @@ and sinks, with ``torch.profiler`` where the reference annotates for
 
   ``Span``     one timed operation: name, trace/span/parent IDs, a
                monotonic-clock start, a duration, and a small attribute
-               dict.  Spans are plain host-side records; a span around
-               device work times it only if the caller synchronizes the
-               device before the span closes (``torch.cuda.synchronize``),
-               as the engine's phase spans do.
+               dict.  A live span (``Tracer.span``) times the host's work
+               between its ends; work the card runs asynchronously is timed
+               by CUDA events instead and emitted once they have completed
+               (``obs/device.py``), with no synchronize.
 
   ``Tracer``   mints trace IDs (one per ``Parser.parse``/``submit``/
-               ``append``), opens spans as context managers (parenting via a
-               ``contextvars`` stack, so nested phase spans attach to the
-               request span automatically), and ``emit``\\ s retroactive
-               spans (queue-wait is only known when a batch picks the
-               request up).  Finished spans go to a bounded ring buffer and
-               to every registered sink — ``obs/export.py``'s
-               ``SpanJsonlWriter`` is the standard one.
+               ``append``/stream step), opens spans as context managers
+               (parenting via a ``contextvars`` stack, so nested spans attach
+               to the span around them), and ``emit``\\ s retroactive spans
+               (queue-wait is only known when a batch picks the request up;
+               a device interval once its events complete).  Finished spans
+               go to a bounded ring buffer and to every registered sink —
+               ``obs/export.py``'s ``SpanJsonlWriter`` is the standard one.
 
-  profiler     with ``profiler=True`` every span also enters a
-               ``torch.profiler.record_function``, so the same phase names
-               show up on profiler timelines next to the kernels they wrap.
+  clocks       ``t_start_s`` is on ``time.perf_counter``; every span also
+               carries ``attrs["t_trace_ns"]``, its start on the clock of the
+               profiler's timeline (the system clock, ``time.time_ns``),
+               from one (perf_counter, system clock) pair the tracer reads
+               when it is made — so any span, live or emitted, can be placed
+               against the device's work in a ``torch.profiler`` trace.
+
+  profiler     with ``profiler=True`` every live span also enters a
+               ``torch.profiler.record_function``, so the same names show
+               up on profiler timelines as host ranges.
 
 A disabled tracer (``Tracer(enabled=False)`` — the default every engine
-carries) makes ``span``/``emit`` near-free no-ops: instrumentation stays in
-place permanently and costs one predicate when off.
+carries) makes ``span``/``emit`` near-free no-ops; the hot paths test
+``enabled`` once and build no span at all when it is off.
 
-Span taxonomy (the reference's):
+Span taxonomy.  A parse (``Parser.parse``, ``submit``, ``parse_batch``):
 
-  parse.request            root — one submit/parse lifetime (queue + device + host)
+  parse.request            root — submit → collection (live in ``Parser.parse``)
+  parse.plan               ``classes_of_text`` + the bucket (``n_chars``)
+  parse.admit              deadline / budget admission (``bucket``)
   parse.queue_wait         submit → batch pickup (service queue residency)
-  parse.batch_compute      the batched device program serving the bucket
+  parse.batch_compute      the batch's ``_execute``, live, in the head request's
+                           trace (``batch_size``); each rider gets an emitted
+                           copy (``batch_trace_id``: the trace holding the phases)
+  phase.pad                the batch grid, the class-id check, host → device
+                           (``bytes``)
+  phase.reach              chunk-product reach         } the fused core's calls:
+  phase.join               exclusive scan + C₀         } device intervals on the
+  phase.build_merge        builder&merger, packed      } card (``bucket``,
+                                                       } ``mem_allocated_bytes``)
+  phase.d2h                the packed columns' copy back (``bytes``; on the card
+                           ``host_wait_ms``: the host's wait before it began)
+  phase.host_build         one text's SLPF assembly on the host: concat, unpack,
+                           wrap (``n_chars``, ``minor_faults``)
+  phase.device_parse       a mesh engine's whole distributed parse (queue-free)
+
+A stream (``ParserStream``, ``StreamService``):
+
   stream.append            root — one append lifetime
+  stream.append_admit      classes, admission and enqueue of the append
   stream.append_queue_wait append → piece-batch pickup
-  stream.append_compute    the batched tail reach + compose
+  stream.append_compute    pickup → the end of the step's host work (the
+                           card may still be running the step's reach)
+  stream.step              root — one service step's host time (``sessions``,
+                           ``pieces``, ``chars``, ``composes``, ``seals``)
+  stream.pack              the step's piece grid, host → device
+  stream.reach             the batched reach: a device interval on the card,
+                           emitted at the service's next step / drain / query
+  stream.absorb            the per-session compose / seal loop
   stream.query             SLPF / acceptance materialization of a prefix
   stream.edit              one mid-text splice (segment-tree recompose path)
-  phase.reach              chunk-product reach (device)
-  phase.join               exclusive scan over stacked products (device)
-  phase.build_merge        builder&merger over join entries (device)
-  phase.host_build         host-side SLPF assembly (unpack + wrap)
 """
 
 from __future__ import annotations
@@ -105,6 +134,12 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+def _clock_pair() -> tuple:
+    """(``perf_counter_ns``, ``time_ns``) read together: the profiler's
+    timeline is on the system clock, spans on ``perf_counter``."""
+    before = time.perf_counter_ns()
+    wall = time.time_ns()
+    return (before + time.perf_counter_ns()) // 2, wall
 
 
 class Tracer:
@@ -128,6 +163,7 @@ class Tracer:
         self._current: contextvars.ContextVar[Optional[Span]] = (
             contextvars.ContextVar("repro_torch_obs_current_span", default=None)
         )
+        self._perf_ns, self._wall_ns = _clock_pair()
 
     # ------------------------------------------------------------------ ids
 
@@ -141,6 +177,11 @@ class Tracer:
 
     def current_span(self) -> Optional[Span]:
         return self._current.get()
+
+    def trace_ns(self, t_s: float) -> int:
+        """A ``time.perf_counter`` reading on the profiler timeline's clock
+        (nanoseconds of the system clock)."""
+        return self._wall_ns + round(t_s * 1e9) - self._perf_ns
 
     # ---------------------------------------------------------------- spans
 
@@ -156,21 +197,23 @@ class Tracer:
         """Open a timed span around a block; parents to the context span.
 
         The yielded object supports ``set_attr``.  Timing is monotonic
-        (``time.perf_counter``); callers wrapping device work must
-        synchronize the device inside the span (``torch.cuda.synchronize``)
-        or the span measures only the launches.
+        (``time.perf_counter``) and of the host: a block that launches
+        device work and does not wait for it times the launches (device
+        intervals: ``obs/device.py``).
         """
         if not self.enabled:
             yield _NULL_SPAN
             return
         parent = self._current.get()
+        t0 = time.perf_counter()
+        attrs["t_trace_ns"] = self.trace_ns(t0)
         sp = Span(
             name=name,
             trace_id=trace_id or (parent.trace_id if parent else None),
             span_id=self._new_span_id(),
             parent_id=parent_id or (parent.span_id if parent else None),
-            t_start_s=time.perf_counter(),
-            attrs=dict(attrs),
+            t_start_s=t0,
+            attrs=attrs,
         )
         token = self._current.set(sp)
         try:
@@ -207,6 +250,7 @@ class Tracer:
         """
         if not self.enabled:
             return None
+        attrs["t_trace_ns"] = self.trace_ns(t_start_s)
         sp = Span(
             name=name,
             trace_id=trace_id,
@@ -214,7 +258,7 @@ class Tracer:
             parent_id=parent_id,
             t_start_s=t_start_s,
             duration_s=duration_s,
-            attrs=dict(attrs),
+            attrs=attrs,
         )
         self._record(sp)
         return sp

@@ -226,9 +226,13 @@ class ParseRequest:
     cancelled: bool = False
     # tracing: minted at submit when the engine's tracer is enabled; the
     # root span id lets retroactive queue-wait/compute spans parent to the
-    # ``parse.request`` root the ticket emits at collection
+    # ``parse.request`` root the ticket emits at collection.  ``began_at``
+    # is that root's start (before planning); None where the caller holds
+    # the root open as a live span (``Parser.parse``) and the ticket emits
+    # none
     trace_id: Optional[str] = None
     root_span_id: Optional[str] = None
+    began_at: Optional[float] = None
     # filled by the service:
     slpf: Optional[SLPF] = None
     latency_s: Optional[float] = None
@@ -458,20 +462,43 @@ class ParseService:
         *,
         deadline_s: Optional[float] = None,
         tenant: str = "default",
+        root=None,
     ) -> ParseRequest:
         """Enqueue a text; returns its (live) request record.
 
         With ``deadline_s`` the request passes deadline-aware admission
         first and may raise ``AdmissionError``/``BudgetExceeded``; the
         returned object's ``slpf``/``latency_s`` fields fill in place when a
-        ``step`` serves its bucket.
+        ``step`` serves its bucket.  With tracing on, planning and
+        admission are the ``parse.plan`` / ``parse.admit`` spans of the
+        request's trace; ``root`` is a live ``parse.request`` span the
+        caller holds open (``Parser.parse``), else the ticket emits the
+        root at collection (a refused request's root is emitted here).
         """
         ts = self._tenant(tenant)
-        classes, bucket = self._classes_and_bucket(text, tenant)
-        self._admit(bucket, deadline_s, tenant=ts)
+        obs = self.engine.obs
+        trace_id = root_id = began_at = None
+        if obs.enabled:
+            if root is None:
+                trace_id, root_id = obs.new_trace_id(), obs.tracer._new_span_id()
+                began_at = time.perf_counter()
+            else:
+                trace_id, root_id = root.trace_id, root.span_id
+        try:
+            with obs.span("parse.plan", trace_id=trace_id, parent_id=root_id) as sp:
+                classes, bucket = self._classes_and_bucket(text, tenant)
+                sp.set_attr("n_chars", len(classes))
+            with obs.span("parse.admit", trace_id=trace_id, parent_id=root_id,
+                          bucket=list(bucket)):
+                self._admit(bucket, deadline_s, tenant=ts)
+        except Exception as e:
+            if began_at is not None:
+                obs.emit("parse.request", t_start_s=began_at,
+                         duration_s=time.perf_counter() - began_at, trace_id=trace_id,
+                         span_id=root_id, refused=type(e).__name__)
+            raise
         # the bucket is observable (served=0, queue_depth>0) from this moment
         self._buckets.setdefault(bucket, BucketStats())
-        obs = self.engine.obs
         req = ParseRequest(
             rid=self._next_rid,
             text=text,
@@ -479,12 +506,10 @@ class ParseService:
             classes=classes,
             bucket=bucket,
             submitted_at=time.perf_counter(),
-            trace_id=obs.new_trace_id(),
+            trace_id=trace_id,
+            root_span_id=root_id,
+            began_at=began_at,
         )
-        if req.trace_id is not None:
-            # pre-mint the root span id so queue-wait/compute spans emitted
-            # mid-flight can parent to the request root before it is written
-            req.root_span_id = obs.tracer._new_span_id()
         self._next_rid += 1
         if ts.pending == 0:
             # WFQ activation floor: a tenant waking from idle resumes at the
@@ -606,10 +631,14 @@ class ParseService:
         self._queue = keep
 
         picked_at = time.perf_counter()
-        slpfs = self._execute(head_bucket, batch)
+        obs = self.engine.obs
+        # the batch's device program runs in its head request's trace
+        with obs.span("parse.batch_compute", trace_id=head.trace_id,
+                      parent_id=head.root_span_id, bucket=list(head_bucket),
+                      batch_size=len(batch), tenant=head.tenant):
+            slpfs = self._execute(head_bucket, batch)
         now = time.perf_counter()
         compute_s = now - picked_at
-        obs = self.engine.obs
         stats = self._buckets.setdefault(head_bucket, BucketStats())
         for req, slpf in zip(batch, slpfs):
             req.slpf = slpf
@@ -637,16 +666,19 @@ class ParseService:
                     bucket=list(head_bucket),
                     tenant=req.tenant,
                 )
-                obs.emit(
-                    "parse.batch_compute",
-                    t_start_s=picked_at,
-                    duration_s=compute_s,
-                    trace_id=req.trace_id,
-                    parent_id=req.root_span_id,
-                    bucket=list(head_bucket),
-                    batch_size=len(batch),
-                    tenant=req.tenant,
-                )
+                if req is not head:
+                    # a rider's share of the head's live span
+                    obs.emit(
+                        "parse.batch_compute",
+                        t_start_s=picked_at,
+                        duration_s=compute_s,
+                        trace_id=req.trace_id,
+                        parent_id=req.root_span_id,
+                        bucket=list(head_bucket),
+                        batch_size=len(batch),
+                        tenant=req.tenant,
+                        batch_trace_id=head.trace_id,
+                    )
             self._done.append(req)
         stats.batches += 1
         self.batches_run += 1

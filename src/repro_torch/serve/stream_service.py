@@ -50,6 +50,13 @@ reach is one (B_pad, k) grid on the engine's device: on the card, ONE K1 /
 K4 / K5 launch for every same-bucket session it serves.  ``mesh=`` builds a
 mesh engine: each session's join runs through ``core/distributed.py``, and
 admission reads rank 0's observed p99 (``agreed``).
+
+Tracing (the engine's ``obs``): an append's host work is the live
+``stream.append_admit`` span of its ``stream.append`` trace; each step is a
+``stream.step`` trace of its own, with ``stream.pack`` and ``stream.absorb``
+(live) and ``stream.reach`` (the batched reach; on the card a device
+interval from CUDA events, emitted at the service's next step, drain or
+query, whichever finds it complete).  No span waits for the device.
 """
 
 from __future__ import annotations
@@ -77,9 +84,11 @@ class _PendingAppend:
     offset: int = 0                      # chars already absorbed
     enqueued_at: float = 0.0
     # tracing: one trace per append request; the pre-minted root span id
-    # parents the retroactive queue-wait/compute spans (see obs/trace.py)
+    # parents the admission span and the retroactive queue-wait/compute
+    # spans (see obs/trace.py); ``began_at`` is the root's start
     trace_id: Optional[str] = None
     root_span_id: Optional[str] = None
+    began_at: Optional[float] = None
 
     @property
     def remaining(self) -> int:
@@ -235,6 +244,25 @@ class StreamService:
         queued.  ``max_pending_chars`` bounds the cross-session backlog with
         ``BudgetExceeded``.
         """
+        obs = self.engine.obs
+        # the append's trace: its id, its root's pre-minted id and start
+        trace = (None, None, None)
+        if obs.enabled:
+            trace = (obs.new_trace_id(), obs.tracer._new_span_id(), time.perf_counter())
+        queued = 0
+        try:
+            with obs.span("stream.append_admit", trace_id=trace[0], parent_id=trace[1]):
+                queued = self._append(sid, text, deadline_s, trace)
+        finally:
+            if trace[2] is not None and not queued:
+                # nothing queued (an empty or a refused append): its root
+                # closes now
+                obs.emit("stream.append", t_start_s=trace[2],
+                         duration_s=time.perf_counter() - trace[2],
+                         trace_id=trace[0], span_id=trace[1], n_chars=0)
+        return queued
+
+    def _append(self, sid: int, text, deadline_s: Optional[float], trace: tuple) -> int:
         s = self._session(sid)
         self._check_pattern_guard()
         classes = self.engine.classes_of_text(text)
@@ -282,13 +310,8 @@ class StreamService:
                 # WFQ activation floor: a session waking from idle resumes
                 # at the scheduler's clock — idle time banks no credit
                 s.vtime = max(s.vtime, self._vclock)
-            p = _PendingAppend(
-                classes=classes,
-                enqueued_at=time.perf_counter(),
-                trace_id=obs.new_trace_id(),
-            )
-            if p.trace_id is not None:
-                p.root_span_id = obs.tracer._new_span_id()
+            p = _PendingAppend(classes=classes, enqueued_at=time.perf_counter(),
+                               trace_id=trace[0], root_span_id=trace[1], began_at=trace[2])
             s.pending.append(p)
             s.last_touch = self._tick()
             m.counter("appends_total", service="stream").inc()
@@ -329,7 +352,12 @@ class StreamService:
         *,
         batch_size: int,
     ) -> None:
-        """Latency bookkeeping + retroactive spans for one completed append."""
+        """Latency bookkeeping + retroactive spans for one completed append.
+
+        ``now`` is the end of the host's work for the append: its
+        ``stream.append_compute`` span runs from pickup to there and leaves
+        out the device's run of the step's reach, which may still be going.
+        """
         stats = self._buckets.setdefault(bucket, BucketStats())
         stats.record(
             now - p.enqueued_at,
@@ -342,8 +370,8 @@ class StreamService:
             return
         obs.emit(
             "stream.append",
-            t_start_s=p.enqueued_at,
-            duration_s=now - p.enqueued_at,
+            t_start_s=p.began_at,
+            duration_s=now - p.began_at,
             trace_id=p.trace_id,
             span_id=p.root_span_id,
             n_chars=len(p.classes),
@@ -379,6 +407,9 @@ class StreamService:
         piece; the per-session compose/seal bookkeeping is O(1) device work
         each.
         """
+        obs = self.engine.obs
+        device = self.engine.device
+        obs.settle(device)
         active = sorted(
             (s for s in self._sessions.values() if s.pending),
             key=lambda s: s.arrival_seq,
@@ -395,41 +426,55 @@ class StreamService:
             if s is not head and self._piece_bucket(s) == bucket:
                 batch.append(s)
 
-        # One (B_pad, k) reach across sessions: chunk axis = session axis.
-        pieces: List[np.ndarray] = []
-        finished: List[Optional[_PendingAppend]] = []
-        picked_at = time.perf_counter()
-        for s in batch:
-            piece, done = self._take_piece(s, self._next_piece_len(s))
-            pieces.append(piece)
-            finished.append(done)
-        B_pad = next_pow2(len(batch))
-        grid = np.full((B_pad, bucket), self.engine.tables.pad_class, dtype=np.int32)
-        for row, piece in enumerate(pieces):
-            grid[row, : len(piece)] = piece
-        products = self.engine.phases.reach(
-            self.engine.tables.N, self.engine.chunks_tensor(grid)
-        )
+        with obs.span("stream.step", trace_id=obs.new_trace_id(), bucket=bucket,
+                      sessions=len(batch)) as sp:
+            # One (B_pad, k) reach across sessions: chunk axis = session axis.
+            pieces: List[np.ndarray] = []
+            finished: List[Optional[_PendingAppend]] = []
+            picked_at = time.perf_counter()
+            for s in batch:
+                piece, done = self._take_piece(s, self._next_piece_len(s))
+                pieces.append(piece)
+                finished.append(done)
+            with obs.span("stream.pack", bucket=bucket):
+                B_pad = next_pow2(len(batch))
+                grid = np.full((B_pad, bucket), self.engine.tables.pad_class, dtype=np.int32)
+                for row, piece in enumerate(pieces):
+                    grid[row, : len(piece)] = piece
+                chunks = self.engine.chunks_tensor(grid)
+            with obs.phase(device, "stream.reach", bucket=bucket):
+                products = self.engine.phases.reach(self.engine.tables.N, chunks)
 
-        stats = self._buckets.setdefault(bucket, BucketStats())
-        for row, s in enumerate(batch):
-            s.parser.absorb_product(pieces[row], products[row])
-            s.last_touch = self._tick()
-            s.vtime += len(pieces[row]) / s.weight
-            if s.pending:
-                s.arrival_seq = self._tick()   # requeue behind current arrivals
-        now = time.perf_counter()
-        for done in finished:
-            if done is not None:
-                self._finish_append(
-                    done, bucket, picked_at, now, batch_size=len(batch)
-                )
-        stats.batches += 1
-        self.batches_run += 1
-        m = self.engine.obs.metrics
-        m.counter("batches_total", service="stream").inc()
-        m.gauge("queue_depth", service="stream").set(self.pending_appends)
-        self._maybe_evict()
+            stats = self._buckets.setdefault(bucket, BucketStats())
+            seals = 0
+            with obs.span("stream.absorb"):
+                for row, s in enumerate(batch):
+                    seals += len(pieces[row]) == s.parser.tail_room()
+                    s.parser.absorb_product(pieces[row], products[row])
+                    s.last_touch = self._tick()
+                    s.vtime += len(pieces[row]) / s.weight
+                    if s.pending:
+                        s.arrival_seq = self._tick()   # requeue behind current arrivals
+            timer = obs.device_timer(device)
+            if timer is not None:
+                timer.record()   # the step's last device work: an anchor waits for it
+            if obs.enabled:
+                sp.set_attr("pieces", len(pieces))
+                sp.set_attr("chars", sum(len(p) for p in pieces))
+                sp.set_attr("composes", len(pieces))
+                sp.set_attr("seals", seals)
+            now = time.perf_counter()
+            for done in finished:
+                if done is not None:
+                    self._finish_append(
+                        done, bucket, picked_at, now, batch_size=len(batch)
+                    )
+            stats.batches += 1
+            self.batches_run += 1
+            m = obs.metrics
+            m.counter("batches_total", service="stream").inc()
+            m.gauge("queue_depth", service="stream").set(self.pending_appends)
+            self._maybe_evict()
         return True
 
     def drain(self) -> None:
@@ -440,6 +485,7 @@ class StreamService:
     def _drain_session(self, s: StreamSession) -> None:
         """Absorb ONE session's pending appends (unbatched reach per piece) —
         a query's latency must not scale with other sessions' backlogs."""
+        self.engine.obs.settle(self.engine.device)
         while s.pending:
             picked_at = time.perf_counter()
             piece, done = self._take_piece(s, self._next_piece_len(s))

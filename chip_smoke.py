@@ -732,7 +732,9 @@ def torch_backend_columns(p_torch, text: bytes):
 
 def phase_times(parser, want, text: bytes, label: str) -> None:
     """Phase-split run of ``parser``'s backend, timed per phase, and its
-    packed columns held against ``want`` (``torch_backend_columns``)."""
+    packed columns held against ``want`` (``torch_backend_columns``); the
+    host assembly is the engine's: the columns unpacked on the card and
+    copied back (``ParserEngine._host_columns``)."""
     import numpy as np
     import torch
 
@@ -752,7 +754,7 @@ def phase_times(parser, want, text: bytes, label: str) -> None:
     cols = eng.phases.build_merge(t.N, chunks, Jf, Jb)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    slpf = eng._assemble(col0.cpu().numpy(), cols.cpu().numpy(), classes)
+    columns = eng._host_columns(col0[None], cols[None], (len(classes),))[0]
     marks.append(time.perf_counter())
     product_bytes = P.numel() * P.element_size()
     del P, Jf, Jb
@@ -760,7 +762,7 @@ def phase_times(parser, want, text: bytes, label: str) -> None:
     want_col0, want_cols, want_columns = want
     if not (torch.equal(col0, want_col0) and torch.equal(cols, want_cols)):
         raise AssertionError(f"{label}: packed columns != torch backend's")
-    if not np.array_equal(slpf.columns, want_columns):
+    if not np.array_equal(columns, want_columns):
         raise AssertionError(f"{label}: assembled columns differ")
     names = ["reach", "join", "build_merge", "host_assembly"]
     secs = {f"{n}_s": marks[i + 1] - marks[i] for i, n in enumerate(names)}
@@ -1706,7 +1708,8 @@ def dryrun_parser(args, dev) -> None:
     launches by kernel equal the launches of the same engine's real parse of
     that text (counts set to 0 just before it), and each kernel's modeled
     bound equals the sum of its launcher's ``cost`` over the real launches;
-    then ``stats()["hlo"]`` of a traced ``cuda`` parser."""
+    then ``stats()["hlo"]`` of a traced ``cuda`` parser.  The parse's one
+    ``unpack_columns`` launch, after the phase programs, is counted apart."""
     from repro_torch import ObsConfig, Parser, ParserConfig
 
     traffic = traffic_log(TRAFFIC_BYTES, args.seed)
@@ -1730,6 +1733,10 @@ def dryrun_parser(args, dev) -> None:
             with launch_bounds() as real_s:
                 _, _, counts = counted(lambda: p.parse(text))
             real = {name: n for name, n in counts.items() if n}
+            # the forest's unpack follows the phase programs: one launch a parse
+            if real.pop("unpack_columns", 0) != 1:
+                raise AssertionError(f"dryrun {label} {backend}: unpack launches {counts}")
+            real_s.pop("unpack_columns", None)
             if modeled != real:
                 raise AssertionError(f"dryrun {label} {backend}: modeled launches {modeled}, "
                                      f"real {real}")

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1–K7 of one tree of the PyTorch/CUDA port on one NVIDIA GPU, as
+"""Time K1–K7 and the forest's unpack of one tree of the PyTorch/CUDA port on one GPU, as
 ``chip_smoke.py`` times them, and read K6's and K7's errors against their
 plain versions.
 
-    python3 scripts/torch_kernel_times.py [--tree DIR] [--parts k1,k2,k3,k4,k5,k6,k7,k7f,join,walk]
+    python3 scripts/torch_kernel_times.py [--tree DIR]
+        [--parts k1,k2,k3,k4,k5,k6,k7,k7f,join,walk,unpack]
 
 ``--tree`` is the root of a checkout of this repository (default: the one
 holding this script).  Its ``src/repro_torch`` is imported and its kernels
@@ -65,6 +66,22 @@ on one card, one after another.  Prints one JSON line per record:
       ``iter_trees``: the array route for a forest of one segment a column,
       then the depth-first walk alone (that route turned off on the
       forest), and whether the two give the same spans.
+  unpack  ``unpack_columns`` at the scans' bucket (a 1 MiB text, 1024
+      chunks × 1024) for TRAFFIC (ℓ 37, W 2) and e125 (ℓ 257, W 9), on
+      random words: ``ms``, ``device_ms``, its plain version's ``plain_ms``
+      on the card, equality, and its ``cost``'s bound.  Then the routes
+      from the words on the card to a fresh host (n+1, ℓ) bool array,
+      host-clock ms over UNPACK_RUNS rounds, the routes in turns: ``host``
+      (the words copied back, then ``core/engine.unpack_columns``),
+      ``direct`` (the kernel, one copy into a fresh array), ``dma`` (the
+      kernel, one copy into a pinned staging buffer kept across calls),
+      ``pinned`` (``dma``, then a host copy into a fresh array: the
+      engine's route), ``pinned_populated`` and ``direct_populated`` (the
+      same into a fresh array whose pages ``MAP_POPULATE`` made at its
+      ``mmap``); and the host alone: ``fresh_fill`` (a fresh array written
+      once), ``reused_fill`` (one array written again) and
+      ``populated_alloc`` (the populated array alone).  A tree without the
+      kernel gets the ``host`` route and the host alone.
 """
 
 from __future__ import annotations
@@ -86,6 +103,9 @@ RING_EDGES = [(1, 1, True, None), (1, 100, False, None), (100, 150, False, None)
               (150, 100, True, None), (1000, 1000, True, None), (700, 700, True, 40),
               (300, 300, False, 100), (129, 129, True, 65)]
 JOIN_RUNS = 5
+UNPACK_CASES = (("traffic", 37, 2), ("e125", 257, 9))   # ℓ and W at the scans' bucket
+UNPACK_TEXT = 1 << 20           # the scans' 1 MiB texts: 1024 chunks × 1024
+UNPACK_RUNS = 9
 
 
 def emit(part: str, **fields) -> None:
@@ -418,6 +438,111 @@ def walk_records(label: str, regex: str, text: bytes, dev) -> None:
          equal=spans["array"] == spans["walk"])
 
 
+def populated(shape):
+    """A fresh bool array of ``shape`` on anonymous memory mapped with
+    ``MAP_POPULATE``: its pages are made at the ``mmap``, not by faults."""
+    import mmap
+
+    import numpy as np
+
+    size = int(np.prod(shape))
+    mm = mmap.mmap(-1, max(size, 1),
+                   flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE)
+    return np.frombuffer(mm, dtype=bool, count=size).reshape(shape)
+
+
+def unpack_records(dev, seed: int) -> None:
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import unpack_columns as host_unpack
+    from repro_torch.kernels import ops
+
+    kernel = getattr(ops, "unpack_columns", None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = k = 1024
+    n = UNPACK_TEXT
+    for label, ell, W in UNPACK_CASES:
+        lo, hi = -(2**31), 2**31 - 1
+        col0 = torch.randint(lo, hi, (1, W), generator=gen, dtype=torch.int32, device=dev)
+        cols = torch.randint(lo, hi, (1, c, k, W), generator=gen, dtype=torch.int32, device=dev)
+        kw = {"lengths": (n,), "ell": ell}
+        sync = torch.cuda.current_stream(dev).synchronize
+
+        def host():
+            a, b = col0.cpu().numpy(), cols.cpu().numpy()
+            return host_unpack(np.concatenate([a[0, None], b[0].reshape(-1, W)[:n]]), ell)
+
+        routes = {"host": host}
+        if kernel is not None:
+            from repro_torch.kernels import unpack as unpack_launcher
+
+            kern = lambda: kernel(col0, cols, **kw)  # noqa: E731
+            plain = lambda: kernel.plain(col0, cols, **kw)  # noqa: E731
+            equal = torch.equal(kern()[0], plain()[0])
+            b_ms, b_by = cs.bound_ms(unpack_launcher.cost(col0, cols, **kw))
+            emit("unpack", text=label, case="kernel", ell=ell, W=W, rows=n + 1,
+                 equal_plain=equal, ms=cs.time_ms(kern), device_ms=cs.device_ms(kern),
+                 plain_ms=cs.time_ms(plain), bound_ms=b_ms, bound_by=b_by)
+            staging = torch.empty((n + 1) * ell, dtype=torch.bool, pin_memory=True)
+
+            def direct():
+                t = kern()[0]
+                out = np.empty(tuple(t.shape), dtype=bool)
+                torch.from_numpy(out).copy_(t, non_blocking=True)
+                sync()
+                return out
+
+            def dma():
+                t = kern()[0]
+                s = staging.view(t.shape)
+                s.copy_(t, non_blocking=True)
+                sync()
+                return s.numpy()
+
+            def pinned(alloc=lambda shape: np.empty(shape, dtype=bool)):
+                s = torch.from_numpy(dma())
+                out = alloc(tuple(s.shape))
+                torch.from_numpy(out).copy_(s)
+                return out
+
+            def direct_populated():
+                t = kern()[0]
+                out = populated(tuple(t.shape))
+                torch.from_numpy(out).copy_(t, non_blocking=True)
+                sync()
+                return out
+
+            routes.update(direct=direct, dma=dma, pinned=pinned,
+                          pinned_populated=lambda: pinned(populated),
+                          direct_populated=direct_populated)
+        reused = np.empty((n + 1, ell), dtype=bool)
+        routes["fresh_fill"] = lambda: np.ones((n + 1, ell), dtype=bool)
+        routes["reused_fill"] = lambda: reused.fill(True)
+        routes["populated_alloc"] = lambda: populated((n + 1, ell))
+        want = host()
+        same = {name: bool(np.array_equal(fn(), want)) for name, fn in routes.items()
+                if name in ("direct", "pinned", "pinned_populated", "direct_populated")}
+        times = {name: [] for name in routes}
+        names = list(routes)
+        for r in range(UNPACK_RUNS):
+            for name in names[r % len(names):] + names[:r % len(names)]:
+                sync()
+                t0 = time.perf_counter()
+                routes[name]()
+                sync()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        emit("unpack", text=label, case="routes", ell=ell, W=W, rows=n + 1,
+             bytes=(n + 1) * ell, equal_host=same,
+             median_ms={name: statistics.median(v) for name, v in times.items()},
+             ms=times, torch_threads=torch.get_num_threads())
+        del col0, cols, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=REPO)
@@ -463,6 +588,8 @@ def main() -> int:
         join_records("e125", cs.E125_RE, cs.e125_text(cs.E125_BYTES, 1), dev)
     if "walk" in parts:
         walk_records("traffic", cs.TRAFFIC_RE, cs.traffic_log(cs.TRAFFIC_BYTES, 0), dev)
+    if "unpack" in parts:
+        unpack_records(dev, 0)
     return 0
 
 

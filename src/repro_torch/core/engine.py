@@ -14,12 +14,16 @@ The reference's layers (``repro/core/engine.py``), in PyTorch:
             calls.
   engine    ``ParserEngine`` — texts → classes → chunk grids bucketed to
             power-of-two chunk lengths, grouped into power-of-two batches,
-            one core call per bucket, SLPF assembly on the host.  With
-            tracing on (``obs``), the same calls with a span at each
-            boundary: the grid (``phase.pad``), each of the core's three
-            phases, the copy back (``phase.d2h``) and each text's assembly
-            (``phase.host_build``); on the card the device's parts are
-            timed by CUDA events, with no synchronize.  Built with
+            one core call per bucket, then each text's (n+1, ℓ) bool
+            forest columns unpacked on the engine's device
+            (``kernels/ops.unpack_columns``: one launch a group on the card)
+            and copied to the host (through a pinned staging buffer the
+            engine keeps) into a fresh array of its own, which its SLPF
+            keeps.  With tracing on (``obs``), the same calls with a span at
+            each boundary: the grid (``phase.pad``), each of the core's
+            three phases, the unpack and copy back (``phase.d2h``) and each
+            text's SLPF (``phase.host_build``); on the card the device's
+            parts are timed by CUDA events, with no synchronize.  Built with
             ``mesh=`` (``launch/mesh.py``), its ``parse`` /
             ``parse_batch`` run through the mesh layer, ``dist``
             (``core/distributed.py``).
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import resource
+import threading
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -44,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels import ops
 from ..kernels.checks import check_class_ids
 from ..obs import ObsHandle
 from .backend import ParserBackend, get_backend, next_pow2, pack_columns_u32
@@ -204,7 +210,8 @@ def unpack_columns(packed: np.ndarray, n: int) -> np.ndarray:
     """(rows, W) uint32 little-endian-bit words → (rows, n) bool.
 
     Equal to ``matrices.unpack_bits(packed, n)``, through byte-wise
-    ``np.unpackbits`` (the host side of a multi-megabyte parse)."""
+    ``np.unpackbits``: the host's route, for what gathers packed columns
+    on the host (the mesh, the fleet, a stream's ``result()``)."""
     as_bytes = np.ascontiguousarray(packed, dtype="<u4").view(np.uint8)
     bits = np.unpackbits(as_bytes, axis=-1, bitorder="little")
     return bits[:, :n].astype(bool)
@@ -263,6 +270,10 @@ class ParserEngine:
         self.phases = PhasePrograms(self.backend, on_shape=self._note_phase_shape)
         self._core = make_parse_core(self.backend)
         self._cost_memo: Dict[Tuple[int, int], Dict[str, object]] = {}
+        # pinned host bytes the forest's columns come back through (card
+        # only), kept across parses and replaced by a larger one as needed
+        self._staging: Optional[torch.Tensor] = None
+        self._staging_lock = threading.Lock()
 
     @property
     def compile_count(self) -> int:
@@ -380,21 +391,52 @@ class ParserEngine:
                 chunks = self.chunks_tensor(batch)
                 sp.set_attr("bytes", batch.nbytes)
             col0s, colss = self.run(chunks, partial(obs.phase, self.device, bucket=[c, k]))
+            lengths = tuple(len(classes_list[i]) for i in idxs)
             with obs.phase(self.device, "phase.d2h", drains=True,
-                           bytes=col0s.nbytes + colss.nbytes):
-                col0s = col0s.cpu().numpy()
-                colss = colss.cpu().numpy()
+                           bytes=sum(n + 1 for n in lengths) * self.tables.ell):
+                columns = self._host_columns(col0s, colss, lengths)
+            where = "device" if self.device.type == "cuda" else "host"
             for row, i in enumerate(idxs):
-                with obs.span("phase.host_build", n_chars=len(classes_list[i])) as sp:
+                with obs.span("phase.host_build", n_chars=lengths[row], unpacked_on=where) as sp:
                     faults = _minor_faults() if traced else 0
-                    results[i] = self._assemble(col0s[row], colss[row], classes_list[i])
+                    results[i] = SLPF(table=self.table, columns=columns[row],
+                                      classes=classes_list[i])
                     if traced:
                         sp.set_attr("minor_faults", _minor_faults() - faults)
             obs.settle(self.device)
         return results  # type: ignore[return-value]
 
+    def _host_columns(self, col0s, colss, lengths) -> List[np.ndarray]:
+        """A group's forest columns on the host, (n+1, ℓ) bool a text, from
+        its packed C₀ (B, W) and columns (B, c, k, W) on the engine's device:
+        unpacked there by ``ops.unpack_columns`` (the kernel on the card,
+        its plain version on the CPU).  From the card, the texts' columns
+        come back into the engine's pinned staging buffer, the copies issued
+        back to back and waited for once, then each is copied on the host
+        into a fresh array of its own (PyTorch's copy, on every core)."""
+        cols = ops.unpack_columns(col0s, colss, lengths=lengths, ell=self.tables.ell)
+        if self.device.type != "cuda":
+            return [t.numpy() for t in cols]
+        n_bytes = sum(t.numel() for t in cols)
+        with self._staging_lock:
+            if self._staging is None or self._staging.numel() < n_bytes:
+                self._staging = None            # the smaller buffer goes first
+                self._staging = torch.empty(n_bytes, dtype=torch.bool, pin_memory=True)
+            staged, at = [], 0
+            for t in cols:
+                staged.append(self._staging[at:at + t.numel()].view(t.shape))
+                staged[-1].copy_(t, non_blocking=True)
+                at += t.numel()
+            torch.cuda.current_stream(self.device).synchronize()
+            host = [np.empty(tuple(t.shape), dtype=bool) for t in staged]
+            for h, t in zip(host, staged):
+                torch.from_numpy(h).copy_(t)
+        return host
+
     def _assemble(self, col0, cols, classes) -> SLPF:
-        """Packed C₀ (W,) and columns (c, k, W) → the SLPF of ``classes``."""
+        """Packed C₀ (W,) and columns (c, k, W) on the host → the SLPF of
+        ``classes``, unpacked here (the mesh's route, whose ranks gather
+        host arrays)."""
         n = len(classes)
         W = cols.shape[-1]
         packed = np.concatenate(

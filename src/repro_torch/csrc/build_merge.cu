@@ -82,6 +82,24 @@
 // tenant's tables and walks that tenant's chunks, so a warp's 32/L chunks
 // are always one tenant's.  The row kernel reads chunk c's rows from tenant
 // c / cpt's packed tables.  T = 1 is a plain launch.
+//
+// unpack_columns_kernel replaces no TPU kernel: the reference unpacks the
+// packed columns on the host (src/repro/core/engine.py, _assemble), and the
+// port did too until the host's pass over a 1 MiB text (a fresh
+// (n+1, 32 W) byte array, then a bool copy of its first ell columns) took
+// four fifths of a parse.  It writes the forest the SLPF keeps, (n+1, ell)
+// bool, on the card, so that only those bytes come back, in one copy a text.
+// One launch covers a bucket group: batch row b's C0 (W words) and its
+// (c * k, W) packed rows, of which the first n_b are the text's.  Forest row
+// 0 is C0 and row r is packed row r - 1; byte j of a row is bit j % 32 of
+// word j / 32 (little-endian).  A block stages 128 rows' words in shared
+// memory by coalesced loads (every word of the tile read once, then shared
+// by every thread that writes a byte of it) and writes the tile's 128 * ell
+// bytes, contiguous in the output, as coalesced 16-byte stores: a thread
+// builds its 16 bytes from at most a few words, carried in a register as j
+// runs along a row.  Each batch row's bytes start at a multiple of 16, so
+// every store is aligned; the last one of a batch row may run into that
+// padding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -489,6 +507,51 @@ __global__ void build_merge_pad_kernel(const int32_t* __restrict__ ids,
   }
 }
 
+// ========================================================= unpack kernel
+
+constexpr int UNPACK_ROWS = 128;     // forest rows a block stages at a time
+constexpr int UNPACK_THREADS = 256;
+
+// Batch row b = blockIdx.y: meta[2b] forest rows (n_b + 1) from C0 col0[b]
+// (W words) and the packed rows cols[b] (rows_cap = c * k rows of W words),
+// as ell bytes a row at out + meta[2b + 1] (a multiple of 16).
+__global__ void __launch_bounds__(UNPACK_THREADS)
+unpack_columns_kernel(const uint32_t* __restrict__ col0, const uint32_t* __restrict__ cols,
+                      const long long* __restrict__ meta, uint8_t* __restrict__ out, int W,
+                      int ell, long long rows_cap) {
+  extern __shared__ uint32_t sw[];                  // [UNPACK_ROWS][W]
+  const long long b = blockIdx.y;
+  const long long rows = __ldg(meta + 2 * b);
+  uint8_t* const base = out + __ldg(meta + 2 * b + 1);
+  for (long long r0 = static_cast<long long>(blockIdx.x) * UNPACK_ROWS; r0 < rows;
+       r0 += static_cast<long long>(gridDim.x) * UNPACK_ROWS) {
+    const int nr = rows - r0 < UNPACK_ROWS ? static_cast<int>(rows - r0) : UNPACK_ROWS;
+    // word e of the tile is word e of packed row r0 - 1 onwards (row 0: C0)
+    const long long from = (b * rows_cap + r0 - 1) * W;
+    __syncthreads();                                // the previous tile is written
+    for (int e = threadIdx.x; e < nr * W; e += UNPACK_THREADS)
+      sw[e] = r0 == 0 && e < W ? __ldg(col0 + b * W + e) : __ldg(cols + from + e);
+    __syncthreads();
+    uint8_t* dst = base + r0 * ell;
+    const int n_bytes = nr * ell;
+    for (int q = 16 * threadIdx.x; q < n_bytes; q += 16 * UNPACK_THREADS) {
+      int r = q / ell, j = q - r * ell;
+      uint32_t word = sw[r * W + (j >> 5)];
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (r < nr) v[i >> 2] |= ((word >> (j & 31)) & 1u) << (8 * (i & 3));
+        if (++j == ell) {
+          j = 0;
+          ++r;
+        }
+        if ((j & 31) == 0 && r < nr) word = sw[r * W + (j >> 5)];
+      }
+      *reinterpret_cast<uint4*>(dst + q) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
 }  // namespace
 
 // The row kernel.  nr, nc (n_tenants, n_classes, lp, W) int32: N packed
@@ -587,5 +650,27 @@ extern "C" int repro_build_merge_pad(const int32_t* ids, const int32_t* ident,
                            static_cast<cudaStream_t>(stream)>>>(
       ids, ident, entry_f, entry_b, live, out, n_chunks, k, lp, lw, n_classes,
       n_chunks / n_tenants);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forests of a bucket group (see unpack_columns_kernel): col0 (>= n_rows,
+// W) and cols (>= n_rows, rows_cap, W) int32 words; meta (n_rows, 2) int64:
+// forest rows (at most rows_cap + 1) and byte offset (a multiple of 16) of
+// each batch row; out holds each batch row's rows * ell bytes rounded up to
+// 16.  max_rows is the largest forest; 1 <= ell <= 32 W, n_rows <= 65535.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int repro_unpack_columns(const uint32_t* col0, const uint32_t* cols,
+                                    const long long* meta, uint8_t* out, int n_rows, int W,
+                                    int ell, long long rows_cap, long long max_rows,
+                                    void* stream) {
+  if (n_rows <= 0 || max_rows <= 0) return 0;
+  if (W < 1 || ell < 1 || ell > 32 * W || n_rows > 65535 || max_rows > rows_cap + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (max_rows + UNPACK_ROWS - 1) / UNPACK_ROWS;
+  const dim3 grid(static_cast<unsigned>(tiles < 65535 ? tiles : 65535),
+                  static_cast<unsigned>(n_rows));
+  unpack_columns_kernel<<<grid, UNPACK_THREADS, UNPACK_ROWS * W * sizeof(uint32_t),
+                          static_cast<cudaStream_t>(stream)>>>(col0, cols, meta, out, W, ell,
+                                                               rows_cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 """Wrappers of the port's CUDA kernels, and their build.
 
-Seven kernels in six CUDA C++ files under ``repro_torch/csrc/``, each with a
+Eight kernels in six CUDA C++ files under ``repro_torch/csrc/``, each with a
 plain C interface and a launcher module here.  K1–K5 are the parser's, K6 and
-K7 the LM serving path's:
+K7 the LM serving path's, and ``unpack_columns`` writes the parse's forest
+columns on the card (it replaces no TPU kernel):
 
   ``reach_chunk_product``         K1, ``csrc/reach.cu``            (``reach.py``)
   ``build_merge_packed``          K2, ``csrc/build_merge.cu``      (``build.py``)
@@ -11,6 +12,7 @@ K7 the LM serving path's:
   ``sparse_reach_rows``           K5, ``csrc/packed_reach.cu``     (``sparse_reach.py``)
   ``flash_attention``             K6, ``csrc/flash_attention.cu``  (``flash_attention.py``)
   ``ssd_chunk``                   K7, ``csrc/ssd_chunk.cu``        (``ssd_chunk.py``)
+  ``unpack_columns``                  ``csrc/build_merge.cu``      (``unpack.py``)
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library at first use — one ``nvcc`` per source, all started together — under
@@ -24,7 +26,8 @@ Boolean matrices): its tensor-core kernel rounds them to bf16, exact on
 Every wrapper has the signature of its plain version in ``kernels/ref.py``:
 tensors (K7's S_prev may be None for ``outputs="state"``), then static
 keyword arguments (K6's ``causal``, ``window`` and ``softcap``, K7's
-``outputs``).  Given CPU tensors it runs that plain version; given CUDA
+``outputs``, ``unpack_columns``' ``lengths`` and ``ell``).  Given CPU
+tensors it runs that plain version; given CUDA
 tensors it checks them, launches the kernel on the current stream, raises
 if the launch fails, and adds one to its ``launches`` count (K7's also to
 the count of its ``outputs`` mode).  A CUDA tensor never falls back to the
@@ -73,6 +76,7 @@ from . import reach as _reach
 from . import semiring as _semiring
 from . import sparse_reach as _sparse_reach
 from . import ssd_chunk as _ssd
+from . import unpack as _unpack
 from .checks import check_cuda
 from .ref import (
     build_merge_packed_ref,
@@ -82,6 +86,7 @@ from .ref import (
     semiring_matmul_ref,
     sparse_reach_rows_ref,
     ssd_chunk_ref,
+    unpack_columns_ref,
 )
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -91,7 +96,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",   # registers, shared memory and spills of each kernel, kept in the build log
 ]
-_LAUNCHERS = (_reach, _build, _semiring, _packed_reach, _sparse_reach, _flash, _ssd)
+_LAUNCHERS = (_reach, _build, _semiring, _packed_reach, _sparse_reach, _flash, _ssd, _unpack)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -252,7 +257,7 @@ def _empty_like_spec(like: torch.Tensor, spec):
     (shape, dtype), or a tuple of them and None."""
     if spec is None:
         return None
-    if isinstance(spec[1], torch.dtype):
+    if len(spec) == 2 and isinstance(spec[1], torch.dtype):
         return like.new_empty(spec[0], dtype=spec[1])
     return tuple(_empty_like_spec(like, s) for s in spec)
 
@@ -265,6 +270,8 @@ packed_reach_chunk_product = KernelWrapper(
     "packed_reach_chunk_product", packed_reach_chunk_product_ref, _packed_reach
 )
 sparse_reach_rows = KernelWrapper("sparse_reach_rows", sparse_reach_rows_ref, _sparse_reach)
+# a bucket group's (n+1, ℓ) bool forest columns, one tensor a text
+unpack_columns = KernelWrapper("unpack_columns", unpack_columns_ref, _unpack)
 
 
 def _recompute_grads(ctx, plain, static: Dict[str, Any], grads_out: Sequence) -> list:
@@ -336,6 +343,7 @@ KERNELS = (
     sparse_reach_rows,
     flash_attention,
     ssd_chunk,
+    unpack_columns,
 )
 
 

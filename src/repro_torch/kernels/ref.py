@@ -15,7 +15,7 @@ inputs (``_wide``: the gradient checks' type).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -123,6 +123,23 @@ def sparse_reach_rows_ref(Np: torch.Tensor, ids: torch.Tensor, R0: torch.Tensor)
     for t in range(ids.shape[1]):
         R = packed_semiring_matmul(class_tables(Np, ids[:, t]), R)
     return R
+
+
+def unpack_columns_ref(
+    col0: torch.Tensor, cols: torch.Tensor, *, lengths: Sequence[int], ell: int
+) -> Tuple[torch.Tensor, ...]:
+    """Each text's (n+1, ℓ) bool forest columns from a bucket group's packed
+    words: col0 (B, W), cols (B, c, k, W) int32, the first len(``lengths``)
+    batch rows texts of those lengths.  Row 0 is C₀ and row r packed row
+    r − 1; column j is bit j % 32 of word j // 32."""
+    W = col0.shape[-1]
+    j = torch.arange(ell, device=col0.device)
+    word, shift = j // 32, (j % 32).to(torch.int32)
+    out = []
+    for b, n in enumerate(lengths):
+        words = torch.cat((col0[b, None], cols[b].reshape(-1, W)[:n]))
+        out.append(((words[:, word] >> shift) & 1).to(torch.bool))
+    return tuple(out)
 
 
 def flash_attention_ref(

@@ -50,10 +50,13 @@ Span taxonomy.  A parse (``Parser.parse``, ``submit``, ``parse_batch``):
   phase.join               exclusive scan + C₀         } device intervals on the
   phase.build_merge        builder&merger, packed      } card (``bucket``,
                                                        } ``mem_allocated_bytes``)
-  phase.d2h                the packed columns' copy back (``bytes``; on the card
+  phase.d2h                the forest's columns unpacked (on the card: one
+                           launch) and copied back into a fresh array a text
+                           (``bytes``: the columns' bytes; on the card
                            ``host_wait_ms``: the host's wait before it began)
-  phase.host_build         one text's SLPF assembly on the host: concat, unpack,
-                           wrap (``n_chars``, ``minor_faults``)
+  phase.host_build         one text's SLPF around its columns (``n_chars``,
+                           ``minor_faults``, ``unpacked_on``: "device" on the
+                           card, else "host")
   phase.device_parse       a mesh engine's whole distributed parse (queue-free)
 
 A stream (``ParserStream``, ``StreamService``):

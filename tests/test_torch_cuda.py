@@ -1223,6 +1223,93 @@ def test_stream_service_step_is_one_reach_launch(dev):
         assert np.array_equal(st.result().forest.pack(), cold.parse("abab").forest.pack())
 
 
+# ------------------------------------------------ the forest's columns on the card
+
+# (ℓ, W) of the scans' buckets, 1024 chunks × 1024: TRAFFIC's and e125's
+UNPACK_SHAPES = [(37, 2), (257, 9)]
+
+
+@pytest.mark.parametrize("ell,W", UNPACK_SHAPES)
+def test_unpack_columns_kernel_equals_plain_version(dev, ell, W):
+    """The unpack kernel over a group of B = 4 batch rows at the scans'
+    bucket, texts of ragged lengths, against its plain version on the card:
+    one launch, each text's (n+1, ℓ) bool columns equal."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ell)
+    B, c, k = 4, 1024, 1024
+    lo, hi = -(2**31), 2**31 - 1
+    col0 = torch.randint(lo, hi, (B, W), generator=gen, dtype=torch.int32, device=dev)
+    cols = torch.randint(lo, hi, (B, c, k, W), generator=gen, dtype=torch.int32, device=dev)
+    lengths = (c * k, c * k - 777, 300_001, 5)
+    ops.reset_launches()
+    got = ops.unpack_columns(col0, cols, lengths=lengths, ell=ell)
+    assert ops.unpack_columns.launches == 1
+    want = ops.unpack_columns.plain(col0, cols, lengths=lengths, ell=ell)
+    for n, g, w in zip(lengths, got, want):
+        assert g.is_contiguous() and g.dtype == torch.bool and g.shape == (n + 1, ell)
+        assert torch.equal(g, w), n
+
+
+def test_parse_batch_unpacks_on_the_card(dev):
+    """A traced ``parse_batch`` of ragged texts in three buckets makes one
+    unpack launch a bucket, its host builds read ``unpacked_on`` "device",
+    and its columns equal the host route's (``_assemble``)."""
+    p = Parser(ParserConfig(regex="(a|b|ab)+", n_chunks=8, obs={"enabled": True}), device=dev)
+    eng = p.engine
+    texts = ["ab" * 50 + "a", "abba" * 30, "b" * 7, "ab" * 3000 + "b"]
+    ops.reset_launches()
+    results = p.parse_batch(texts)
+    torch.cuda.synchronize()
+    buckets = {eng.bucket_shape(len(t), 8) for t in texts}
+    assert ops.unpack_columns.launches == len(buckets) == 3
+    builds = [s for s in p.obs.tracer.spans if s.name == "phase.host_build"]
+    assert len(builds) == len(texts) and {s.attrs["unpacked_on"] for s in builds} == {"device"}
+    for text, r in zip(texts, results):
+        classes = eng.classes_of_text(text)
+        c, k = eng.bucket_shape(len(classes), 8)
+        col0, cols = eng.run(eng.chunks_tensor(eng._pad_to(classes, c, k)))
+        want = eng._assemble(col0.cpu().numpy(), cols.cpu().numpy(), classes)
+        assert np.array_equal(r.forest.columns, want.columns), len(text)
+        assert r.forest.columns.flags.c_contiguous and r.forest.columns.flags.writeable
+    p.close()
+
+
+def test_engine_parses_from_threads_through_one_staging_buffer(dev):
+    """Threads parsing on one engine at once (more threads than cores, a
+    short switch interval), in buckets of several sizes: every result
+    equals the single-threaded parse of its text."""
+    import os
+    import sys
+    import threading
+
+    eng = Parser(ParserConfig(regex="(a|b|ab)+", n_chunks=8), device=dev).engine
+    texts = ["ab" * (40 + 300 * i) + "a" for i in range(6)]
+    want = [eng.parse(t, n_chunks=8).columns for t in texts]
+    errors = []
+
+    def worker(j):
+        try:
+            for r in range(6):
+                i = (j + r) % len(texts)
+                if not np.array_equal(eng.parse(texts[i], n_chunks=8).columns, want[i]):
+                    errors.append((j, r))
+        except Exception as e:                  # reported by the assertion below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(j,)) for j in range((os.cpu_count() or 4) + 2)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+
+
 # ------------------------------------------------- softcap and training
 
 
@@ -1349,4 +1436,6 @@ def test_phase_static_cost_models_the_real_launches(dev, backend):
     ops.reset_launches()
     assert p.parse(text).ok
     torch.cuda.synchronize()
-    assert {name: n for name, n in ops.launch_counts().items() if n} == modeled
+    # the phase programs' launches, then the forest's unpack (no phase program)
+    assert {name: n for name, n in ops.launch_counts().items() if n} == {
+        **modeled, "unpack_columns": 1}

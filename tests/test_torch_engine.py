@@ -23,6 +23,7 @@ from repro_torch.core.engine import (  # noqa: E402
     PhasePrograms,
     make_parse_core,
 )
+from repro_torch.obs import ObsConfig, ObsHandle  # noqa: E402
 
 _engines: dict = {}
 
@@ -118,6 +119,37 @@ def test_batched_core_equals_per_row_core():
     for b in range(3):
         col0, cols = core(t.N, t.I, t.F, batch[b])
         assert torch.equal(col0s[b], col0) and torch.equal(colss[b], cols)
+
+
+def test_parse_batch_columns_equal_the_host_route():
+    """``parse_batch`` over ragged texts in two buckets (columns unpacked by
+    ``ops.unpack_columns``'s plain version) against ``_assemble``'s host
+    unpack of the same core's packed words: equal columns, each result's its
+    own C-contiguous, writable bool array, and an earlier parse's columns
+    unchanged by a later one."""
+    key = "(a|b|ab)+"
+    obs = ObsHandle.from_config(ObsConfig(enabled=True))
+    eng = ParserEngine(artifacts(key)[1], backend="torch", device="cpu", obs=obs)
+    batch = ["ab" * 5 + "a", "b", "", "abba" * 20 + "b", "ab" * 3]
+    results = eng.parse_batch(batch, n_chunks=N_CHUNKS)
+    builds = [s for s in obs.tracer.spans if s.name == "phase.host_build"]
+    assert len(builds) == len(batch) and {s.attrs["unpacked_on"] for s in builds} == {"host"}
+    kept = [r.columns.copy() for r in results]
+    for text, r in zip(batch, results):
+        classes = eng.classes_of_text(text)
+        c, k = eng.bucket_shape(len(classes), N_CHUNKS)
+        col0, cols = eng.run(eng.chunks_tensor(eng._pad_to(classes, c, k)))
+        want = eng._assemble(col0.numpy(), cols.numpy(), classes)
+        assert np.array_equal(r.columns, want.columns), text
+        assert r.columns.dtype == np.bool_ and r.columns.shape == (len(classes) + 1, eng.tables.ell)
+        assert r.columns.flags.c_contiguous and r.columns.flags.writeable
+    for i, a in enumerate(results):
+        for b in results[i + 1:]:
+            assert not np.shares_memory(a.columns, b.columns)
+    later = eng.parse_batch(["ba" * 7, "abab"], n_chunks=N_CHUNKS)
+    for r, before in zip(results, kept):
+        assert np.array_equal(r.columns, before)
+    assert all(not np.shares_memory(a.columns, b.columns) for a in results for b in later)
 
 
 def test_bucket_shape_and_compile_count_match_reference():

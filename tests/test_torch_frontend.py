@@ -16,6 +16,7 @@ from repro.core.slpf import SLPF as RefSLPF  # noqa: E402
 from repro_torch.core import matrices as port_matrices  # noqa: E402
 from repro_torch.core.engine import unpack_columns  # noqa: E402
 from repro_torch.core.slpf import SLPF as PortSLPF  # noqa: E402
+from repro_torch.kernels.ref import unpack_columns_ref  # noqa: E402
 
 
 @pytest.mark.parametrize("key", CORPUS)
@@ -81,6 +82,27 @@ def test_unpack_columns_equals_unpack_bits(n):
     packed = ref_pack_bits(bits)
     assert np.array_equal(unpack_columns(packed, n), bits)
     assert np.array_equal(unpack_columns(packed, n), port_matrices.unpack_bits(packed, n))
+
+
+@pytest.mark.parametrize("ell", [1, 31, 32, 33, 37, 257, 288])
+def test_unpack_columns_ref_equals_unpack_columns(ell):
+    """The plain version of the card's unpack over a bucket group (B = 4 batch
+    rows, three of them texts of ragged lengths, one padding) against the
+    host's ``unpack_columns`` of each text's C₀ and packed rows; W is ℓ's
+    words, or one more where ℓ is odd (a padded ℓp)."""
+    rng = np.random.default_rng(ell)
+    W = -(-ell // 32) + ell % 2
+    B, c, k = 4, 3, 4
+    col0 = rng.integers(0, 2**32, size=(B, W), dtype=np.uint32)
+    cols = rng.integers(0, 2**32, size=(B, c, k, W), dtype=np.uint32)
+    lengths = (c * k, 7, 0)
+    got = unpack_columns_ref(torch.from_numpy(col0.view(np.int32)),
+                             torch.from_numpy(cols.view(np.int32)), lengths=lengths, ell=ell)
+    assert len(got) == len(lengths)
+    for b, n in enumerate(lengths):
+        packed = np.concatenate([col0[b, None], cols[b].reshape(-1, W)[:n]])
+        assert got[b].dtype == torch.bool and tuple(got[b].shape) == (n + 1, ell)
+        assert np.array_equal(got[b].numpy(), unpack_columns(packed, ell)), (b, n)
 
 
 @pytest.mark.parametrize("key", CORPUS)

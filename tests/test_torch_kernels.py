@@ -36,6 +36,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     semiring_matmul_ref,
     sparse_reach_rows_ref,
     ssd_chunk_ref,
+    unpack_columns_ref,
 )
 
 PATTERNS = ["(ab|a)*", "(a|b|ab)+", "x(yz|y)*z?"]
@@ -123,12 +124,21 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
         assert torch.equal(got, want)
     _, S_c = ops.ssd_chunk(x, cs, x, x, None, outputs="state")
     assert torch.equal(S_c, ssd_chunk_ref(x, cs, x, x, S)[1])
-    assert [k.launches for k in ops.KERNELS] == [0] * 7
+    words = ops.build_merge_packed(Nt, ids, ef, eb)[None]
+    for got, want in zip(ops.unpack_columns(words[:, 0, 0], words, lengths=(7,), ell=5),
+                         unpack_columns_ref(words[:, 0, 0], words, lengths=(7,), ell=5)):
+        assert torch.equal(got, want)
+    meta = [torch.empty((2,) + tuple(t.shape[1:]), dtype=t.dtype, device="meta")
+            for t in (words[:, 0, 0], words)]
+    for lengths in ((7,), (7, 0)):           # one output, and a tuple of them, modeled
+        got = ops.unpack_columns(*meta, lengths=lengths, ell=5)
+        assert [tuple(t.shape) for t in got] == [(n + 1, 5) for n in lengths]
+    assert [k.launches for k in ops.KERNELS] == [0] * 8
     assert ops.launch_counts() == {k.name: 0 for k in ops.KERNELS}
     assert {k.plain for k in ops.KERNELS} == {
         reach_chunk_product_ref, build_merge_packed_ref, semiring_matmul_ref,
         packed_reach_chunk_product_ref, sparse_reach_rows_ref, flash_attention_ref,
-        ssd_chunk_ref,
+        ssd_chunk_ref, unpack_columns_ref,
     }
 
 
